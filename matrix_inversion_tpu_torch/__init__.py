@@ -1,0 +1,41 @@
+"""matrix_inversion_tpu_torch -- the PyTorch/CUDA port of matrix_inversion_tpu.
+
+Exact batched matrix inversion in QFloat fixed-point arithmetic, with the
+same semantics, bit for bit, as the JAX package ``matrix_inversion_tpu``
+(the reference, kept beside it).  This slice ports the packed-I/O main
+path:
+
+* ``config``        -- QFloatParams and the Low/Medium/Medium+/High presets;
+* ``core.qfloat``   -- the Zero / SignedBinary / QFloatBase dispatch layer;
+* ``ops.packed``    -- PackedQFloat on int64 tensors (eager path, and the
+  semantic spec of the kernel);
+* ``ops.emit``      -- emits the kernel body as C++ from the circuit;
+* ``ops.fused_inverse`` + ``csrc/`` -- the fused whole-inversion CUDA
+  kernel for sm_90a, its wrapper and its plain version;
+* ``models``        -- pivoting/LU/substitution/2x2 circuit, packed
+  marshalling, the packed-I/O entry point;
+* ``runtime.api``   -- BatchedMatrixInversion.
+
+The package imports torch and numpy, never jax.
+"""
+
+from .config import HIGH, LOW, MEDIUM, MEDIUM_PLUS, PRESETS, QFloatParams
+from .core.qfloat import QFloatBase, SignedBinary, Zero
+from .models.inverse import qfloat_matrix_inverse_packed_io
+from .ops.packed import PackedQFloat
+from .runtime.api import BatchedMatrixInversion
+
+__all__ = [
+    "QFloatParams",
+    "PRESETS",
+    "LOW",
+    "MEDIUM",
+    "MEDIUM_PLUS",
+    "HIGH",
+    "QFloatBase",
+    "SignedBinary",
+    "Zero",
+    "PackedQFloat",
+    "qfloat_matrix_inverse_packed_io",
+    "BatchedMatrixInversion",
+]

@@ -1,0 +1,162 @@
+// qfloat_cell.cuh -- QFloat cell arithmetic on 64-bit words.
+//
+// The primitives the fused inversion kernel (fused_inverse.cu) is built
+// from.  A cell is a magnitude (uint64_t, below 2**62) and a sign (int in
+// {-1, 0, +1}; sign 0 makes the value act as zero).  Formats (digit bits,
+// length, integer digits) are template arguments, fixed when the kernel
+// body is emitted (ops/emit.py), so every mask and shift is a constant.
+//
+// Each primitive gives the same bits as its JAX counterpart in
+// matrix_inversion_tpu/ops/pair_qfloat.py and ops/pair_math.py.  Those
+// work on uint32 (hi, lo) pairs only because Mosaic has no 64-bit
+// integers; here a cell is one register pair and wide products use
+// unsigned __int128.
+//
+// Compiled by nvcc for the card, and by a host C++ compiler (with
+// __host__/__device__ defined away) so that the CPU tests can run the
+// same code.
+#pragma once
+
+#include <stdint.h>
+
+#ifndef __CUDACC__
+#define __host__
+#define __device__
+#define __forceinline__ inline
+#endif
+
+#define QI_FN __host__ __device__ __forceinline__
+
+namespace qcell {
+
+typedef unsigned __int128 u128;
+
+struct Cell {
+  uint64_t m;
+  int s;
+};
+
+__host__ __device__ constexpr uint64_t low_mask(int nbits) {
+  return (uint64_t(1) << nbits) - 1;
+}
+
+// mag * sign for sign in {-1, 0, +1}, as a two's-complement word.
+QI_FN uint64_t signed_word(uint64_t m, int s) {
+  return s == 0 ? 0 : (s < 0 ? uint64_t(0) - m : m);
+}
+
+// Signed add + tidy (pair_qfloat.py:266-322; packed.py:313-325): v is the
+// sum of the signed values, mag = |v| & mask, and the sign is -1 only when
+// v < 0 and mag != 0.
+template <int BITS, int LEN>
+QI_FN Cell sadd(uint64_t am, int as, uint64_t bm, int bs) {
+  constexpr uint64_t kMask = low_mask(BITS * LEN);
+  const uint64_t v = signed_word(am, as) + signed_word(bm, bs);
+  const bool neg = int64_t(v) < 0;
+  const uint64_t m = (neg ? uint64_t(0) - v : v) & kMask;
+  Cell r;
+  r.m = m;
+  r.s = (neg && m != 0) ? -1 : 1;
+  return r;
+}
+
+// a > b on (mag, sign) cells (pair_qfloat.py:247-263): magnitudes compare
+// as int64, as the eager int64 path does.
+QI_FN int gt(uint64_t am, int as, uint64_t bm, int bs) {
+  if (as == bs) return int(int64_t(am) > int64_t(bm)) ^ int(as < 0 && am != bm);
+  return int(as > bs);
+}
+
+// Magnitude-only select (pair_qfloat.py:511-516): the sign is NOT blended,
+// bug-compatible with the reference's argmax.
+QI_FN uint64_t blend(int cond, uint64_t other_m, uint64_t self_m) {
+  return cond != 0 ? other_m : self_m;
+}
+
+// Crop/pad to a new (len, ints) format (pair_qfloat.py:210-228).
+template <int BITS, int LEN, int INTS, int NEWLEN, int NEWINTS>
+QI_FN uint64_t set_len_ints(uint64_t m) {
+  constexpr int kLen =
+      NEWINTS < INTS ? LEN - (INTS - NEWINTS) : LEN + (NEWINTS - INTS);
+  constexpr int kDiff = NEWLEN - kLen;
+  static_assert(BITS * kDiff < 64 && BITS * -kDiff < 64, "shift out of range");
+  if constexpr (NEWINTS < INTS) m &= low_mask(BITS * kLen);
+  if constexpr (kDiff > 0) m <<= BITS * kDiff;
+  if constexpr (kDiff < 0) m >>= BITS * -kDiff;
+  return m;
+}
+
+// The cropped partial-product sum of the reference's windowed multiply
+// (reference qfloat.py:995-1016), in the algebraic form of
+// pair_math.mul_truncated (pair_math.py:320-399): with
+// t1 = BITS * (frac_a + frac_b - frac_new),
+//   out = ((a*b - C) >> t1) & out_mask,
+//   C   = sum over digits p of a below t1 of a_p * 2**(BITS*p) * (b mod 2**(t1 - BITS*p)),
+// which floors every partial product below the window separately.  The
+// 128-bit product holds a*b exactly, so the uint32-word conditions of
+// pair_math.py:371-376 do not apply.
+template <int BITS, int A_LEN, int A_INTS, int B_LEN, int B_INTS, int NEWLEN,
+          int NEWINTS>
+QI_FN uint64_t mul(uint64_t a, uint64_t b) {
+  constexpr int kTDig = (A_LEN - A_INTS) + (B_LEN - B_INTS) - (NEWLEN - NEWINTS);
+  constexpr int kT1 = BITS * kTDig;
+  constexpr uint64_t kOut = low_mask(BITS * NEWLEN);
+  if constexpr (kT1 <= 0) {
+    // widening output (pair_math.py:351-354): every product bit is kept
+    static_assert(-kT1 < 64, "shift out of range");
+    return ((a * b) << -kT1) & kOut;
+  } else {
+    static_assert(kT1 < 128, "shift out of range");
+    constexpr int kNt = kTDig < A_LEN ? kTDig : A_LEN;
+    constexpr u128 kMaskT1 = (u128(1) << kT1) - 1;
+    constexpr uint64_t kDigit = low_mask(BITS);
+    u128 c = 0;
+#pragma unroll
+    for (int p = 0; p < kNt; ++p) {
+      const uint64_t d = (a >> (BITS * p)) & kDigit;
+      const u128 w = (u128(b) << (BITS * p)) & kMaskT1;
+      if constexpr (BITS == 1) {
+        c += w & (u128(0) - u128(d));
+      } else {
+        c += w * d;
+      }
+    }
+    return uint64_t((u128(a) * b - c) >> kT1) & kOut;
+  }
+}
+
+// Exact quotient of (a << BITS*frac) by d, cropped to LEN digits
+// (pair_qfloat.py:445-481).  A zero divisor saturates every quotient digit
+// (reference base_p_arrays.py:189-201).
+template <int BITS, int LEN, int INTS>
+QI_FN uint64_t divide(uint64_t a, uint64_t d) {
+  constexpr int kFp = LEN - INTS;
+  constexpr int kNBits = BITS * (LEN + kFp);
+  static_assert(kNBits <= 62, "dividend too wide");
+  const uint64_t q = d == 0 ? low_mask(kNBits) : (a << (BITS * kFp)) / d;
+  return q & low_mask(BITS * LEN);
+}
+
+// Reciprocal magnitude at a new format (pair_qfloat.py:483-504).
+template <int BITS, int LEN, int INTS, int NEWLEN, int NEWINTS>
+QI_FN uint64_t invert(uint64_t d) {
+  constexpr int kFp = NEWLEN - NEWINTS;
+  constexpr int kFpSelf = LEN - INTS;
+  constexpr int kNDigits = 1 + kFpSelf + kFp;
+  static_assert(BITS * kNDigits <= 62, "dividend too wide");
+  uint64_t q = d == 0 ? low_mask(BITS * kNDigits)
+                      : (uint64_t(1) << (BITS * (kFpSelf + kFp))) / d;
+  if constexpr (NEWLEN < kNDigits) q &= low_mask(BITS * NEWLEN);
+  return q;
+}
+
+// Division by a SignedBinary v (pair_qfloat.py:448-464): v = 0 saturates
+// the magnitude and keeps the sign, otherwise v becomes the sign.
+template <int BITS, int LEN>
+QI_FN uint64_t sb_div_mag(uint64_t m, int v) {
+  return v == 0 ? low_mask(BITS * LEN) : m;
+}
+
+QI_FN int sb_div_sign(int s, int v) { return v == 0 ? s : v; }
+
+}  // namespace qcell

@@ -1,0 +1,185 @@
+"""The fused whole-inversion kernel (K1): CUDA build, wrapper, plain version.
+
+Replaces ``matrix_inversion_tpu/ops/fused_inverse.py::_fused_kernel``.  The
+kernel (``csrc/fused_inverse.cu``) runs the entire batched QFloat inversion,
+one thread per matrix, on cells in registers; its body is emitted per
+configuration from the circuit by :mod:`.emit`.  Without it the eager
+PyTorch circuit makes thousands of passes of batch-sized int64 tensors
+through device memory.
+
+:func:`fused_matrix_inverse` keeps the contract of the JAX wrapper:
+``(..., n*n)`` int64 magnitudes and signs in, the same out.  A CUDA tensor
+goes through the kernel, and a CPU tensor through the plain version
+:func:`fused_matrix_inverse_reference`.
+
+The kernel is built at first use with ``nvcc`` from the sources in
+``csrc/`` and the emitted body, into ``_build/<hash>/`` beside this
+package, keyed by a hash of the sources, the emitted text and the flags.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from ..models.marshal import mags_and_signs_to_qfloat_matrix, qfloat_matrix_to_mags_and_signs
+from ..models.qfloat_lu import qfloat_matrix_inverse_cells
+from .emit import emit_body
+
+FUSED_MAX_N = 12
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+# Kernel launches made by fused_matrix_inverse, for checks that a run went
+# through the kernel.
+LAUNCHES = 0
+
+
+def _nvcc():
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the fused kernel needs the CUDA toolkit")
+    return path
+
+
+def _build_one(config):
+    """Compile the kernel for one ``(n, len, ints, base, true_division)``;
+    returns the library path.  Reuses a library already built from the
+    same sources, body and flags."""
+    body = emit_body(*config)
+    digest = hashlib.sha256()
+    for text in (
+        (CSRC / "qfloat_cell.cuh").read_text(),
+        (CSRC / "fused_inverse.cu").read_text(),
+        body,
+        " ".join(NVCC_FLAGS),
+    ):
+        digest.update(text.encode())
+        digest.update(b"\0")
+    out_dir = BUILD_DIR / digest.hexdigest()[:24]
+    lib = out_dir / "libfused_inverse.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "fused_body.inc").write_text(body)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [
+        _nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir),
+        "-o", tmp, str(CSRC / "fused_inverse.cu"),
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed for config {config}:\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib)
+    return lib
+
+
+def build(configs):
+    """Build (in parallel) the kernels of ``configs``, each a tuple
+    ``(n, qfloat_len, qfloat_ints, qfloat_base, true_division)``, and load
+    them."""
+    configs = [tuple(c) for c in configs]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(configs) or 1) as pool:
+        list(pool.map(_build_one, configs))
+    for c in configs:
+        _library(c)
+
+
+@functools.lru_cache(maxsize=None)
+def _library(config):
+    lib = ctypes.CDLL(str(_build_one(config)))
+    fn = lib.fused_inverse_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_matrix_inverse(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base,
+                         true_division):
+    """Whole batched inversion: ``(..., n*n)`` int64 magnitudes and signs in,
+    the same out (contract of ``matrix_inversion_tpu/ops/fused_inverse.py``
+    ``fused_matrix_inverse``, untracked).
+
+    A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
+    """
+    if not 2 <= n <= FUSED_MAX_N:
+        raise ValueError(f"the fused kernel takes n in [2, {FUSED_MAX_N}], got {n}")
+    if mags.device.type == "cpu" and signs.device.type == "cpu":
+        return fused_matrix_inverse_reference(
+            mags, signs, n, qfloat_len, qfloat_ints, qfloat_base, true_division
+        )
+    n2 = n * n
+    if mags.shape != signs.shape or mags.shape[-1:] != (n2,):
+        raise ValueError(f"mags and signs must both have shape (..., {n2})")
+    bshape = mags.shape[:-1]
+    # (..., n2) -> (n2, B): cell-major, so neighbouring threads read
+    # neighbouring words
+    om, os_ = fused_inverse_cell_major(
+        mags.reshape(-1, n2).t().contiguous(),
+        signs.reshape(-1, n2).t().contiguous(),
+        n, qfloat_len, qfloat_ints, qfloat_base, true_division,
+    )
+    return (
+        om.t().contiguous().reshape(bshape + (n2,)),
+        os_.t().contiguous().reshape(bshape + (n2,)),
+    )
+
+
+def fused_inverse_cell_major(cm, cs, n, qfloat_len, qfloat_ints, qfloat_base,
+                             true_division):
+    """One kernel launch on cell-major ``(n*n, B)`` contiguous int64 CUDA
+    tensors; returns the ``(n*n, B)`` output magnitudes and signs."""
+    if cm.device.type != "cuda" or cs.device != cm.device:
+        raise ValueError(
+            f"mags and signs must both be on one CUDA device, got {cm.device} "
+            f"and {cs.device}"
+        )
+    if cm.dtype != torch.int64 or cs.dtype != torch.int64:
+        raise TypeError("mags and signs must be int64")
+    if not (cm.is_contiguous() and cs.is_contiguous()):
+        raise ValueError("cell-major inputs must be contiguous")
+    if cm.shape != cs.shape or cm.dim() != 2 or cm.shape[0] != n * n:
+        raise ValueError(f"cell-major inputs must both have shape ({n * n}, B)")
+    launch = _library(
+        (n, int(qfloat_len), int(qfloat_ints), int(qfloat_base), bool(true_division))
+    )
+    om = torch.empty_like(cm)
+    os_ = torch.empty_like(cs)
+    with torch.cuda.device(cm.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(cm.data_ptr(), cs.data_ptr(), om.data_ptr(), os_.data_ptr(),
+                     cm.shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"fused_inverse kernel launch failed: cudaError {err}")
+    global LAUNCHES
+    LAUNCHES += 1
+    return om, os_
+
+
+def fused_matrix_inverse_reference(mags, signs, n, qfloat_len, qfloat_ints,
+                                   qfloat_base, true_division):
+    """Plain version of the kernel: the circuit run eagerly, op by op, on
+    int64 :class:`~.packed.PackedQFloat` cells, on any device."""
+    if mags.shape[-1] != n * n:
+        raise ValueError(f"mags must have shape (..., {n * n})")
+    M = mags_and_signs_to_qfloat_matrix(mags, signs, qfloat_len, qfloat_ints, qfloat_base)
+    Minv = qfloat_matrix_inverse_cells(M, qfloat_len, qfloat_ints, true_division)
+    return qfloat_matrix_to_mags_and_signs(Minv, qfloat_len, qfloat_ints, qfloat_base)

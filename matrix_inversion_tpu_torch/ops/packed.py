@@ -1,0 +1,272 @@
+"""PackedQFloat on int64 torch tensors: the eager path and the kernel's spec.
+
+Port of the untracked part of ``matrix_inversion_tpu/ops/packed.py``
+(``:164-645,719-776,842-865``).  A base-tidy QFloat with a power-of-two
+base and ``base**len < 2**62`` is exactly ``(magnitude, sign)``: the
+magnitude an int64 tensor, the sign a Python int or an int64 tensor in
+{-1, 0, +1} (sign 0 makes the value act as zero).
+
+Two things differ from the JAX module and give the same bits:
+
+* int64 only.  Magnitudes stay below 2**62, so signed shifts and compares
+  equal the unsigned ones, and int64 products wrap mod 2**64 exactly like
+  the reference's uint64 partial sums before the final ``& mask``.
+* division is one exact integer floor division
+  (``torch.div(..., rounding_mode="floor")``); the f32 estimate and the
+  restoring loop of the JAX module exist for the TPU's lack of a 64-bit
+  divide.  A zero divisor saturates the ``n_bits`` window to all ones,
+  as the restoring loop does (reference base_p_arrays.py:189-201).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.qfloat import QFloatBase, SignedBinary, Zero, check_invert_sign
+
+MAG_DTYPE = torch.int64
+
+
+def digit_bits(base: int) -> int:
+    if base < 2 or base & (base - 1):
+        raise ValueError("packed backend requires a power-of-two base")
+    return base.bit_length() - 1
+
+
+def _sign_tensor(sign, like):
+    """Sign (Python int or tensor) as an int64 tensor broadcastable to ``like``."""
+    if isinstance(sign, torch.Tensor):
+        return sign
+    return torch.full_like(like, int(sign))
+
+
+class PackedQFloat(QFloatBase):
+    """int64-magnitude QFloat (power-of-two bases, ``base**len < 2**62``)."""
+
+    def __init__(self, mag, length, ints=None, base=2, sign=1):
+        self._length = int(length)
+        if ints is None:
+            ints = length // 2
+        self._ints = int(ints)
+        if not (0 <= self._ints <= self._length):
+            raise ValueError("ints must be in range [0, length]")
+        self._base = int(base)
+        self._bits = digit_bits(self._base)
+        if self._bits * self._length > 62:
+            raise ValueError("encoding too wide for the packed backend")
+        self._mag = torch.as_tensor(mag, dtype=MAG_DTYPE)
+        self._sign = sign
+
+    # ---- shape / metadata -------------------------------------------------
+    def __len__(self):
+        return self._length
+
+    @property
+    def bshape(self):
+        return self._mag.shape
+
+    @property
+    def mag(self):
+        return self._mag
+
+    def _mask(self, ndigits=None):
+        n = self._length if ndigits is None else ndigits
+        return (1 << (self._bits * n)) - 1
+
+    def copy(self):
+        return PackedQFloat(self._mag, self._length, self._ints, self._base, self._sign)
+
+    def set_len_ints(self, newlen, newints):
+        """Crop/pad semantics of reference qfloat.py:565-589 on magnitudes."""
+        mag = self._mag
+        length = self._length
+        if self._ints != newints:
+            if newints < self._ints:
+                # drop leading (ints - newints) digits -> mod base**remaining
+                length = length - (self._ints - newints)
+                mag = mag & self._mask(length)
+            else:
+                length = length + (newints - self._ints)
+            self._ints = int(newints)
+        difflen = int(newlen) - length
+        if difflen > 0:
+            mag = mag << (self._bits * difflen)
+        elif difflen < 0:
+            mag = mag >> (self._bits * (-difflen))
+        self._length = int(newlen)
+        self._mag = mag
+        return self
+
+    def _tidy_signed(self, v):
+        """Signed value -> (mag, sign): overflow past the top digit is
+        dropped (mod base**L on |v|), the sign of zero is +1
+        (reference qfloat.py:607-673)."""
+        mag = v.abs() & self._mask()
+        sign = torch.where((v < 0) & (mag != 0), -1, 1)
+        return mag, sign
+
+    # ---- comparisons ------------------------------------------------------
+    def __eq__(self, other):
+        self.check_compatibility(other)
+        ss = _sign_tensor(self._sign, self._mag)
+        os_ = _sign_tensor(other._sign, other._mag)
+        return ((self._mag == other._mag) & (ss == os_)).to(MAG_DTYPE)
+
+    __hash__ = None
+
+    def __gt__(self, other):
+        """Reference qfloat.py:711-739 in select form."""
+        self.check_compatibility(other)
+        ss = _sign_tensor(self._sign, self._mag)
+        os_ = _sign_tensor(other._sign, other._mag)
+        inverse = (ss < 0) & (self._mag != other._mag)
+        gt = torch.where(ss == os_, (self._mag > other._mag) ^ inverse, ss > os_)
+        return gt.to(MAG_DTYPE)
+
+    # ---- addition ---------------------------------------------------------
+    def __iadd__(self, other):
+        if isinstance(other, Zero):
+            return self
+        # sign in {-1, 0, +1}: mag * sign is the signed value
+        v = self._mag * self._sign
+        if isinstance(other, SignedBinary):
+            v = v + (1 << (self._bits * (self._length - self._ints))) * other.value
+        elif isinstance(other, PackedQFloat):
+            self.check_compatibility(other)
+            v = v + other._mag * other._sign
+        else:
+            raise TypeError(f"cannot add {type(other).__name__} to a PackedQFloat")
+        self._mag, self._sign = self._tidy_signed(v)
+        return self
+
+    # ---- multiplication ---------------------------------------------------
+    def __imul__(self, other):
+        if isinstance(other, SignedBinary):
+            self._sign = self._sign * other.value
+        elif isinstance(other, PackedQFloat):
+            # identical to from_mul at the same format
+            self.check_compatibility(other)
+            self._mag = mul_trunc_packed(
+                self._mag, self._length, self._ints,
+                other._mag, other._length, other._ints,
+                self._length, self._ints, self._bits,
+            )
+            self._sign = self._sign * other._sign
+        else:
+            raise TypeError(f"cannot multiply a PackedQFloat by {type(other).__name__}")
+        return self
+
+    @classmethod
+    def from_mul(cls, a, b, newlength=None, newints=None):
+        """Windowed multiply; digit-exact with reference qfloat.py:955-1021."""
+        if newlength is None:
+            newlength = len(a)
+        if newints is None:
+            newints = a.ints
+        if isinstance(a, Zero) or isinstance(b, Zero):
+            return Zero()
+        if isinstance(a, SignedBinary) or isinstance(b, SignedBinary):
+            if isinstance(a, SignedBinary) and isinstance(b, SignedBinary):
+                return a * b
+            multiplication = a * b
+            multiplication.set_len_ints(newlength, newints)
+            return multiplication
+        if not a.base == b.base:
+            raise ValueError("bases are different")
+        mag = mul_trunc_packed(
+            a._mag, a._length, a.ints, b._mag, b._length, b.ints,
+            newlength, newints, a._bits,
+        )
+        return cls(mag, newlength, newints, a.base, a.sign * b.sign)
+
+    # ---- division ---------------------------------------------------------
+    def __itruediv__(self, other):
+        if isinstance(other, Zero):
+            raise ValueError("division by Zero")
+        if isinstance(other, SignedBinary):
+            # unchanged or saturated (reference qfloat.py:1199-1210)
+            v = other.value
+            if isinstance(v, int):
+                if v == 0:
+                    self._mag = torch.full_like(self._mag, self._mask())
+                else:
+                    self._sign = v
+                return self
+            is_zero = v == 0
+            self._mag = torch.where(is_zero, self._mask(), self._mag)
+            self._sign = torch.where(is_zero, _sign_tensor(self._sign, v), v)
+            return self
+
+        self.check_compatibility(other)
+        fp = self._length - self._ints
+        n_digits = self._length + fp
+        if self._bits * n_digits > 62:
+            raise ValueError("division dividend too wide for packed backend")
+        dividend = self._mag << (self._bits * fp)
+        q = packed_long_division(dividend, other._mag, self._bits * n_digits)
+        self._mag = q & self._mask()  # keep the trailing `length` digits
+        self._sign = self.sign * other.sign
+        return self
+
+    def invert(self, sign=1, newlength=None, newints=None):
+        """Signed reciprocal (reference qfloat.py:1263-1309)."""
+        check_invert_sign(sign)
+        if newlength is None:
+            newlength = self._length
+        if newints is None:
+            newints = self._ints
+        fp = newlength - newints
+        fpself = self._length - self._ints
+        n_digits = 1 + fpself + fp
+        if self._bits * n_digits > 62:
+            raise ValueError("invert dividend too wide for packed backend")
+        dividend = torch.full_like(self._mag, 1 << (self._bits * (fpself + fp)))
+        q = packed_long_division(dividend, self._mag, self._bits * n_digits)
+        if newlength < n_digits:
+            q = q & ((1 << (self._bits * newlength)) - 1)
+        sb = sign.value if isinstance(sign, SignedBinary) else sign
+        return PackedQFloat(q, newlength, newints, self._base, sb * self.sign)
+
+    # ---- pivot support ----------------------------------------------------
+    def blend_from(self, other, cond):
+        """Magnitude-only branchless select (reference qfloat.py:323-326).
+
+        Deliberately bug-compatible: the sign is NOT blended, exactly like
+        ``qfloat_argmax`` in the reference.
+        """
+        self._mag = torch.where(cond != 0, other._mag, self._mag)
+        return self
+
+
+def packed_long_division(dividend, divisor, n_bits):
+    """``dividend // divisor`` on int64 magnitudes, exact.
+
+    A zero divisor saturates all ``n_bits`` quotient bits, digit-exact with
+    the restoring loop of the reference (base_p_arrays.py:189-201).
+    """
+    is_zero = divisor == 0
+    q = torch.div(dividend, torch.where(is_zero, 1, divisor), rounding_mode="floor")
+    return torch.where(is_zero, (1 << n_bits) - 1, q)
+
+
+def mul_trunc_packed(a_mag, a_len, a_ints, b_mag, b_len, b_ints,
+                     newlength, newints, bits):
+    """The cropped partial-product sum of reference qfloat.py:995-1016.
+
+    Algebraic form of ``matrix_inversion_tpu/ops/packed.py:842-865``: the
+    digits of ``a`` at or above the crop share one wide multiply, each
+    digit below it keeps its own floor.  Products wrap mod 2**64 in int64
+    exactly as the reference's uint64 sums; the final mask keeps < 63 bits.
+    """
+    out_mask = (1 << (bits * newlength)) - 1
+    t_dig = (a_len - a_ints) + (b_len - b_ints) - (newlength - newints)
+    t1 = bits * t_dig
+    if t1 <= 0:
+        return ((a_mag * b_mag) << (-t1)) & out_mask
+    acc = (a_mag >> t1) * b_mag
+    base_mask = (1 << bits) - 1
+    for p in range(max(0, t_dig - b_len + 1), min(t_dig, a_len)):
+        w = b_mag >> (bits * (t_dig - p))
+        a_p = (a_mag >> (bits * p)) & base_mask
+        acc = acc + w * a_p
+    return acc & out_mask

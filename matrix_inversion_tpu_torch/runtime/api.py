@@ -1,0 +1,106 @@
+"""User-facing batched API.
+
+Port of ``matrix_inversion_tpu/runtime/api.py:287-441``, packed I/O only:
+``BatchedMatrixInversion`` inverts (B, n, n) float batches in one device
+program.  PyTorch runs eagerly, so there is no compile step; the device is
+an explicit argument.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import QFloatParams
+from ..models.inverse import qfloat_matrix_inverse_packed_io
+from ..models.marshal import float_matrix_to_mags_and_signs, mags_and_signs_to_float_matrix
+
+
+class BatchedMatrixInversion:
+    """Invert (B, n, n) float matrices in QFloat arithmetic on ``device``.
+
+    The stages are ``quantize`` (host float64 -> int64 magnitudes and signs
+    on the device), ``run_raw`` (device tensors in, device tensors out,
+    asynchronous on CUDA) and ``dequantize`` (device -> host float64);
+    ``run`` chains the three.  On a CUDA device ``lowering="auto"`` runs
+    the fused kernel (ops/fused_inverse.py).
+    """
+
+    def __init__(
+        self,
+        params: QFloatParams,
+        batch_size: int,
+        *,
+        device,
+        backend: str = "auto",
+        io: str = "packed",
+        in_shardings=None,
+        out_shardings=None,
+        data_parallel: bool = False,
+        track_overflow: bool = False,
+    ):
+        if io == "digits":
+            raise NotImplementedError(
+                "io='digits' is not ported yet (ROADMAP queue 1, item 7)"
+            )
+        if io != "packed":
+            raise ValueError("io must be packed")
+        if track_overflow:
+            raise NotImplementedError(
+                "track_overflow is not ported yet (ROADMAP queue 1, item 6)"
+            )
+        if data_parallel or in_shardings is not None or out_shardings is not None:
+            raise NotImplementedError(
+                "multi-device batching is not ported yet (ROADMAP queue 1, item 10)"
+            )
+        if backend != "auto":
+            params = params.replace(backend=backend)
+        params.resolve_backend()
+        self.params = params
+        self.batch_size = int(batch_size)
+        self.device = torch.device(device)
+
+    def quantize(self, matrices: np.ndarray):
+        """(B, n, n) float64 -> ((B, n*n) int64 magnitudes, signs) on the device."""
+        p = self.params
+        mags, signs = float_matrix_to_mags_and_signs(
+            matrices, p.qfloat_len, p.qfloat_ints, p.qfloat_base
+        )
+        return (
+            torch.from_numpy(mags).to(self.device),
+            torch.from_numpy(signs).to(self.device),
+        )
+
+    def dequantize(self, out):
+        """(magnitudes, signs) device tensors -> (B, n, n) float64 on the host."""
+        p = self.params
+        mags, signs = out
+        return mags_and_signs_to_float_matrix(
+            mags.cpu().numpy(), signs.cpu().numpy(),
+            p.qfloat_len, p.qfloat_ints, p.qfloat_base,
+        )
+
+    def run_raw(self, mags, signs):
+        """Device input tensors -> device output tensors."""
+        p = self.params
+        shape = (self.batch_size, p.n * p.n)
+        if mags.shape != shape or signs.shape != shape:
+            raise ValueError(f"expected mags and signs of shape {shape}")
+        for t in (mags, signs):
+            if t.device.type != self.device.type or self.device.index not in (
+                None, t.device.index
+            ):
+                raise ValueError(f"expected tensors on {self.device}, got {t.device}")
+        return qfloat_matrix_inverse_packed_io(
+            mags, signs, p.n, p.qfloat_len, p.qfloat_ints, p.qfloat_base,
+            p.true_division, lowering=p.lowering,
+        )
+
+    def run(self, matrices: np.ndarray):
+        """Invert a (B, n, n) float batch; returns the (B, n, n) inverses."""
+        p = self.params
+        if matrices.shape != (self.batch_size, p.n, p.n):
+            raise ValueError(
+                f"expected matrices of shape {(self.batch_size, p.n, p.n)}"
+            )
+        return self.dequantize(self.run_raw(*self.quantize(matrices)))

@@ -1,0 +1,142 @@
+"""Port vs JAX package: the whole inversion, kernel plain version and API.
+
+The plain version of the fused kernel (the circuit run eagerly on int64
+tensors) must equal the JAX package's unrolled packed-I/O circuit bit for
+bit, as ``tests/test_fused.py`` holds the Pallas kernel body to it.  The
+kernel itself runs only on the card; its emitted body is compiled for the
+CPU in tests/test_torch_emit.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import matrix_inversion_tpu as mi
+from matrix_inversion_tpu.models.inverse import qfloat_matrix_inverse_packed_io as jax_inverse
+from matrix_inversion_tpu.models.marshal import float_matrix_to_mags_and_signs
+from matrix_inversion_tpu.runtime.api import BatchedMatrixInversion as JaxBatched
+
+import matrix_inversion_tpu_torch as mt
+from matrix_inversion_tpu_torch.ops import fused_inverse, packed
+
+torch.set_num_threads(2)
+
+CONFIGS = [
+    ("high", 2), ("high", 3), ("high", 4), ("high", 5),
+    ("low", 4), ("medium", 3), ("medium+", 4),
+]
+
+
+def quantize(p, n, B, seed, singular=False):
+    rng = np.random.RandomState(seed)
+    M = rng.randn(B, n, n) * (1 if singular else 100)
+    if singular:
+        M[:, 2, :] = M[:, 0, :] + M[:, 1, :]  # rank-deficient
+    mags, signs = float_matrix_to_mags_and_signs(
+        M, p.qfloat_len, p.qfloat_ints, p.qfloat_base
+    )
+    return np.asarray(mags), np.asarray(signs)
+
+
+def check_plain_version(name, n, singular=False, **fmt):
+    p = mi.PRESETS[name].replace(n=n, **fmt)
+    mags, signs = quantize(p, n, 48, seed=n, singular=singular)
+    args = (n, p.qfloat_len, p.qfloat_ints, p.qfloat_base, p.true_division)
+    ref_m, ref_s = jax_inverse(jnp.asarray(mags), jnp.asarray(signs), *args, lowering="unroll")
+    got_m, got_s = fused_inverse.fused_matrix_inverse_reference(
+        torch.from_numpy(mags), torch.from_numpy(signs), *args
+    )
+    assert got_m.dtype == torch.int64 and got_s.dtype == torch.int64
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(ref_m))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(ref_s))
+    return mags, signs, args, got_m, got_s
+
+
+@pytest.mark.parametrize("name,n", CONFIGS)
+def test_plain_version_matches_jax_unroll(name, n):
+    check_plain_version(name, n)
+
+
+def test_plain_version_singular_saturates(monkeypatch):
+    """Singular matrices run the division-by-zero saturation path."""
+    zero_divisors = []
+    divide = packed.packed_long_division
+
+    def spy(dividend, divisor, n_bits):
+        zero_divisors.append(int((divisor == 0).sum()))
+        return divide(dividend, divisor, n_bits)
+
+    monkeypatch.setattr(packed, "packed_long_division", spy)
+    check_plain_version("low", 3, singular=True)
+    assert sum(zero_divisors) > 0
+
+
+def test_plain_version_base_four():
+    check_plain_version("low", 3, qfloat_base=4, qfloat_len=11, qfloat_ints=4)
+
+
+def test_wrapper_on_cpu_runs_plain_version():
+    mags, signs, args, ref_m, ref_s = check_plain_version("high", 3)
+    before = fused_inverse.LAUNCHES
+    tm, ts = torch.from_numpy(mags), torch.from_numpy(signs)
+    for lowering in (None, "auto", "unroll", "fused"):
+        got_m, got_s = mt.qfloat_matrix_inverse_packed_io(tm, ts, *args, lowering=lowering)
+        assert torch.equal(got_m, ref_m) and torch.equal(got_s, ref_s)
+    got_m, got_s = fused_inverse.fused_matrix_inverse(tm[:5].reshape(5, 1, 9), ts[:5].reshape(5, 1, 9), *args)
+    assert got_m.shape == (5, 1, 9) and torch.equal(got_m.reshape(5, 9), ref_m[:5])
+    assert fused_inverse.LAUNCHES == before
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    p = mt.HIGH
+    args = (p.qfloat_len, p.qfloat_ints, p.qfloat_base, p.true_division)
+    meta = torch.zeros(8, 16, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_inverse.fused_matrix_inverse(meta, meta, 4, *args)
+    cpu = torch.zeros(8, 169, dtype=torch.int64)
+    with pytest.raises(ValueError, match="n in"):
+        fused_inverse.fused_matrix_inverse(cpu, cpu, 13, *args)
+    with pytest.raises(ValueError, match="lowering"):
+        mt.qfloat_matrix_inverse_packed_io(cpu[:, :16], cpu[:, :16], 4, *args, lowering="vec")
+
+
+def test_batched_api_matches_jax_end_to_end():
+    p = mt.HIGH.replace(n=3)
+    B = 16
+    M = np.random.RandomState(5).randn(B, 3, 3) * 100
+    port = mt.BatchedMatrixInversion(p, B, device="cpu", backend="packed")
+    ref = JaxBatched(mi.HIGH.replace(n=3), B, backend="packed", io="packed")
+    got = port.run(M)
+    np.testing.assert_array_equal(got, ref.run(M))
+    assert np.max(np.abs(got - np.linalg.inv(M))) < 1e-3
+    mags, signs = port.quantize(M)
+    assert mags.device == torch.device("cpu") and mags.shape == (B, 9)
+    out = port.run_raw(mags, signs)
+    np.testing.assert_array_equal(port.dequantize(out), got)
+
+
+@pytest.mark.parametrize(
+    "kw,match",
+    [
+        ({"io": "digits"}, "item 7"),
+        ({"track_overflow": True}, "item 6"),
+        ({"data_parallel": True}, "item 10"),
+        ({"in_shardings": object()}, "item 10"),
+    ],
+)
+def test_batched_api_unported_options_name_roadmap(kw, match):
+    with pytest.raises(NotImplementedError, match=match):
+        mt.BatchedMatrixInversion(mt.HIGH.replace(n=4), 8, device="cpu", **kw)
+
+
+def test_batched_api_checks_inputs():
+    inv = mt.BatchedMatrixInversion(mt.LOW.replace(n=2), 4, device="cpu")
+    with pytest.raises(ValueError, match="shape"):
+        inv.run(np.zeros((3, 2, 2)))
+    with pytest.raises(ValueError, match="shape"):
+        inv.run_raw(torch.zeros(4, 9, dtype=torch.int64), torch.zeros(4, 9, dtype=torch.int64))
+    meta = torch.zeros(4, 4, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="expected tensors on cpu"):
+        inv.run_raw(meta, meta)
