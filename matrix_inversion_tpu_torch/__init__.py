@@ -2,18 +2,19 @@
 
 Exact batched matrix inversion in QFloat fixed-point arithmetic, with the
 same semantics, bit for bit, as the JAX package ``matrix_inversion_tpu``
-(the reference, kept beside it).  This slice ports the packed-I/O main
-path:
+(the reference, kept beside it).  Ported so far: the packed-I/O main
+path, untracked and with per-matrix overflow flags:
 
 * ``config``        -- QFloatParams and the Low/Medium/Medium+/High presets;
 * ``core.qfloat``   -- the Zero / SignedBinary / QFloatBase dispatch layer;
 * ``ops.packed``    -- PackedQFloat on int64 tensors (eager path, and the
-  semantic spec of the kernel);
+  semantic spec of the kernel) and the ``track_overflow`` scope;
 * ``ops.emit``      -- emits the kernel body as C++ from the circuit;
 * ``ops.fused_inverse`` + ``csrc/`` -- the fused whole-inversion CUDA
-  kernel for sm_90a, its wrapper and its plain version;
+  kernel for sm_90a (untracked and tracked), its wrapper and its plain
+  version;
 * ``models``        -- pivoting/LU/substitution/2x2 circuit, packed
-  marshalling, the packed-I/O entry point;
+  marshalling, the packed-I/O entry points (untracked and with overflow);
 * ``runtime.api``   -- BatchedMatrixInversion.
 
 The package imports torch and numpy, never jax.
@@ -21,8 +22,8 @@ The package imports torch and numpy, never jax.
 
 from .config import HIGH, LOW, MEDIUM, MEDIUM_PLUS, PRESETS, QFloatParams
 from .core.qfloat import QFloatBase, SignedBinary, Zero
-from .models.inverse import qfloat_matrix_inverse_packed_io
-from .ops.packed import PackedQFloat
+from .models.inverse import qfloat_matrix_inverse_packed_io, qfloat_matrix_inverse_with_overflow
+from .ops.packed import PackedQFloat, track_overflow
 from .runtime.api import BatchedMatrixInversion
 
 __all__ = [
@@ -36,6 +37,8 @@ __all__ = [
     "SignedBinary",
     "Zero",
     "PackedQFloat",
+    "track_overflow",
     "qfloat_matrix_inverse_packed_io",
+    "qfloat_matrix_inverse_with_overflow",
     "BatchedMatrixInversion",
 ]

@@ -12,6 +12,11 @@
 // integers; here a cell is one register pair and wide products use
 // unsigned __int128.
 //
+// The tracked primitives (suffix _t) return the value together with an
+// overflow flag: the digits their normalization dropped, as recorded by
+// matrix_inversion_tpu/ops/packed.py inside a track_overflow() scope.  The
+// tracked kernel ORs every flag of one inversion into its output.
+//
 // Compiled by nvcc for the card, and by a host C++ compiler (with
 // __host__/__device__ defined away) so that the CPU tests can run the
 // same code.
@@ -158,5 +163,107 @@ QI_FN uint64_t sb_div_mag(uint64_t m, int v) {
 }
 
 QI_FN int sb_div_sign(int s, int v) { return v == 0 ? s : v; }
+
+// ---- tracked primitives --------------------------------------------------
+
+// A magnitude and its overflow flag; a cell and its overflow flag.
+struct MagF {
+  uint64_t m;
+  int f;
+};
+
+struct CellF {
+  uint64_t m;
+  int s;
+  int f;
+};
+
+// sadd, flagged when |v| exceeds the mask (packed.py:313-325,
+// pair_qfloat.py:307-313).  |v| < 2**63 since both magnitudes are below
+// 2**62, so the flag is exact.
+template <int BITS, int LEN>
+QI_FN CellF sadd_t(uint64_t am, int as, uint64_t bm, int bs) {
+  constexpr uint64_t kMask = low_mask(BITS * LEN);
+  const uint64_t v = signed_word(am, as) + signed_word(bm, bs);
+  const bool neg = int64_t(v) < 0;
+  const uint64_t av = neg ? uint64_t(0) - v : v;
+  const uint64_t m = av & kMask;
+  CellF r;
+  r.m = m;
+  r.s = (neg && m != 0) ? -1 : 1;
+  r.f = av > kMask;
+  return r;
+}
+
+// The windowed multiply (packed.py:868-969, pair_math.py:475-532): one
+// cropped partial product per digit of a, from the top, summed in a
+// uint64_t accumulator.  The accumulator must stay 64 bits wide: carries
+// past 2**64 wrap and go unseen, exactly as in the reference, and a wider
+// one would flag more.  The flag is any bit above the output window.  The
+// per-digit constants (packed.py:779-798) depend on the template
+// arguments only, so the unrolled loop folds them.
+template <int BITS, int A_LEN, int A_INTS, int B_LEN, int B_INTS, int NEWLEN,
+          int NEWINTS>
+QI_FN MagF mul_window_t(uint64_t a, uint64_t b) {
+  constexpr uint64_t kOut = low_mask(BITS * NEWLEN);
+  constexpr uint64_t kDigit = low_mask(BITS);
+  uint64_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < A_LEN; ++i) {
+    const int indb = NEWINTS - A_INTS + i + 1 - B_INTS;
+    const int ind1 = indb >= 0 ? 0 : -indb;
+    const int ind2 = B_LEN < NEWLEN - indb ? B_LEN : NEWLEN - indb;
+    if (ind2 <= ind1) continue;
+    const uint64_t d = (a >> (BITS * (A_LEN - 1 - i))) & kDigit;
+    // the cropped window of b at its output position: below 2**62
+    const uint64_t w = ((b >> (BITS * (B_LEN - ind2))) & low_mask(BITS * (ind2 - ind1)))
+                       << (BITS * (NEWLEN - indb - ind2));
+    if constexpr (BITS == 1) {
+      acc += w & (uint64_t(0) - d);
+    } else {
+      acc += w * d;
+    }
+  }
+  MagF r;
+  r.m = acc & kOut;
+  r.f = (acc & ~kOut) != 0;
+  return r;
+}
+
+// divide, flagged when the quotient has digits above the kept LEN
+// (packed.py:567-569, pair_qfloat.py:474-478); read before the mask, so a
+// zero divisor, which saturates all quotient digits, flags.
+template <int BITS, int LEN, int INTS>
+QI_FN MagF divide_t(uint64_t a, uint64_t d) {
+  constexpr int kFp = LEN - INTS;
+  constexpr int kNBits = BITS * (LEN + kFp);
+  static_assert(kNBits <= 62, "dividend too wide");
+  const uint64_t q = d == 0 ? low_mask(kNBits) : (a << (BITS * kFp)) / d;
+  MagF r;
+  r.m = q & low_mask(BITS * LEN);
+  r.f = (q >> (BITS * LEN)) != 0;
+  return r;
+}
+
+// invert, flagged only when the quotient is cropped, NEWLEN < kNDigits
+// (packed.py:589-593, pair_qfloat.py:498-502); otherwise the flag is 0.
+template <int BITS, int LEN, int INTS, int NEWLEN, int NEWINTS>
+QI_FN MagF invert_t(uint64_t d) {
+  constexpr int kFp = NEWLEN - NEWINTS;
+  constexpr int kFpSelf = LEN - INTS;
+  constexpr int kNDigits = 1 + kFpSelf + kFp;
+  static_assert(BITS * kNDigits <= 62, "dividend too wide");
+  const uint64_t q = d == 0 ? low_mask(BITS * kNDigits)
+                            : (uint64_t(1) << (BITS * (kFpSelf + kFp))) / d;
+  MagF r;
+  if constexpr (NEWLEN < kNDigits) {
+    r.m = q & low_mask(BITS * NEWLEN);
+    r.f = (q >> (BITS * NEWLEN)) != 0;
+  } else {
+    r.m = q;
+    r.f = 0;
+  }
+  return r;
+}
 
 }  // namespace qcell

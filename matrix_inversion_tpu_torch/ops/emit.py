@@ -13,6 +13,11 @@ therefore equal those of the eager PyTorch path by construction.
 Signs and pivot integers are :class:`Sym` values (C++ ``int`` variables);
 signs that are Python ints stay constants in the emitted code.  This
 module runs when a kernel is built, never inside a launch.
+
+A tracking emitter (``Emitter(track=True)``) applies the rule of a live
+``track_overflow()`` scope in ``ops/packed.py``: every op that records a
+flag there emits the tracked primitive (``sadd_t``, ``mul_window_t``,
+``divide_t``, ``invert_t``) and ``ovf |= flag;`` right after it.
 """
 
 from __future__ import annotations
@@ -23,11 +28,13 @@ from .packed import digit_bits
 
 
 class Emitter:
-    """Collects the body's statements and hands out fresh names."""
+    """Collects the body's statements and hands out fresh names;
+    ``track=True`` emits the tracked primitives."""
 
-    def __init__(self):
+    def __init__(self, track=False):
         self.lines = []
         self._count = 0
+        self.track = bool(track)
 
     def fresh(self, prefix):
         self._count += 1
@@ -46,6 +53,14 @@ class Emitter:
     def cell(self, expr):
         name = self.fresh("c")
         self.lines.append(f"const Cell {name} = {expr};")
+        return name
+
+    def tracked(self, type_, expr):
+        """A tracked primitive's result (``MagF`` or ``CellF``); its flag
+        goes into ``ovf``."""
+        name = self.fresh("f")
+        self.lines.append(f"const {type_} {name} = {expr};")
+        self.lines.append(f"ovf |= {name}.f;")
         return name
 
 
@@ -145,10 +160,14 @@ class EmitQFloat(QFloatBase):
             omag, osign = other._mag, other._sign
         else:
             raise TypeError(f"cannot add {type(other).__name__} to an EmitQFloat")
-        c = self._em.cell(
-            f"sadd<{self._bits}, {self._length}>({self._mag}, {_expr(self._sign)}, "
+        args = (
+            f"<{self._bits}, {self._length}>({self._mag}, {_expr(self._sign)}, "
             f"{omag}, {_expr(osign)})"
         )
+        if not self._em.track:
+            c = self._em.cell(f"sadd{args}")
+        else:
+            c = self._em.tracked("CellF", f"sadd_t{args}")
         self._mag, self._sign = f"{c}.m", Sym(self._em, f"{c}.s")
         return self
 
@@ -159,10 +178,7 @@ class EmitQFloat(QFloatBase):
         if not isinstance(other, EmitQFloat):
             raise TypeError(f"cannot multiply an EmitQFloat by {type(other).__name__}")
         self.check_compatibility(other)
-        self._mag = self._em.mag(
-            f"mul<{self._fmt()}, {other._length}, {other._ints}, "
-            f"{self._length}, {self._ints}>({self._mag}, {other._mag})"
-        )
+        self._mag = _mul_mag(self, other, self._length, self._ints)
         self._sign = self._sign * other._sign
         return self
 
@@ -182,10 +198,7 @@ class EmitQFloat(QFloatBase):
             return multiplication
         if not a.base == b.base:
             raise ValueError("bases are different")
-        mag = a._em.mag(
-            f"mul<{a._fmt()}, {b._length}, {b._ints}, {int(newlength)}, "
-            f"{int(newints)}>({a._mag}, {b._mag})"
-        )
+        mag = _mul_mag(a, b, newlength, newints)
         return cls(a._em, mag, newlength, newints, a.base, a.sign * b.sign)
 
     def __itruediv__(self, other):
@@ -205,7 +218,11 @@ class EmitQFloat(QFloatBase):
             self._sign = self._em.int_(f"sb_div_sign({_expr(self._sign)}, {_expr(v)})")
             return self
         self.check_compatibility(other)
-        self._mag = self._em.mag(f"divide<{self._fmt()}>({self._mag}, {other._mag})")
+        args = f"<{self._fmt()}>({self._mag}, {other._mag})"
+        if not self._em.track:
+            self._mag = self._em.mag(f"divide{args}")
+        else:
+            self._mag = f"{self._em.tracked('MagF', f'divide_t{args}')}.m"
         self._sign = self.sign * other.sign
         return self
 
@@ -215,9 +232,13 @@ class EmitQFloat(QFloatBase):
             newlength = self._length
         if newints is None:
             newints = self._ints
-        mag = self._em.mag(
-            f"invert<{self._fmt()}, {int(newlength)}, {int(newints)}>({self._mag})"
-        )
+        args = f"<{self._fmt()}, {int(newlength)}, {int(newints)}>({self._mag})"
+        n_digits = 1 + (self._length - self._ints) + (newlength - newints)
+        if not self._em.track or newlength >= n_digits:
+            # an uncropped quotient records nothing (ops/packed.py invert)
+            mag = self._em.mag(f"invert{args}")
+        else:
+            mag = f"{self._em.tracked('MagF', f'invert_t{args}')}.m"
         sb = sign.value if isinstance(sign, SignedBinary) else sign
         return EmitQFloat(self._em, mag, newlength, newints, self._base, sb * self.sign)
 
@@ -226,15 +247,29 @@ class EmitQFloat(QFloatBase):
         return self
 
 
-def emit_body(n, qfloat_len, qfloat_ints, qfloat_base, true_division):
+def _mul_mag(a, b, newlength, newints):
+    """Magnitude of the product of two EmitQFloat cells at a new format:
+    the truncated ``mul``, or under tracking the windowed ``mul_window_t``
+    (the rule of ``ops/packed.py::_mul_packed``)."""
+    args = (
+        f"<{a._fmt()}, {b._length}, {b._ints}, {int(newlength)}, {int(newints)}>"
+        f"({a._mag}, {b._mag})"
+    )
+    if not a._em.track:
+        return a._em.mag(f"mul{args}")
+    return f"{a._em.tracked('MagF', f'mul_window_t{args}')}.m"
+
+
+def emit_body(n, qfloat_len, qfloat_ints, qfloat_base, true_division, track=False):
     """C++ source of ``fused_body`` for one configuration.
 
     The source defines ``FUSED_N2`` and, inside namespace ``qcell``,
     ``fused_body(m, s, om, os)``: the inverse of one matrix from its
     ``n*n`` cell magnitudes ``m`` and signs ``s`` (row-major) into
-    ``om``/``os``.
+    ``om``/``os``.  ``track=True`` also defines ``FUSED_TRACK`` as 1, and
+    ``fused_body`` then returns the matrix's overflow flag.
     """
-    em = Emitter()
+    em = Emitter(track)
     M = [
         [
             EmitQFloat(em, f"m[{i * n + j}]", qfloat_len, qfloat_ints, qfloat_base,
@@ -255,10 +290,14 @@ def emit_body(n, qfloat_len, qfloat_ints, qfloat_base, true_division):
         "// Emitted by matrix_inversion_tpu_torch/ops/emit.py from "
         "models/qfloat_lu.py: do not edit.\n"
         f"// n={n} len={qfloat_len} ints={qfloat_ints} base={qfloat_base} "
-        f"true_division={int(bool(true_division))}\n"
-        f"#define FUSED_N2 {n * n}\n"
+        f"true_division={int(bool(true_division))}"
+        + (" track=1\n#define FUSED_TRACK 1\n" if track else "\n")
+        + f"#define FUSED_N2 {n * n}\n"
         "namespace qcell {\n"
-        "QI_FN void fused_body(const uint64_t* m, const int* s, uint64_t* om, "
-        "int* os) {\n"
+        f"QI_FN {'int' if track else 'void'} fused_body(const uint64_t* m, "
+        "const int* s, uint64_t* om, int* os) {\n"
     )
+    if track:
+        em.lines.insert(0, "int ovf = 0;")
+        em.lines.append("return ovf;")
     return header + "".join(f"  {line}\n" for line in em.lines) + "}\n}  // namespace qcell\n"

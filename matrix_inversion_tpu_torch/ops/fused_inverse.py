@@ -8,13 +8,16 @@ PyTorch circuit makes thousands of passes of batch-sized int64 tensors
 through device memory.
 
 :func:`fused_matrix_inverse` keeps the contract of the JAX wrapper:
-``(..., n*n)`` int64 magnitudes and signs in, the same out.  A CUDA tensor
-goes through the kernel, and a CPU tensor through the plain version
+``(..., n*n)`` int64 magnitudes and signs in, the same out, and with
+``track=True`` also an int32 overflow flag per matrix (the tracked
+variant, ``ops/fused_inverse.py:186-189`` of the JAX package).  A CUDA
+tensor goes through the kernel, and a CPU tensor through the plain version
 :func:`fused_matrix_inverse_reference`.
 
 The kernel is built at first use with ``nvcc`` from the sources in
 ``csrc/`` and the emitted body, into ``_build/<hash>/`` beside this
-package, keyed by a hash of the sources, the emitted text and the flags.
+package, keyed by a hash of the sources, the emitted text, the flags and
+``track``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from contextlib import nullcontext
 from pathlib import Path
 
 import torch
@@ -34,6 +38,7 @@ import torch
 from ..models.marshal import mags_and_signs_to_qfloat_matrix, qfloat_matrix_to_mags_and_signs
 from ..models.qfloat_lu import qfloat_matrix_inverse_cells
 from .emit import emit_body
+from .packed import track_overflow
 
 FUSED_MAX_N = 12
 
@@ -41,12 +46,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Kernel launches made by fused_matrix_inverse, for checks that a run went
-# through the kernel.
+# Launches of the untracked and of the tracked kernel, for checks that a
+# run went through them.
 LAUNCHES = 0
+TRACKED_LAUNCHES = 0
 
 
 def _nvcc():
@@ -56,17 +62,33 @@ def _nvcc():
     return path
 
 
-def _build_one(config):
-    """Compile the kernel for one ``(n, len, ints, base, true_division)``;
-    returns the library path.  Reuses a library already built from the
-    same sources, body and flags."""
-    body = emit_body(*config)
+def _key(config):
+    """``(n, len, ints, base, true_division, track)`` from a config tuple
+    with or without its trailing ``track`` (default False)."""
+    n, qfloat_len, qfloat_ints, qfloat_base, true_division, *track = config
+    return (int(n), int(qfloat_len), int(qfloat_ints), int(qfloat_base),
+            bool(true_division), bool(track and track[0]))
+
+
+def build_dir(config):
+    """The build directory of one config (as for :func:`build`): the
+    library, its emitted body, and ``nvcc.log`` with ptxas's registers and
+    spills.  Builds first if needed."""
+    return _build_one(_key(config)).parent
+
+
+def _build_one(key):
+    """Compile the kernel for one ``(n, len, ints, base, true_division,
+    track)``; returns the library path.  Reuses a library already built
+    from the same sources, body, flags and ``track``."""
+    body = emit_body(*key)
     digest = hashlib.sha256()
     for text in (
         (CSRC / "qfloat_cell.cuh").read_text(),
         (CSRC / "fused_inverse.cu").read_text(),
         body,
         " ".join(NVCC_FLAGS),
+        f"track={key[5]}",
     ):
         digest.update(text.encode())
         digest.update(b"\0")
@@ -86,37 +108,40 @@ def _build_one(config):
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(
-            f"nvcc failed for config {config}:\n{proc.stdout}\n{proc.stderr}"
+            f"nvcc failed for config {key}:\n{proc.stdout}\n{proc.stderr}"
         )
+    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
 
 
 def build(configs):
-    """Build (in parallel) the kernels of ``configs``, each a tuple
-    ``(n, qfloat_len, qfloat_ints, qfloat_base, true_division)``, and load
-    them."""
-    configs = [tuple(c) for c in configs]
-    with concurrent.futures.ThreadPoolExecutor(max_workers=len(configs) or 1) as pool:
-        list(pool.map(_build_one, configs))
-    for c in configs:
-        _library(c)
+    """Build (in parallel, one nvcc each) the kernels of ``configs``, each
+    a tuple ``(n, qfloat_len, qfloat_ints, qfloat_base, true_division)``
+    with an optional trailing ``track``, and load them."""
+    keys = [_key(c) for c in configs]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(keys) or 1) as pool:
+        list(pool.map(_build_one, keys))
+    for k in keys:
+        _library(k)
 
 
 @functools.lru_cache(maxsize=None)
-def _library(config):
-    lib = ctypes.CDLL(str(_build_one(config)))
-    fn = lib.fused_inverse_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+def _library(key):
+    lib = ctypes.CDLL(str(_build_one(key)))
+    track = key[5]
+    fn = lib.fused_inverse_tracked_launch if track else lib.fused_inverse_launch
+    fn.argtypes = [ctypes.c_void_p] * (5 if track else 4) + [ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def fused_matrix_inverse(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base,
-                         true_division):
+                         true_division, track=False):
     """Whole batched inversion: ``(..., n*n)`` int64 magnitudes and signs in,
     the same out (contract of ``matrix_inversion_tpu/ops/fused_inverse.py``
-    ``fused_matrix_inverse``, untracked).
+    ``fused_matrix_inverse``).  ``track=True`` returns ``(mags, signs,
+    flag)`` with ``flag`` int32 of the batch shape.
 
     A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
     """
@@ -124,7 +149,8 @@ def fused_matrix_inverse(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base,
         raise ValueError(f"the fused kernel takes n in [2, {FUSED_MAX_N}], got {n}")
     if mags.device.type == "cpu" and signs.device.type == "cpu":
         return fused_matrix_inverse_reference(
-            mags, signs, n, qfloat_len, qfloat_ints, qfloat_base, true_division
+            mags, signs, n, qfloat_len, qfloat_ints, qfloat_base, true_division,
+            track=track,
         )
     n2 = n * n
     if mags.shape != signs.shape or mags.shape[-1:] != (n2,):
@@ -132,21 +158,24 @@ def fused_matrix_inverse(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base,
     bshape = mags.shape[:-1]
     # (..., n2) -> (n2, B): cell-major, so neighbouring threads read
     # neighbouring words
-    om, os_ = fused_inverse_cell_major(
+    out = fused_inverse_cell_major(
         mags.reshape(-1, n2).t().contiguous(),
         signs.reshape(-1, n2).t().contiguous(),
-        n, qfloat_len, qfloat_ints, qfloat_base, true_division,
+        n, qfloat_len, qfloat_ints, qfloat_base, true_division, track=track,
     )
-    return (
-        om.t().contiguous().reshape(bshape + (n2,)),
-        os_.t().contiguous().reshape(bshape + (n2,)),
+    om, os_ = (
+        x.t().contiguous().reshape(bshape + (n2,)) for x in out[:2]
     )
+    if track:
+        return om, os_, out[2].reshape(bshape)
+    return om, os_
 
 
 def fused_inverse_cell_major(cm, cs, n, qfloat_len, qfloat_ints, qfloat_base,
-                             true_division):
+                             true_division, track=False):
     """One kernel launch on cell-major ``(n*n, B)`` contiguous int64 CUDA
-    tensors; returns the ``(n*n, B)`` output magnitudes and signs."""
+    tensors; returns the ``(n*n, B)`` output magnitudes and signs, and with
+    ``track=True`` also the ``(B,)`` int32 overflow flags."""
     if cm.device.type != "cuda" or cs.device != cm.device:
         raise ValueError(
             f"mags and signs must both be on one CUDA device, got {cm.device} "
@@ -158,28 +187,38 @@ def fused_inverse_cell_major(cm, cs, n, qfloat_len, qfloat_ints, qfloat_base,
         raise ValueError("cell-major inputs must be contiguous")
     if cm.shape != cs.shape or cm.dim() != 2 or cm.shape[0] != n * n:
         raise ValueError(f"cell-major inputs must both have shape ({n * n}, B)")
-    launch = _library(
-        (n, int(qfloat_len), int(qfloat_ints), int(qfloat_base), bool(true_division))
-    )
+    launch = _library(_key((n, qfloat_len, qfloat_ints, qfloat_base, true_division, track)))
     om = torch.empty_like(cm)
     os_ = torch.empty_like(cs)
+    ptrs = [cm.data_ptr(), cs.data_ptr(), om.data_ptr(), os_.data_ptr()]
+    if track:
+        flag = torch.empty(cm.shape[1], dtype=torch.int32, device=cm.device)
+        ptrs.append(flag.data_ptr())
     with torch.cuda.device(cm.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(cm.data_ptr(), cs.data_ptr(), om.data_ptr(), os_.data_ptr(),
-                     cm.shape[1], stream)
+        err = launch(*ptrs, cm.shape[1], stream)
     if err != 0:
         raise RuntimeError(f"fused_inverse kernel launch failed: cudaError {err}")
-    global LAUNCHES
+    global LAUNCHES, TRACKED_LAUNCHES
+    if track:
+        TRACKED_LAUNCHES += 1
+        return om, os_, flag
     LAUNCHES += 1
     return om, os_
 
 
 def fused_matrix_inverse_reference(mags, signs, n, qfloat_len, qfloat_ints,
-                                   qfloat_base, true_division):
+                                   qfloat_base, true_division, track=False):
     """Plain version of the kernel: the circuit run eagerly, op by op, on
-    int64 :class:`~.packed.PackedQFloat` cells, on any device."""
+    int64 :class:`~.packed.PackedQFloat` cells, on any device.  ``track=True``
+    runs it inside ``track_overflow()`` and also returns the combined
+    flags, int32 of the batch shape."""
     if mags.shape[-1] != n * n:
         raise ValueError(f"mags must have shape (..., {n * n})")
-    M = mags_and_signs_to_qfloat_matrix(mags, signs, qfloat_len, qfloat_ints, qfloat_base)
-    Minv = qfloat_matrix_inverse_cells(M, qfloat_len, qfloat_ints, true_division)
-    return qfloat_matrix_to_mags_and_signs(Minv, qfloat_len, qfloat_ints, qfloat_base)
+    with track_overflow() if track else nullcontext() as tracker:
+        M = mags_and_signs_to_qfloat_matrix(mags, signs, qfloat_len, qfloat_ints, qfloat_base)
+        Minv = qfloat_matrix_inverse_cells(M, qfloat_len, qfloat_ints, true_division)
+    out = qfloat_matrix_to_mags_and_signs(Minv, qfloat_len, qfloat_ints, qfloat_base)
+    if track:
+        return (*out, tracker.combined(mags.shape[:-1]))
+    return out

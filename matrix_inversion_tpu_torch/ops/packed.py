@@ -1,7 +1,7 @@
 """PackedQFloat on int64 torch tensors: the eager path and the kernel's spec.
 
-Port of the untracked part of ``matrix_inversion_tpu/ops/packed.py``
-(``:164-645,719-776,842-865``).  A base-tidy QFloat with a power-of-two
+Port of ``matrix_inversion_tpu/ops/packed.py`` (``:65-111,164-645,
+719-798,842-969``), overflow tracking included.  A base-tidy QFloat with a power-of-two
 base and ``base**len < 2**62`` is exactly ``(magnitude, sign)``: the
 magnitude an int64 tensor, the sign a Python int or an int64 tensor in
 {-1, 0, +1} (sign 0 makes the value act as zero).
@@ -16,6 +16,13 @@ Two things differ from the JAX module and give the same bits:
   restoring loop of the JAX module exist for the TPU's lack of a 64-bit
   divide.  A zero divisor saturates the ``n_bits`` window to all ones,
   as the restoring loop does (reference base_p_arrays.py:189-201).
+
+Inside a ``track_overflow()`` scope every normalization records whether
+it dropped digits past the top of its window, and multiplies take the
+windowed form (:func:`mul_window_packed`), whose mod-2**64 partial sum
+exposes exactly the carries the JAX package flags; outside it they take
+the algebraic truncated form (:func:`mul_trunc_packed`).  Both give the
+same magnitudes.
 """
 
 from __future__ import annotations
@@ -25,6 +32,48 @@ import torch
 from ..core.qfloat import QFloatBase, SignedBinary, Zero, check_invert_sign
 
 MAG_DTYPE = torch.int64
+
+# The live tracker of the innermost track_overflow() scope, or None.
+_OVERFLOW_TRACKER = None
+
+
+class OverflowTracker:
+    """The overflow flags recorded inside one ``track_overflow()`` scope."""
+
+    def __init__(self):
+        self.flags = []
+
+    def record(self, flag):
+        self.flags.append(flag)
+
+    def combined(self, batch_shape=None):
+        """OR of all recorded flags as int32 of ``batch_shape``; extra
+        leading axes are any-reduced, and no flag at all gives zeros."""
+        if not self.flags:
+            return torch.zeros(batch_shape or (), dtype=torch.int32)
+        if batch_shape is None:
+            batch_shape = min((f.shape for f in self.flags), key=len)
+        out = torch.zeros(batch_shape, dtype=torch.bool, device=self.flags[0].device)
+        for f in self.flags:
+            while f.dim() > len(batch_shape):
+                f = f.any(dim=0)
+            out = out | f
+        return out.to(torch.int32)
+
+
+class track_overflow:
+    """Scope in which QFloat ops record their overflow flags."""
+
+    def __enter__(self):
+        global _OVERFLOW_TRACKER
+        self._prev = _OVERFLOW_TRACKER
+        _OVERFLOW_TRACKER = OverflowTracker()
+        return _OVERFLOW_TRACKER
+
+    def __exit__(self, *exc):
+        global _OVERFLOW_TRACKER
+        _OVERFLOW_TRACKER = self._prev
+        return False
 
 
 def digit_bits(base: int) -> int:
@@ -100,9 +149,13 @@ class PackedQFloat(QFloatBase):
     def _tidy_signed(self, v):
         """Signed value -> (mag, sign): overflow past the top digit is
         dropped (mod base**L on |v|), the sign of zero is +1
-        (reference qfloat.py:607-673)."""
-        mag = v.abs() & self._mask()
+        (reference qfloat.py:607-673).  A live tracker records the
+        dropped carry."""
+        av = v.abs()
+        mag = av & self._mask()
         sign = torch.where((v < 0) & (mag != 0), -1, 1)
+        if _OVERFLOW_TRACKER is not None:
+            _OVERFLOW_TRACKER.record(av > self._mask())
         return mag, sign
 
     # ---- comparisons ------------------------------------------------------
@@ -146,7 +199,7 @@ class PackedQFloat(QFloatBase):
         elif isinstance(other, PackedQFloat):
             # identical to from_mul at the same format
             self.check_compatibility(other)
-            self._mag = mul_trunc_packed(
+            self._mag = _mul_packed(
                 self._mag, self._length, self._ints,
                 other._mag, other._length, other._ints,
                 self._length, self._ints, self._bits,
@@ -173,7 +226,7 @@ class PackedQFloat(QFloatBase):
             return multiplication
         if not a.base == b.base:
             raise ValueError("bases are different")
-        mag = mul_trunc_packed(
+        mag = _mul_packed(
             a._mag, a._length, a.ints, b._mag, b._length, b.ints,
             newlength, newints, a._bits,
         )
@@ -204,6 +257,9 @@ class PackedQFloat(QFloatBase):
             raise ValueError("division dividend too wide for packed backend")
         dividend = self._mag << (self._bits * fp)
         q = packed_long_division(dividend, other._mag, self._bits * n_digits)
+        if _OVERFLOW_TRACKER is not None:
+            # quotient digits beyond the kept window are dropped overflow
+            _OVERFLOW_TRACKER.record((q >> (self._bits * self._length)) != 0)
         self._mag = q & self._mask()  # keep the trailing `length` digits
         self._sign = self.sign * other.sign
         return self
@@ -223,6 +279,8 @@ class PackedQFloat(QFloatBase):
         dividend = torch.full_like(self._mag, 1 << (self._bits * (fpself + fp)))
         q = packed_long_division(dividend, self._mag, self._bits * n_digits)
         if newlength < n_digits:
+            if _OVERFLOW_TRACKER is not None:
+                _OVERFLOW_TRACKER.record((q >> (self._bits * newlength)) != 0)
             q = q & ((1 << (self._bits * newlength)) - 1)
         sb = sign.value if isinstance(sign, SignedBinary) else sign
         return PackedQFloat(q, newlength, newints, self._base, sb * self.sign)
@@ -270,3 +328,66 @@ def mul_trunc_packed(a_mag, a_len, a_ints, b_mag, b_len, b_ints,
         a_p = (a_mag >> (bits * p)) & base_mask
         acc = acc + w * a_p
     return acc & out_mask
+
+
+def _mul_packed(a_mag, a_len, a_ints, b_mag, b_len, b_ints, newlength, newints, bits):
+    """The multiply of the circuit: windowed (and recorded) inside a
+    ``track_overflow()`` scope, truncated outside it (the rule of
+    ``matrix_inversion_tpu/ops/packed.py:903-912``)."""
+    if _OVERFLOW_TRACKER is None:
+        return mul_trunc_packed(a_mag, a_len, a_ints, b_mag, b_len, b_ints,
+                                newlength, newints, bits)
+    mag, flag = mul_window_packed(a_mag, a_len, a_ints, b_mag, b_len, b_ints,
+                                  newlength, newints, bits)
+    _OVERFLOW_TRACKER.record(flag)
+    return mag
+
+
+def mul_window_consts(a_len, a_ints, b_len, b_ints, newlength, newints, bits):
+    """Per-digit ``(a_shift, b_shift, b_mask, out_shift)`` of the windowed
+    multiply, one tuple per digit of ``a`` from the top; ``b_mask == 0``
+    marks a digit whose partial product lies wholly outside the window
+    (``matrix_inversion_tpu/ops/packed.py:779-798``)."""
+    consts = []
+    for i in range(a_len):
+        indb = newints - a_ints + i + 1 - b_ints
+        ind1 = 0 if indb >= 0 else -indb
+        ind2 = min(b_len, newlength - indb)
+        if ind2 <= ind1:
+            consts.append((0, 0, 0, 0))
+            continue
+        consts.append((
+            bits * (a_len - 1 - i),
+            bits * (b_len - ind2),
+            (1 << (bits * (ind2 - ind1))) - 1,
+            bits * (newlength - indb - ind2),
+        ))
+    return consts
+
+
+def mul_window_packed(a_mag, a_len, a_ints, b_mag, b_len, b_ints,
+                      newlength, newints, bits):
+    """The windowed multiply: one cropped partial product per digit of
+    ``a``, summed mod 2**64 (``matrix_inversion_tpu/ops/packed.py:868-969``).
+    Returns ``(mag, flag)``.
+
+    Its magnitudes equal :func:`mul_trunc_packed`'s.  Its flag is the carry
+    out of the output window, ``(acc & ~out_mask) != 0`` on the wrapped
+    sum: carries past 2**64 are lost, as in the reference.
+
+    int64 stands in for uint64: ``window << out_shift`` stays below 2**62
+    (each cropped partial product fits the output window), the product by
+    the digit and the sum wrap mod 2**64, and ``acc`` is never shifted.
+    """
+    out_mask = (1 << (bits * newlength)) - 1
+    base_mask = (1 << bits) - 1
+    acc = torch.zeros_like(a_mag + b_mag)
+    for a_sh, b_sh, b_mask, o_sh in mul_window_consts(
+        a_len, a_ints, b_len, b_ints, newlength, newints, bits
+    ):
+        if b_mask == 0:
+            continue
+        a_i = (a_mag >> a_sh) & base_mask
+        window = ((b_mag >> b_sh) & b_mask) << o_sh
+        acc = acc + (window & -a_i if bits == 1 else window * a_i)
+    return acc & out_mask, (acc & ~out_mask) != 0

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ..config import QFloatParams
-from ..models.inverse import qfloat_matrix_inverse_packed_io
+from ..models.inverse import qfloat_matrix_inverse_packed_io, qfloat_matrix_inverse_with_overflow
 from ..models.marshal import float_matrix_to_mags_and_signs, mags_and_signs_to_float_matrix
 
 
@@ -24,6 +24,12 @@ class BatchedMatrixInversion:
     asynchronous on CUDA) and ``dequantize`` (device -> host float64);
     ``run`` chains the three.  On a CUDA device ``lowering="auto"`` runs
     the fused kernel (ops/fused_inverse.py).
+
+    ``track_overflow=True`` runs the tracked circuit
+    (``qfloat_matrix_inverse_with_overflow``, on CUDA the tracked kernel):
+    ``run_raw`` then returns ``(mags, signs, flags)`` and ``dequantize`` and
+    ``run`` return ``(inverses, flags)``, ``flags`` a numpy int32 ``(B,)``
+    that is 1 where a matrix overflowed its QFloat range.
     """
 
     def __init__(
@@ -45,10 +51,6 @@ class BatchedMatrixInversion:
             )
         if io != "packed":
             raise ValueError("io must be packed")
-        if track_overflow:
-            raise NotImplementedError(
-                "track_overflow is not ported yet (ROADMAP queue 1, item 6)"
-            )
         if data_parallel or in_shardings is not None or out_shardings is not None:
             raise NotImplementedError(
                 "multi-device batching is not ported yet (ROADMAP queue 1, item 10)"
@@ -59,6 +61,7 @@ class BatchedMatrixInversion:
         self.params = params
         self.batch_size = int(batch_size)
         self.device = torch.device(device)
+        self.track_overflow = bool(track_overflow)
 
     def quantize(self, matrices: np.ndarray):
         """(B, n, n) float64 -> ((B, n*n) int64 magnitudes, signs) on the device."""
@@ -72,13 +75,17 @@ class BatchedMatrixInversion:
         )
 
     def dequantize(self, out):
-        """(magnitudes, signs) device tensors -> (B, n, n) float64 on the host."""
+        """(magnitudes, signs) device tensors -> (B, n, n) float64 on the
+        host; with tracking, (magnitudes, signs, flags) -> (inverses,
+        int32 flags)."""
         p = self.params
-        mags, signs = out
-        return mags_and_signs_to_float_matrix(
-            mags.cpu().numpy(), signs.cpu().numpy(),
+        matrices = mags_and_signs_to_float_matrix(
+            out[0].cpu().numpy(), out[1].cpu().numpy(),
             p.qfloat_len, p.qfloat_ints, p.qfloat_base,
         )
+        if self.track_overflow:
+            return matrices, out[2].cpu().numpy()
+        return matrices
 
     def run_raw(self, mags, signs):
         """Device input tensors -> device output tensors."""
@@ -91,13 +98,16 @@ class BatchedMatrixInversion:
                 None, t.device.index
             ):
                 raise ValueError(f"expected tensors on {self.device}, got {t.device}")
-        return qfloat_matrix_inverse_packed_io(
+        fn = (qfloat_matrix_inverse_with_overflow if self.track_overflow
+              else qfloat_matrix_inverse_packed_io)
+        return fn(
             mags, signs, p.n, p.qfloat_len, p.qfloat_ints, p.qfloat_base,
             p.true_division, lowering=p.lowering,
         )
 
     def run(self, matrices: np.ndarray):
-        """Invert a (B, n, n) float batch; returns the (B, n, n) inverses."""
+        """Invert a (B, n, n) float batch; returns the (B, n, n) inverses,
+        or ``(inverses, flags)`` with tracking."""
         p = self.params
         if matrices.shape != (self.batch_size, p.n, p.n):
             raise ValueError(

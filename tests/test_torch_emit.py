@@ -7,13 +7,17 @@ here with g++ into a ctypes library, its output must equal the plain
 version of the kernel (itself held to the JAX package in
 tests/test_torch_fused.py) bit for bit.  Single QFloat ops, emitted the
 same way, are held to ``PackedQFloat`` across formats the inversion
-circuits do not reach.
+circuits do not reach.  The tracked variant (a body emitted under
+tracking) is held the same way to the tracked plain version, flags
+included, and the tracked primitives to ``PackedQFloat`` inside
+``track_overflow()``.
 """
 
 import ctypes
 import hashlib
 import subprocess
 import sys
+from contextlib import nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -24,7 +28,7 @@ import matrix_inversion_tpu_torch as mt
 from matrix_inversion_tpu_torch.core.qfloat import SignedBinary, qf_from_mul
 from matrix_inversion_tpu_torch.models.marshal import float_matrix_to_mags_and_signs
 from matrix_inversion_tpu_torch.ops.emit import EmitQFloat, Emitter, Sym, emit_body
-from matrix_inversion_tpu_torch.ops.packed import PackedQFloat
+from matrix_inversion_tpu_torch.ops.packed import PackedQFloat, track_overflow
 from matrix_inversion_tpu_torch.ops.fused_inverse import CSRC, fused_matrix_inverse_reference
 
 torch.set_num_threads(2)
@@ -49,16 +53,22 @@ CONFIGS = {
     "low3_base4": _config("low", 3, qfloat_base=4, qfloat_len=11, qfloat_ints=4),
 }
 
+# the circuit configurations of the tracked variant
+TRACKED = ["high2", "high3", "high4", "high5", "low3", "low4", "medium3", "medium_plus4"]
+
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """One g++ build of fused_inverse.cu per configuration, in parallel."""
+    """One g++ build of fused_inverse.cu per configuration, untracked and
+    tracked (key ``t_<name>``), all in parallel."""
     root = tmp_path_factory.mktemp("fused_host")
+    builds = {key: (config, False) for key, config in CONFIGS.items()}
+    builds.update({f"t_{key}": (CONFIGS[key], True) for key in TRACKED})
     procs = {}
-    for key, config in CONFIGS.items():
+    for key, (config, track) in builds.items():
         d = root / key
         d.mkdir()
-        (d / "fused_body.inc").write_text(emit_body(*config))
+        (d / "fused_body.inc").write_text(emit_body(*config, track=track))
         cmd = [
             "g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-x", "c++",
             "-I", str(CSRC), "-I", str(d), "-o", str(d / "lib.so"),
@@ -69,20 +79,27 @@ def host_kernels(tmp_path_factory):
     for key, proc in procs.items():
         _, err = proc.communicate(timeout=300)
         assert proc.returncode == 0, f"g++ failed for {key}:\n{err}"
-        fn = ctypes.CDLL(str(root / key / "lib.so")).fused_inverse_host
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64]
+        lib = ctypes.CDLL(str(root / key / "lib.so"))
+        track = builds[key][1]
+        fn = lib.fused_inverse_tracked_host if track else lib.fused_inverse_host
+        fn.argtypes = [ctypes.c_void_p] * (5 if track else 4) + [ctypes.c_int64]
         fn.restype = ctypes.c_int
         libs[key] = fn
     return libs
 
 
-def run_host(fn, mags, signs):
-    """(B, n*n) int64 arrays through the host kernel (cell-major inside)."""
+def run_host(fn, mags, signs, track=False):
+    """(B, n*n) int64 arrays through the host kernel (cell-major inside);
+    the tracked kernel also returns the (B,) int32 flags."""
     cm = np.ascontiguousarray(mags.T)
     cs = np.ascontiguousarray(signs.T)
     om, os_ = np.empty_like(cm), np.empty_like(cs)
-    assert fn(cm.ctypes.data, cs.ctypes.data, om.ctypes.data, os_.ctypes.data, cm.shape[1]) == 0
-    return om.T, os_.T
+    ptrs = [cm.ctypes.data, cs.ctypes.data, om.ctypes.data, os_.ctypes.data]
+    flags = np.empty(cm.shape[1], np.int32)
+    if track:
+        ptrs.append(flags.ctypes.data)
+    assert fn(*ptrs, cm.shape[1]) == 0
+    return (om.T, os_.T, flags) if track else (om.T, os_.T)
 
 
 def inputs(config, B, seed, singular=False):
@@ -91,6 +108,16 @@ def inputs(config, B, seed, singular=False):
     M = rng.randn(B, n, n) * (1 if singular else 100)
     if singular:
         M[:, 2, :] = M[:, 0, :] + M[:, 1, :]
+    return float_matrix_to_mags_and_signs(M, length, ints, base)
+
+
+def overflowy_inputs(config, B, seed):
+    """Random x100 matrices with one near-singular and one all-zero matrix
+    (tests/test_overflow.py::_overflowy_batch)."""
+    n, length, ints, base, _ = config
+    M = np.random.RandomState(seed).randn(B, n, n) * 100
+    M[0, 1] = M[0, 0] * (1 + 1e-12)
+    M[1] = 0.0
     return float_matrix_to_mags_and_signs(M, length, ints, base)
 
 
@@ -115,6 +142,45 @@ def test_host_kernel_singular(host_kernels):
     )
     np.testing.assert_array_equal(got_m, ref_m.numpy())
     np.testing.assert_array_equal(got_s, ref_s.numpy())
+
+
+@pytest.mark.parametrize("key", TRACKED)
+def test_tracked_host_kernel_matches_plain_version(host_kernels, key):
+    config = CONFIGS[key]
+    mags, signs = overflowy_inputs(config, 37, seed=len(key))
+    got_m, got_s, got_f = run_host(host_kernels[f"t_{key}"], mags, signs, track=True)
+    ref_m, ref_s, ref_f = fused_matrix_inverse_reference(
+        torch.from_numpy(mags), torch.from_numpy(signs), *config, track=True
+    )
+    np.testing.assert_array_equal(got_m, ref_m.numpy())
+    np.testing.assert_array_equal(got_s, ref_s.numpy())
+    np.testing.assert_array_equal(got_f, ref_f.numpy())
+    assert got_f[0] == 1 and got_f[1] == 1 and not got_f.all()
+
+
+@pytest.mark.parametrize("key", TRACKED)
+def test_tracked_and_untracked_bodies_agree(host_kernels, key):
+    """The windowed and truncated multiplies are digit-exact, so both
+    variants give the same magnitudes and signs."""
+    mags, signs = overflowy_inputs(CONFIGS[key], 53, seed=2 * len(key))
+    tracked = run_host(host_kernels[f"t_{key}"], mags, signs, track=True)
+    untracked = run_host(host_kernels[key], mags, signs)
+    np.testing.assert_array_equal(tracked[0], untracked[0])
+    np.testing.assert_array_equal(tracked[1], untracked[1])
+
+
+def test_tracked_body_records_what_the_plain_version_records():
+    """Emitted under tracking, the body ORs one flag per op that records
+    one in the eager tracked circuit, and uses only the windowed multiply."""
+    for key in ("high4", "low4"):
+        config = CONFIGS[key]
+        src = emit_body(*config, track=True)
+        mags, signs = overflowy_inputs(config, 4, seed=1)
+        with track_overflow() as tracker:
+            fused_matrix_inverse_reference(torch.from_numpy(mags), torch.from_numpy(signs), *config)
+        assert src.count("ovf |= ") == len(tracker.flags)
+        assert "#define FUSED_TRACK 1" in src and "mul<" not in src
+        assert "FUSED_TRACK" not in emit_body(*config)
 
 
 def test_emitted_source_is_deterministic():
@@ -187,6 +253,11 @@ def _op_cases():
         cases.append((f"circuit_mul_{k}", fa, fb, 2,
                       lambda a, b, v, nl=nl, ni=ni: qf_from_mul(a, b, nl, ni)))
     cases.append(("invert_2x2", (43, 40), (43, 40), 2, lambda a, b, v: a.invert(1, 40, 0)))
+    # tracked ("t_"): every case again, emitted and run under tracking, and
+    # the widest window, whose partial sums can pass 2**64
+    cases += [(f"t_{name}", *rest) for name, *rest in cases]
+    cases.append(("t_mul_wide62", (62, 62), (62, 62), 2,
+                  lambda a, b, v: qf_from_mul(a, b, 62, 62)))
     return cases
 
 
@@ -194,7 +265,8 @@ OP_CASES = _op_cases()
 
 
 def _emit_op(name, fa, fb, base, op):
-    em = Emitter()
+    track = name.startswith("t_")
+    em = Emitter(track)
     a = EmitQFloat(em, "(uint64_t)am[i]", *fa, base, Sym(em, "(int)as[i]"))
     b = EmitQFloat(em, "(uint64_t)bm[i]", *fb, base, Sym(em, "(int)bs[i]"))
     out = op(a, b, Sym(em, "(int)v[i]"))
@@ -202,10 +274,14 @@ def _emit_op(name, fa, fb, base, op):
         tail = f"om[i] = (int64_t){out.mag}; os[i] = {out.sign.name if isinstance(out.sign, Sym) else out.sign};"
     else:
         tail = f"om[i] = 0; os[i] = {out.name};"
+    if track:
+        em.lines.insert(0, "int ovf = 0;")
+        tail += " of[i] = ovf;"
     body = "".join(f"    {line}\n" for line in em.lines)
     return (
         f'extern "C" void {name}(const int64_t* am, const int64_t* as, const int64_t* bm,\n'
-        "    const int64_t* bs, const int64_t* v, int64_t* om, int64_t* os, int64_t n) {\n"
+        "    const int64_t* bs, const int64_t* v, int64_t* om, int64_t* os, int64_t* of,\n"
+        "    int64_t n) {\n"
         "  using namespace qcell;\n"
         f"  for (int64_t i = 0; i < n; ++i) {{\n{body}    {tail}\n  }}\n}}\n"
     )
@@ -233,9 +309,31 @@ def _rand_cell(rng, B, fmt, base):
     return mags, signs
 
 
+def run_op(host_ops, case, am, as_, bm, bs, v):
+    """One emitted op over the batch and the same op on PackedQFloat cells
+    (under ``track_overflow()`` for a tracked case); returns both outputs,
+    the flags from the combined tracker or 0."""
+    name, fa, fb, base, op = case
+    B = len(am)
+    om, os_, of = (np.empty(B, np.int64) for _ in range(3))
+    fn = getattr(host_ops, name)
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64]
+    fn(*(x.ctypes.data for x in (am, as_, bm, bs, v, om, os_, of)), B)
+    t = torch.from_numpy
+    track = name.startswith("t_")
+    with track_overflow() if track else nullcontext() as tracker:
+        ref = op(
+            PackedQFloat(t(am), *fa, base, t(as_)),
+            PackedQFloat(t(bm), *fb, base, t(bs)),
+            t(v),
+        )
+    ref_flags = tracker.combined((B,)).numpy() if track else 0
+    return (om, os_, of if track else 0), (ref, ref_flags)
+
+
 @pytest.mark.parametrize("case", OP_CASES, ids=[c[0] for c in OP_CASES])
 def test_emitted_op_matches_packed(host_ops, case):
-    name, fa, fb, base, op = case
+    name, fa, fb, base, _ = case
     rng = np.random.RandomState(len(name))
     B = 257
     am, as_ = _rand_cell(rng, B, fa, base)
@@ -243,19 +341,25 @@ def test_emitted_op_matches_packed(host_ops, case):
     # a + b = -base**len: the tidy drops the carry to magnitude 0, sign +1
     am[3], as_[3], bm[3], bs[3] = (1 << ((base.bit_length() - 1) * fa[0])) - 1, -1, 1, -1
     v = rng.choice([-1, 0, 1], size=B).astype(np.int64)
-    om, os_ = np.empty(B, np.int64), np.empty(B, np.int64)
-    fn = getattr(host_ops, name)
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64]
-    fn(*(x.ctypes.data for x in (am, as_, bm, bs, v, om, os_)), B)
-
-    t = torch.from_numpy
-    ref = op(
-        PackedQFloat(t(am), *fa, base, t(as_)),
-        PackedQFloat(t(bm), *fb, base, t(bs)),
-        t(v),
-    )
+    (om, os_, of), (ref, ref_flags) = run_op(host_ops, case, am, as_, bm, bs, v)
+    np.testing.assert_array_equal(of, ref_flags)
     if isinstance(ref, PackedQFloat):
         np.testing.assert_array_equal(om, ref.mag.numpy())
         np.testing.assert_array_equal(os_, np.broadcast_to(np.asarray(ref.sign), B))
     else:
         np.testing.assert_array_equal(os_, ref.numpy())
+
+
+def test_emitted_mul_window_wraps_at_2_64(host_ops):
+    """``mul_window_t`` sums in uint64_t: a = 31 times b = 2**62 - 1 at
+    (62, 62) has five cropped partial products whose sum passes 2**64 and
+    leaves no bit above the window, so it is not flagged (a = 15, four
+    products below 2**64, is)."""
+    case = next(c for c in OP_CASES if c[0] == "t_mul_wide62")
+    am = np.array([31, 15, 1, 0], np.int64)
+    bm = np.full(4, (1 << 62) - 1, np.int64)
+    ones = np.ones(4, np.int64)
+    (om, _, of), (ref, ref_flags) = run_op(host_ops, case, am, ones, bm, ones, ones)
+    np.testing.assert_array_equal(of, [0, 1, 0, 0])
+    np.testing.assert_array_equal(ref_flags, of)
+    np.testing.assert_array_equal(om, ref.mag.numpy())

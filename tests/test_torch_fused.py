@@ -89,6 +89,38 @@ def test_wrapper_on_cpu_runs_plain_version():
     assert fused_inverse.LAUNCHES == before
 
 
+def test_tracked_wrapper_on_cpu_runs_plain_version():
+    mags, signs, args, ref_m, ref_s = check_plain_version("high", 3)
+    before = (fused_inverse.LAUNCHES, fused_inverse.TRACKED_LAUNCHES)
+    tm, ts = torch.from_numpy(mags), torch.from_numpy(signs)
+    ref = fused_inverse.fused_matrix_inverse_reference(tm, ts, *args, track=True)
+    assert torch.equal(ref[0], ref_m) and torch.equal(ref[1], ref_s)
+    assert ref[2].dtype == torch.int32 and ref[2].shape == (48,)
+    for lowering in (None, "auto", "unroll", "fused"):
+        got = mt.qfloat_matrix_inverse_with_overflow(tm, ts, *args, lowering=lowering)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    got = fused_inverse.fused_matrix_inverse(
+        tm[:6].reshape(3, 2, 9), ts[:6].reshape(3, 2, 9), *args, track=True
+    )
+    assert got[0].shape == (3, 2, 9) and got[2].shape == (3, 2)
+    assert torch.equal(got[0].reshape(6, 9), ref_m[:6]) and torch.equal(got[2].reshape(6), ref[2][:6])
+    assert (fused_inverse.LAUNCHES, fused_inverse.TRACKED_LAUNCHES) == before
+    meta = torch.zeros(9, 4, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_inverse.fused_inverse_cell_major(meta, meta, *args, track=True)
+
+
+@pytest.mark.parametrize("lowering", ["vec", "scan"])
+def test_with_overflow_unported_lowerings_name_roadmap(lowering):
+    p = mt.HIGH
+    cpu = torch.zeros(8, 16, dtype=torch.int64)
+    with pytest.raises(ValueError, match="item 11"):
+        mt.qfloat_matrix_inverse_with_overflow(
+            cpu, cpu, 4, p.qfloat_len, p.qfloat_ints, p.qfloat_base, p.true_division,
+            lowering=lowering,
+        )
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     p = mt.HIGH
     args = (p.qfloat_len, p.qfloat_ints, p.qfloat_base, p.true_division)
@@ -121,7 +153,6 @@ def test_batched_api_matches_jax_end_to_end():
     "kw,match",
     [
         ({"io": "digits"}, "item 7"),
-        ({"track_overflow": True}, "item 6"),
         ({"data_parallel": True}, "item 10"),
         ({"in_shardings": object()}, "item 10"),
     ],
@@ -129,6 +160,21 @@ def test_batched_api_matches_jax_end_to_end():
 def test_batched_api_unported_options_name_roadmap(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         mt.BatchedMatrixInversion(mt.HIGH.replace(n=4), 8, device="cpu", **kw)
+
+
+def test_batched_api_track_overflow():
+    """``track_overflow=True`` (ROADMAP item 6) runs the tracked circuit:
+    the same inverses as untracked, plus an int32 flag per matrix."""
+    p = mt.HIGH.replace(n=4)
+    M = np.random.RandomState(8).randn(8, 4, 4) * 100
+    M[3] = 0.0  # singular: the divisions by zero saturate and flag
+    tracked = mt.BatchedMatrixInversion(p, 8, device="cpu", track_overflow=True)
+    inv, flags = tracked.run(M)
+    assert flags.dtype == np.int32 and flags.shape == (8,)
+    assert flags[3] == 1 and flags.sum() < 8
+    np.testing.assert_array_equal(inv, mt.BatchedMatrixInversion(p, 8, device="cpu").run(M))
+    ok = flags == 0
+    assert np.max(np.abs(inv[ok] - np.linalg.inv(M[ok]))) < 1e-3
 
 
 def test_batched_api_checks_inputs():
