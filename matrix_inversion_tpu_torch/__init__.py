@@ -3,18 +3,22 @@
 Exact batched matrix inversion in QFloat fixed-point arithmetic, with the
 same semantics, bit for bit, as the JAX package ``matrix_inversion_tpu``
 (the reference, kept beside it).  Ported so far: the packed-I/O main
-path, untracked and with per-matrix overflow flags:
+path at any n, untracked and with per-matrix overflow flags:
 
 * ``config``        -- QFloatParams and the Low/Medium/Medium+/High presets;
 * ``core.qfloat``   -- the Zero / SignedBinary / QFloatBase dispatch layer;
 * ``ops.packed``    -- PackedQFloat on int64 tensors (eager path, and the
-  semantic spec of the kernel) and the ``track_overflow`` scope;
+  semantic spec of the kernels), the ``track_overflow`` scope, and the
+  division routing switch ``set_division_impl``;
+* ``ops.long_division`` + ``csrc/`` -- the division kernels K2/K3 and the
+  windowed-multiply kernel K4 of the op-by-op path, for sm_90a;
 * ``ops.emit``      -- emits the kernel body as C++ from the circuit;
 * ``ops.fused_inverse`` + ``csrc/`` -- the fused whole-inversion CUDA
   kernel for sm_90a (untracked and tracked), its wrapper and its plain
   version;
-* ``models``        -- pivoting/LU/substitution/2x2 circuit, packed
-  marshalling, the packed-I/O entry points (untracked and with overflow);
+* ``models``        -- pivoting/LU/substitution/2x2 circuit and the op-by-op
+  path, packed marshalling, the packed-I/O entry points (untracked and
+  with overflow);
 * ``runtime.api``   -- BatchedMatrixInversion.
 
 The package imports torch and numpy, never jax.
@@ -23,7 +27,7 @@ The package imports torch and numpy, never jax.
 from .config import HIGH, LOW, MEDIUM, MEDIUM_PLUS, PRESETS, QFloatParams
 from .core.qfloat import QFloatBase, SignedBinary, Zero
 from .models.inverse import qfloat_matrix_inverse_packed_io, qfloat_matrix_inverse_with_overflow
-from .ops.packed import PackedQFloat, track_overflow
+from .ops.packed import PackedQFloat, set_division_impl, track_overflow
 from .runtime.api import BatchedMatrixInversion
 
 __all__ = [
@@ -38,6 +42,7 @@ __all__ = [
     "Zero",
     "PackedQFloat",
     "track_overflow",
+    "set_division_impl",
     "qfloat_matrix_inverse_packed_io",
     "qfloat_matrix_inverse_with_overflow",
     "BatchedMatrixInversion",

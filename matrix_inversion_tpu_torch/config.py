@@ -2,8 +2,7 @@
 
 Same fields, presets and validation as ``matrix_inversion_tpu/config.py``
 minus what the port does not carry: the module-global performance knobs
-and their cache keys, the limb-only ``tensorize`` grouping flag, and the
-``vec``/``scan`` lowerings (ROADMAP queue 1, item 11).
+and their cache keys, and the limb-only ``tensorize`` grouping flag.
 """
 
 from __future__ import annotations
@@ -11,8 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-LOWERINGS = ("auto", "unroll", "fused")
-_ROADMAP_LOWERINGS = ("vec", "scan")
+LOWERINGS = ("auto", "unroll", "vec", "scan", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,9 +28,13 @@ class QFloatParams:
                      encoding fits).  The digit-array "limb" backend is
                      ROADMAP queue 1, item 7.
       lowering:      "fused" runs the whole inversion as one CUDA kernel
-                     (ops/fused_inverse.py), "unroll" runs the circuit op
-                     by op in PyTorch, "auto" picks fused for CUDA tensors
-                     with n <= 12.  Results are bit-identical.
+                     (ops/fused_inverse.py, n <= 12); "unroll", "vec" and
+                     "scan" run the op-by-op path (the circuit as eager
+                     PyTorch ops, divisions and base-2 multiplies on the
+                     card through the K2/K3/K4 kernels; JAX's "vec" and
+                     "scan" only cap its compile time); "auto" picks
+                     fused for CUDA tensors with n <= 12 and the op-by-op
+                     path otherwise.  Results are bit-identical.
     """
 
     n: int = 2
@@ -54,13 +56,8 @@ class QFloatParams:
             )
         if self.backend not in ("auto", "packed"):
             raise ValueError("backend must be auto|packed")
-        if self.lowering in _ROADMAP_LOWERINGS:
-            raise ValueError(
-                f"lowering='{self.lowering}' is not ported yet "
-                "(ROADMAP queue 1, item 11)"
-            )
         if self.lowering not in LOWERINGS:
-            raise ValueError("lowering must be auto|unroll|fused")
+            raise ValueError("lowering must be auto|unroll|vec|scan|fused")
 
     @property
     def frac(self) -> int:

@@ -1,35 +1,36 @@
 """Packed-I/O circuit entry points, untracked and overflow-tracked.
 
-Port of ``matrix_inversion_tpu/models/inverse.py:161-325``.  Two lowerings
+Port of ``matrix_inversion_tpu/models/inverse.py:161-325``.  Two paths
 with bit-identical results: "fused" runs the whole inversion as one CUDA
-kernel (ops/fused_inverse.py), "unroll" runs the circuit op by op on int64
-tensors.  The digit-I/O entry point and the partial circuits are ROADMAP
-queue 1, items 7 and 8.
+kernel (ops/fused_inverse.py, n <= 12); the op-by-op path
+(``models.qfloat_lu.qfloat_matrix_inverse_op_by_op``) runs the circuit as
+eager PyTorch ops on int64 tensors, at any n, its divisions on the card
+through the division kernels K2/K3 and its untracked base-2 multiplies
+through K4 (ops/long_division.py).  The JAX
+lowerings "unroll", "vec" and "scan" all map to the op-by-op path: "vec"
+and "scan" exist in the JAX package only to cap XLA compile time, and
+give the same bits as "unroll" there.  The digit-I/O entry point and the
+partial circuits are ROADMAP queue 1, items 7 and 8.
 """
 
 from __future__ import annotations
 
-from ..ops.fused_inverse import (
-    FUSED_MAX_N,
-    fused_matrix_inverse,
-    fused_matrix_inverse_reference,
-)
+from ..ops.fused_inverse import FUSED_MAX_N, fused_matrix_inverse
+from .qfloat_lu import qfloat_matrix_inverse_op_by_op
 
 
 def _resolve_lowering(lowering, n, device):
-    """``auto`` picks the fused kernel for CUDA tensors with n <= 12 and the
-    eager circuit otherwise."""
+    """"fused" or "op_by_op".  ``auto`` picks the fused kernel for CUDA
+    tensors with n <= 12 and the op-by-op path otherwise; "unroll", "vec"
+    and "scan" are the op-by-op path."""
     if lowering in (None, "auto"):
         if device.type == "cuda" and n <= FUSED_MAX_N:
             return "fused"
-        return "unroll"
-    if lowering in ("vec", "scan"):
-        raise ValueError(
-            f"lowering {lowering!r} is not ported yet (ROADMAP queue 1, item 11): "
-            "expected auto|unroll|fused"
-        )
-    if lowering not in ("unroll", "fused"):
-        raise ValueError(f"unknown lowering {lowering!r}: expected auto|unroll|fused")
+        return "op_by_op"
+    if lowering in ("unroll", "vec", "scan"):
+        return "op_by_op"
+    if lowering != "fused":
+        raise ValueError(f"unknown lowering {lowering!r}: expected auto|unroll|vec|scan|fused")
     return lowering
 
 
@@ -40,7 +41,7 @@ def qfloat_matrix_inverse_packed_io(mags, signs, n, qfloat_len, qfloat_ints,
     if mags.shape[-1] != n * n:
         raise ValueError(f"mags must have shape (..., {n * n})")
     style = _resolve_lowering(lowering, n, mags.device)
-    fn = fused_matrix_inverse if style == "fused" else fused_matrix_inverse_reference
+    fn = fused_matrix_inverse if style == "fused" else qfloat_matrix_inverse_op_by_op
     return fn(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base, true_division)
 
 
@@ -52,12 +53,12 @@ def qfloat_matrix_inverse_with_overflow(mags, signs, n, qfloat_len, qfloat_ints,
     the OR of every digit dropped past the top of a window inside the
     inversion (the reference's open TODO, its qfloat.py:255-257), so that
     callers can reject saturated inverses.  Magnitudes and signs equal the
-    untracked inverse's.  "fused" runs the tracked kernel, "unroll" the
-    circuit under ``track_overflow()``.
+    untracked inverse's.  "fused" runs the tracked kernel, the op-by-op
+    path the circuit under ``track_overflow()``.
     """
     if mags.shape[-1] != n * n:
         raise ValueError(f"mags must have shape (..., {n * n})")
     style = _resolve_lowering(lowering, n, mags.device)
-    fn = fused_matrix_inverse if style == "fused" else fused_matrix_inverse_reference
+    fn = fused_matrix_inverse if style == "fused" else qfloat_matrix_inverse_op_by_op
     return fn(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base, true_division,
               track=True)

@@ -5,13 +5,18 @@ Matrices are n x n Python lists whose cells are ``Zero``, ``SignedBinary``
 or a QFloat type; the n-loops unroll while the circuit is built.  The
 pivot and argmax arithmetic uses operators only (no dtype casts, no
 indexed updates), so the same code runs eagerly on int64 tensors
-(``ops.packed.PackedQFloat``) and on the integer symbols of the CUDA
-kernel emitter (``ops.emit``).
+(``ops.packed.PackedQFloat``; :func:`qfloat_matrix_inverse_op_by_op`, the
+op-by-op path) and on the integer symbols of the CUDA kernel emitter
+(``ops.emit``).
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 from ..core.qfloat import SignedBinary, Zero, qf_from_mul
+from ..ops.packed import track_overflow
+from .marshal import mags_and_signs_to_qfloat_matrix, qfloat_matrix_to_mags_and_signs
 
 
 def matrix_column(M, j):
@@ -207,3 +212,28 @@ def qfloat_matrix_inverse_cells(M, qfloat_len, qfloat_ints, true_division):
     P = [[SignedBinary(c) for c in row] for row in qfloat_pivot_cells(M)]
     Pb, Lm, Um = lu_from_pivot(P, M, qfloat_len, qfloat_ints, true_division)
     return qfloat_lu_inverse(Pb, Lm, Um, qfloat_len, qfloat_ints, true_division)
+
+
+def qfloat_matrix_inverse_op_by_op(mags, signs, n, qfloat_len, qfloat_ints,
+                                   qfloat_base, true_division, track=False):
+    """The op-by-op path: the whole circuit run eagerly on int64
+    :class:`~..ops.packed.PackedQFloat` cells, ``(..., n*n)`` magnitudes and
+    signs in, the same out, on any device and at any n.
+
+    Each division and multiply goes where ``ops.packed`` routes it: a CUDA
+    tensor divides through the division kernels (K2, or K3 under
+    ``set_division_impl("classic")``) and takes its untracked base-2
+    multiplies through the windowed-multiply kernel K4; a CPU tensor, or
+    any tensor inside ``plain_arithmetic()``, takes the plain versions.  ``track=True`` runs the circuit inside
+    ``track_overflow()`` and also returns the combined flags, int32 of the
+    batch shape.
+    """
+    if mags.shape[-1] != n * n:
+        raise ValueError(f"mags must have shape (..., {n * n})")
+    with track_overflow() if track else nullcontext() as tracker:
+        M = mags_and_signs_to_qfloat_matrix(mags, signs, qfloat_len, qfloat_ints, qfloat_base)
+        Minv = qfloat_matrix_inverse_cells(M, qfloat_len, qfloat_ints, true_division)
+    out = qfloat_matrix_to_mags_and_signs(Minv, qfloat_len, qfloat_ints, qfloat_base)
+    if track:
+        return (*out, tracker.combined(mags.shape[:-1]))
+    return out

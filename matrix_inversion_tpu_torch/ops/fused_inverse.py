@@ -16,50 +16,28 @@ tensor goes through the kernel, and a CPU tensor through the plain version
 
 The kernel is built at first use with ``nvcc`` from the sources in
 ``csrc/`` and the emitted body, into ``_build/<hash>/`` beside this
-package, keyed by a hash of the sources, the emitted text, the flags and
-``track``.
+package (:mod:`.cuda_build`), keyed by a hash of the sources, the emitted
+text, the flags and ``track``.
 """
 
 from __future__ import annotations
 
-import concurrent.futures
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from contextlib import nullcontext
-from pathlib import Path
 
 import torch
 
-from ..models.marshal import mags_and_signs_to_qfloat_matrix, qfloat_matrix_to_mags_and_signs
-from ..models.qfloat_lu import qfloat_matrix_inverse_cells
+from ..models.qfloat_lu import qfloat_matrix_inverse_op_by_op
+from .cuda_build import CSRC, NVCC_FLAGS, build_library, run_parallel
 from .emit import emit_body
-from .packed import track_overflow
+from .packed import plain_arithmetic
 
 FUSED_MAX_N = 12
-
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 # Launches of the untracked and of the tracked kernel, for checks that a
 # run went through them.
 LAUNCHES = 0
 TRACKED_LAUNCHES = 0
-
-
-def _nvcc():
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the fused kernel needs the CUDA toolkit")
-    return path
 
 
 def _key(config):
@@ -82,37 +60,18 @@ def _build_one(key):
     track)``; returns the library path.  Reuses a library already built
     from the same sources, body, flags and ``track``."""
     body = emit_body(*key)
-    digest = hashlib.sha256()
-    for text in (
-        (CSRC / "qfloat_cell.cuh").read_text(),
-        (CSRC / "fused_inverse.cu").read_text(),
-        body,
-        " ".join(NVCC_FLAGS),
-        f"track={key[5]}",
-    ):
-        digest.update(text.encode())
-        digest.update(b"\0")
-    out_dir = BUILD_DIR / digest.hexdigest()[:24]
-    lib = out_dir / "libfused_inverse.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "fused_body.inc").write_text(body)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [
-        _nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir),
-        "-o", tmp, str(CSRC / "fused_inverse.cu"),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed for config {key}:\n{proc.stdout}\n{proc.stderr}"
-        )
-    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    return build_library(
+        "fused_inverse.cu", "libfused_inverse.so",
+        (
+            (CSRC / "qfloat_cell.cuh").read_text(),
+            (CSRC / "fused_inverse.cu").read_text(),
+            body,
+            " ".join(NVCC_FLAGS),
+            f"track={key[5]}",
+        ),
+        files={"fused_body.inc": body},
+        what=f"config {key}",
+    )
 
 
 def build(configs):
@@ -120,8 +79,7 @@ def build(configs):
     a tuple ``(n, qfloat_len, qfloat_ints, qfloat_base, true_division)``
     with an optional trailing ``track``, and load them."""
     keys = [_key(c) for c in configs]
-    with concurrent.futures.ThreadPoolExecutor(max_workers=len(keys) or 1) as pool:
-        list(pool.map(_build_one, keys))
+    run_parallel([functools.partial(_build_one, k) for k in keys])
     for k in keys:
         _library(k)
 
@@ -210,15 +168,13 @@ def fused_inverse_cell_major(cm, cs, n, qfloat_len, qfloat_ints, qfloat_base,
 def fused_matrix_inverse_reference(mags, signs, n, qfloat_len, qfloat_ints,
                                    qfloat_base, true_division, track=False):
     """Plain version of the kernel: the circuit run eagerly, op by op, on
-    int64 :class:`~.packed.PackedQFloat` cells, on any device.  ``track=True``
-    runs it inside ``track_overflow()`` and also returns the combined
-    flags, int32 of the batch shape."""
-    if mags.shape[-1] != n * n:
-        raise ValueError(f"mags must have shape (..., {n * n})")
-    with track_overflow() if track else nullcontext() as tracker:
-        M = mags_and_signs_to_qfloat_matrix(mags, signs, qfloat_len, qfloat_ints, qfloat_base)
-        Minv = qfloat_matrix_inverse_cells(M, qfloat_len, qfloat_ints, true_division)
-    out = qfloat_matrix_to_mags_and_signs(Minv, qfloat_len, qfloat_ints, qfloat_base)
-    if track:
-        return (*out, tracker.combined(mags.shape[:-1]))
-    return out
+    int64 :class:`~.packed.PackedQFloat` cells, on any device, with every
+    division and multiply in plain PyTorch (the division and multiply
+    kernels switched off for the call).  ``track=True`` runs it inside
+    ``track_overflow()`` and also returns the combined flags, int32 of the
+    batch shape."""
+    with plain_arithmetic():
+        return qfloat_matrix_inverse_op_by_op(
+            mags, signs, n, qfloat_len, qfloat_ints, qfloat_base, true_division,
+            track=track,
+        )

@@ -1,0 +1,175 @@
+"""The division kernels (K2, K3) and the windowed-multiply kernel (K4).
+
+Replace ``matrix_inversion_tpu/ops/pallas_kernels.py``'s
+``_division_float_kernel`` (K2), ``_division_kernel`` (K3) and
+``_mul_window_kernel`` (K4), the kernels of the JAX package's op-by-op
+path.  The CUDA sources are ``csrc/long_division.cu`` (K2, K3) and
+``csrc/mul_window.cu`` (K4), one thread per element on 64-bit words.
+
+Each wrapper keeps its JAX contract: int64 inputs broadcast to one shape
+(a dividend may be a scalar filled to the batch), any shape, no padding,
+the result in the broadcast shape.  A CUDA tensor launches the kernel; a
+CPU tensor runs the plain version (``ops/packed.py``:
+:func:`~.packed.packed_long_division_reference` for K2 and K3,
+:func:`~.packed.mul_window_sum` masked to the window, the magnitude of
+:func:`~.packed.mul_window_packed`, for K4).  Tensors on any other device
+are refused.
+
+The two libraries are built with ``nvcc`` at first use (:mod:`.cuda_build`),
+keyed by a hash of their sources and the flags.  The parameters (``n_bits``
+and ``k``, ``n_digits`` and ``bits``, the K4 table) are runtime arguments,
+so the two libraries serve every QFloat format.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .cuda_build import CSRC, NVCC_FLAGS, build_library, run_parallel
+from .packed import mul_window_sum, packed_long_division_reference
+
+# Launches of each kernel, for checks that a run went through them.
+LAUNCHES = {"long_division_float": 0, "long_division_classic": 0, "mul_window": 0}
+
+_MAX_ROWS = 62  # csrc/mul_window.cu kMaxRows
+
+_SOURCES = {"long_division": "long_division.cu", "mul_window": "mul_window.cu"}
+
+
+class MulWindowTable(ctypes.Structure):
+    """The K4 table, laid out as ``MulWindowTable`` in csrc/mul_window.cu."""
+
+    _fields_ = [
+        ("b_mask", ctypes.c_uint64 * _MAX_ROWS),
+        ("out_mask", ctypes.c_uint64),
+        ("a_shift", ctypes.c_int32 * _MAX_ROWS),
+        ("b_shift", ctypes.c_int32 * _MAX_ROWS),
+        ("out_shift", ctypes.c_int32 * _MAX_ROWS),
+        ("rows", ctypes.c_int32),
+    ]
+
+
+def mul_window_table(consts, newlength):
+    """The K4 table of one call: the rows of ``consts``
+    (:func:`~.packed.mul_window_consts`) that add a partial product, and the
+    base-2 output mask of ``newlength`` digits."""
+    rows = [c for c in consts if c[2] != 0]
+    if len(rows) > _MAX_ROWS:
+        raise ValueError(f"mul_window takes at most {_MAX_ROWS} partial products")
+    table = MulWindowTable()
+    for i, (a_sh, b_sh, b_mask, o_sh) in enumerate(rows):
+        table.a_shift[i], table.b_shift[i] = a_sh, b_sh
+        table.b_mask[i], table.out_shift[i] = b_mask, o_sh
+    table.rows = len(rows)
+    table.out_mask = (1 << newlength) - 1
+    return table
+
+
+def _build_one(name):
+    source = _SOURCES[name]
+    return build_library(
+        source, f"lib{name}.so",
+        ((CSRC / "qfloat_cell.cuh").read_text(), (CSRC / source).read_text(),
+         " ".join(NVCC_FLAGS)),
+    )
+
+
+def build_dir(name):
+    """The build directory of ``"long_division"`` or ``"mul_window"``: the
+    library and ``nvcc.log`` with ptxas's registers and spills.  Builds
+    first if needed."""
+    return _build_one(name).parent
+
+
+def build():
+    """Build both libraries (in parallel, one nvcc each) and load them."""
+    run_parallel([functools.partial(_build_one, name) for name in _SOURCES])
+    _libraries()
+
+
+@functools.lru_cache(maxsize=None)
+def _libraries():
+    div = ctypes.CDLL(str(_build_one("long_division")))
+    mul = ctypes.CDLL(str(_build_one("mul_window")))
+    fns = {
+        "long_division_float": div.long_division_float_launch,
+        "long_division_classic": div.long_division_classic_launch,
+        "mul_window": mul.mul_window_launch,
+    }
+    for name in ("long_division_float", "long_division_classic"):
+        fns[name].argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+    fns["mul_window"].argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int64, ctypes.POINTER(MulWindowTable), ctypes.c_void_p,
+    ]
+    for fn in fns.values():
+        fn.restype = ctypes.c_int
+    return fns
+
+
+def _operands(x, y):
+    """Two int64 tensors on one device, broadcast to one contiguous shape."""
+    if x.dtype != torch.int64 or y.dtype != torch.int64:
+        raise TypeError(f"expected int64 tensors, got {x.dtype} and {y.dtype}")
+    if x.device != y.device:
+        raise ValueError(f"operands on two devices: {x.device} and {y.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"expected CPU or CUDA tensors, got {x.device}")
+    x, y = torch.broadcast_tensors(x, y)
+    return x.contiguous(), y.contiguous()
+
+
+def _launch(name, x, y, *args):
+    """One launch of kernel ``name`` over contiguous CUDA tensors ``x`` and
+    ``y`` of one shape; returns the output of that shape."""
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    fn = _libraries()[name]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), *args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def batched_long_division_float(dividend, divisor, n_bits, k):
+    """K2: ``dividend // divisor`` by radix-``2**k`` steps from a
+    downward-biased f32 reciprocal; a zero divisor gives ``2**n_bits - 1``.
+    Exact for ``dividend < 2**n_bits`` and ``divisor < 2**divisor_bits``
+    where ``k = _float_div_chunk_bits(n_bits, divisor_bits)``."""
+    if not (1 <= n_bits <= 62 and 4 <= k <= 15):
+        raise ValueError(f"need n_bits in [1, 62] and k in [4, 15], got {n_bits}, {k}")
+    v, d = _operands(dividend, divisor)
+    if v.device.type == "cpu":
+        return packed_long_division_reference(v, d, n_bits)
+    return _launch("long_division_float", v, d, n_bits, k)
+
+
+def batched_long_division(dividend, divisor, n_digits, bits):
+    """K3: ``dividend // divisor`` by restoring division, one
+    base-``2**bits`` digit per step; a zero divisor saturates every
+    quotient digit."""
+    if not (1 <= bits <= 16 and 1 <= bits * n_digits <= 62):
+        raise ValueError(f"need bits in [1, 16] and bits * n_digits <= 62, got {bits}, {n_digits}")
+    v, d = _operands(dividend, divisor)
+    if v.device.type == "cpu":
+        return packed_long_division_reference(v, d, bits * n_digits)
+    return _launch("long_division_classic", v, d, n_digits, bits)
+
+
+def batched_mul_window(a_mag, b_mag, consts, newlength):
+    """K4: the base-2 windowed multiply of int64 magnitudes, untracked,
+    masked to ``newlength`` digits; ``consts`` from
+    :func:`~.packed.mul_window_consts` at ``bits = 1``."""
+    table = mul_window_table(consts, newlength)
+    a, b = _operands(a_mag, b_mag)
+    if a.device.type == "cpu":
+        return mul_window_sum(a, b, consts, 1) & table.out_mask
+    return _launch("mul_window", a, b, ctypes.byref(table))

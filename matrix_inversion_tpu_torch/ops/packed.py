@@ -1,21 +1,28 @@
 """PackedQFloat on int64 torch tensors: the eager path and the kernel's spec.
 
-Port of ``matrix_inversion_tpu/ops/packed.py`` (``:65-111,164-645,
-719-798,842-969``), overflow tracking included.  A base-tidy QFloat with a power-of-two
+Port of ``matrix_inversion_tpu/ops/packed.py`` (``:52-139,164-645,
+650-798,842-969``), overflow tracking included.  A base-tidy QFloat with a power-of-two
 base and ``base**len < 2**62`` is exactly ``(magnitude, sign)``: the
 magnitude an int64 tensor, the sign a Python int or an int64 tensor in
 {-1, 0, +1} (sign 0 makes the value act as zero).
 
-Two things differ from the JAX module and give the same bits:
+int64 stands in for the JAX module's uint64: magnitudes stay below 2**62,
+so signed shifts and compares equal the unsigned ones, and int64 products
+wrap mod 2**64 exactly like the reference's uint64 partial sums before the
+final ``& mask``.
 
-* int64 only.  Magnitudes stay below 2**62, so signed shifts and compares
-  equal the unsigned ones, and int64 products wrap mod 2**64 exactly like
-  the reference's uint64 partial sums before the final ``& mask``.
-* division is one exact integer floor division
-  (``torch.div(..., rounding_mode="floor")``); the f32 estimate and the
-  restoring loop of the JAX module exist for the TPU's lack of a 64-bit
-  divide.  A zero divisor saturates the ``n_bits`` window to all ones,
-  as the restoring loop does (reference base_p_arrays.py:189-201).
+Division (:func:`packed_long_division`) is routed as in the JAX module.
+A CUDA tensor divides through a hand-written kernel
+(``ops/long_division.py``): K2, the f32-estimate long division, where
+:func:`_float_div_chunk_bits` allows it, else K3, the restoring long
+division.  A CPU tensor divides through the plain version
+:func:`packed_long_division_reference`, one exact ``torch.div`` floor
+division.  All give the same bits, a zero divisor included: it saturates
+the ``n_bits`` window to all ones, as the restoring loop does (reference
+base_p_arrays.py:189-201).  ``set_division_impl("classic")`` forces K3.
+Untracked base-2 multiplies of CUDA tensors go through the windowed-multiply
+kernel K4; CPU tensors take the truncated form.  Inside
+:func:`plain_arithmetic` every tensor takes the plain versions.
 
 Inside a ``track_overflow()`` scope every normalization records whether
 it dropped digits past the top of its window, and multiplies take the
@@ -27,6 +34,9 @@ same magnitudes.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 from ..core.qfloat import QFloatBase, SignedBinary, Zero, check_invert_sign
@@ -35,6 +45,61 @@ MAG_DTYPE = torch.int64
 
 # The live tracker of the innermost track_overflow() scope, or None.
 _OVERFLOW_TRACKER = None
+
+# Division lowering: None (the float-estimate form where it applies) or
+# "classic" (one digit per restoring step).
+_DIVISION_IMPL = None
+
+# Per thread: inside plain_arithmetic(), divisions and multiplies take their
+# plain versions on every device.
+_PLAIN = threading.local()
+
+
+class _Setting:
+    """Sets a module switch when made; as a ``with`` scope, restores the
+    previous value on exit."""
+
+    def __init__(self, name, value, allowed):
+        if value not in allowed:
+            raise ValueError(f"{name.strip('_').lower()} must be one of {allowed}, got {value!r}")
+        self._name = name
+        self._prev = globals()[name]
+        globals()[name] = value
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        globals()[self._name] = self._prev
+        return False
+
+
+def set_division_impl(impl):
+    """Force the division lowering: None (the float-estimate form, K2 on
+    CUDA, where :func:`_float_div_chunk_bits` allows it, else the restoring
+    loop) or "classic" (the restoring loop, K3 on CUDA).  The counterpart of
+    the JAX package's ``set_division_impl``, whose "float" is None here.
+    Usable as a ``with`` scope."""
+    return _Setting("_DIVISION_IMPL", impl, (None, "classic"))
+
+
+@contextlib.contextmanager
+def plain_arithmetic():
+    """Scope in which this thread's divisions and multiplies take their
+    plain versions on every device: the plain version of K1 and of the
+    op-by-op path."""
+    prev = getattr(_PLAIN, "on", False)
+    _PLAIN.on = True
+    try:
+        yield
+    finally:
+        _PLAIN.on = prev
+
+
+def _to_kernel(t):
+    """Whether an op on ``t`` launches a kernel: a CUDA tensor outside
+    :func:`plain_arithmetic`."""
+    return t.device.type == "cuda" and not getattr(_PLAIN, "on", False)
 
 
 class OverflowTracker:
@@ -256,7 +321,8 @@ class PackedQFloat(QFloatBase):
         if self._bits * n_digits > 62:
             raise ValueError("division dividend too wide for packed backend")
         dividend = self._mag << (self._bits * fp)
-        q = packed_long_division(dividend, other._mag, self._bits * n_digits)
+        q = packed_long_division(dividend, other._mag, n_digits, self._bits,
+                                 divisor_bits=self._bits * other._length)
         if _OVERFLOW_TRACKER is not None:
             # quotient digits beyond the kept window are dropped overflow
             _OVERFLOW_TRACKER.record((q >> (self._bits * self._length)) != 0)
@@ -277,7 +343,8 @@ class PackedQFloat(QFloatBase):
         if self._bits * n_digits > 62:
             raise ValueError("invert dividend too wide for packed backend")
         dividend = torch.full_like(self._mag, 1 << (self._bits * (fpself + fp)))
-        q = packed_long_division(dividend, self._mag, self._bits * n_digits)
+        q = packed_long_division(dividend, self._mag, n_digits, self._bits,
+                                 divisor_bits=self._bits * self._length)
         if newlength < n_digits:
             if _OVERFLOW_TRACKER is not None:
                 _OVERFLOW_TRACKER.record((q >> (self._bits * newlength)) != 0)
@@ -296,12 +363,50 @@ class PackedQFloat(QFloatBase):
         return self
 
 
-def packed_long_division(dividend, divisor, n_bits):
-    """``dividend // divisor`` on int64 magnitudes, exact.
+def _float_div_chunk_bits(n_bits, divisor_bits):
+    """Quotient bits per float-estimate step, or 0 if inapplicable
+    (``matrix_inversion_tpu/ops/packed.py:661-675``).
 
-    A zero divisor saturates all ``n_bits`` quotient bits, digit-exact with
-    the restoring loop of the reference (base_p_arrays.py:189-201).
+    q_est < 2**16 keeps the kernels' partial products narrow; the
+    remainder ``r < divisor * 2**k`` and ``q_est * divisor`` must stay
+    below 2**62; and the downward-biased estimate's deficit 2**k * eps
+    (eps < 2**-16) must stay under 1 so one add-back fixup is enough --
+    k <= 15 keeps it below 1/2.
     """
+    if divisor_bits is None:
+        return 0
+    k = min(15, 61 - divisor_bits, n_bits)
+    return k if k >= 4 else 0
+
+
+def packed_long_division(dividend, divisor, n_digits, bits, divisor_bits=None):
+    """``dividend // divisor`` on int64 magnitudes, exact, with JAX's
+    signature (``matrix_inversion_tpu/ops/packed.py:719-776``).
+
+    ``n_digits`` base-``2**bits`` digits of dividend (and quotient);
+    ``divisor_bits`` bounds the divisor's width and enables the
+    float-estimate form (K2) with ``k = _float_div_chunk_bits(...)``
+    quotient bits per step; without it, or under
+    ``set_division_impl("classic")``, the restoring form (K3) runs.  A
+    zero divisor saturates all ``bits * n_digits`` quotient bits.  A CPU
+    tensor, or any tensor inside :func:`plain_arithmetic`, takes the plain
+    version, which gives the same bits.
+    """
+    n_bits = bits * n_digits
+    if not _to_kernel(divisor):
+        return packed_long_division_reference(dividend, divisor, n_bits)
+    from . import long_division
+
+    k = _float_div_chunk_bits(n_bits, divisor_bits)
+    if k and _DIVISION_IMPL != "classic":
+        return long_division.batched_long_division_float(dividend, divisor, n_bits, k)
+    return long_division.batched_long_division(dividend, divisor, n_digits, bits)
+
+
+def packed_long_division_reference(dividend, divisor, n_bits):
+    """Plain version of the division kernels: one exact floor division;
+    a zero divisor saturates all ``n_bits`` quotient bits, digit-exact with
+    the restoring loop of the reference (base_p_arrays.py:189-201)."""
     is_zero = divisor == 0
     q = torch.div(dividend, torch.where(is_zero, 1, divisor), rounding_mode="floor")
     return torch.where(is_zero, (1 << n_bits) - 1, q)
@@ -333,8 +438,17 @@ def mul_trunc_packed(a_mag, a_len, a_ints, b_mag, b_len, b_ints,
 def _mul_packed(a_mag, a_len, a_ints, b_mag, b_len, b_ints, newlength, newints, bits):
     """The multiply of the circuit: windowed (and recorded) inside a
     ``track_overflow()`` scope, truncated outside it (the rule of
-    ``matrix_inversion_tpu/ops/packed.py:903-912``)."""
+    ``matrix_inversion_tpu/ops/packed.py:880-912``); untracked at base 2
+    on a CUDA tensor, the windowed-multiply kernel K4."""
     if _OVERFLOW_TRACKER is None:
+        if bits == 1 and _to_kernel(a_mag):
+            from . import long_division
+
+            return long_division.batched_mul_window(
+                a_mag, b_mag,
+                mul_window_consts(a_len, a_ints, b_len, b_ints, newlength, newints, bits),
+                newlength,
+            )
         return mul_trunc_packed(a_mag, a_len, a_ints, b_mag, b_len, b_ints,
                                 newlength, newints, bits)
     mag, flag = mul_window_packed(a_mag, a_len, a_ints, b_mag, b_len, b_ints,
@@ -365,29 +479,40 @@ def mul_window_consts(a_len, a_ints, b_len, b_ints, newlength, newints, bits):
     return consts
 
 
-def mul_window_packed(a_mag, a_len, a_ints, b_mag, b_len, b_ints,
-                      newlength, newints, bits):
-    """The windowed multiply: one cropped partial product per digit of
-    ``a``, summed mod 2**64 (``matrix_inversion_tpu/ops/packed.py:868-969``).
-    Returns ``(mag, flag)``.
-
-    Its magnitudes equal :func:`mul_trunc_packed`'s.  Its flag is the carry
-    out of the output window, ``(acc & ~out_mask) != 0`` on the wrapped
-    sum: carries past 2**64 are lost, as in the reference.
+def mul_window_sum(a_mag, b_mag, consts, bits):
+    """The raw windowed sum: one cropped partial product per row of
+    ``consts`` (:func:`mul_window_consts`), summed mod 2**64, unmasked.
 
     int64 stands in for uint64: ``window << out_shift`` stays below 2**62
     (each cropped partial product fits the output window), the product by
-    the digit and the sum wrap mod 2**64, and ``acc`` is never shifted.
+    the digit and the sum wrap mod 2**64, and the sum is never shifted.
     """
-    out_mask = (1 << (bits * newlength)) - 1
     base_mask = (1 << bits) - 1
     acc = torch.zeros_like(a_mag + b_mag)
-    for a_sh, b_sh, b_mask, o_sh in mul_window_consts(
-        a_len, a_ints, b_len, b_ints, newlength, newints, bits
-    ):
+    for a_sh, b_sh, b_mask, o_sh in consts:
         if b_mask == 0:
             continue
         a_i = (a_mag >> a_sh) & base_mask
         window = ((b_mag >> b_sh) & b_mask) << o_sh
         acc = acc + (window & -a_i if bits == 1 else window * a_i)
+    return acc
+
+
+def mul_window_packed(a_mag, a_len, a_ints, b_mag, b_len, b_ints,
+                      newlength, newints, bits):
+    """The windowed multiply: one cropped partial product per digit of
+    ``a``, summed mod 2**64 (``matrix_inversion_tpu/ops/packed.py:868-969``).
+    Returns ``(mag, flag)``; ``mag`` at base 2 is the plain version of the
+    kernel K4.
+
+    Its magnitudes equal :func:`mul_trunc_packed`'s.  Its flag is the carry
+    out of the output window, ``(acc & ~out_mask) != 0`` on the wrapped
+    sum: carries past 2**64 are lost, as in the reference.
+    """
+    out_mask = (1 << (bits * newlength)) - 1
+    acc = mul_window_sum(
+        a_mag, b_mag,
+        mul_window_consts(a_len, a_ints, b_len, b_ints, newlength, newints, bits),
+        bits,
+    )
     return acc & out_mask, (acc & ~out_mask) != 0

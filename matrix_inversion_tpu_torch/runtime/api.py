@@ -23,7 +23,10 @@ class BatchedMatrixInversion:
     on the device), ``run_raw`` (device tensors in, device tensors out,
     asynchronous on CUDA) and ``dequantize`` (device -> host float64);
     ``run`` chains the three.  On a CUDA device ``lowering="auto"`` runs
-    the fused kernel (ops/fused_inverse.py).
+    the fused kernel (ops/fused_inverse.py) for n <= 12 and the op-by-op
+    path beyond, whose divisions go through the K2/K3 kernels and whose
+    untracked base-2 multiplies go through K4 (ops/long_division.py); "unroll", "vec" and "scan" run the op-by-op
+    path at any n.
 
     ``track_overflow=True`` runs the tracked circuit
     (``qfloat_matrix_inverse_with_overflow``, on CUDA the tracked kernel):

@@ -64,9 +64,9 @@ def test_plain_version_singular_saturates(monkeypatch):
     zero_divisors = []
     divide = packed.packed_long_division
 
-    def spy(dividend, divisor, n_bits):
+    def spy(dividend, divisor, *args, **kwargs):
         zero_divisors.append(int((divisor == 0).sum()))
-        return divide(dividend, divisor, n_bits)
+        return divide(dividend, divisor, *args, **kwargs)
 
     monkeypatch.setattr(packed, "packed_long_division", spy)
     check_plain_version("low", 3, singular=True)
@@ -112,13 +112,16 @@ def test_tracked_wrapper_on_cpu_runs_plain_version():
 
 @pytest.mark.parametrize("lowering", ["vec", "scan"])
 def test_with_overflow_unported_lowerings_name_roadmap(lowering):
-    p = mt.HIGH
-    cpu = torch.zeros(8, 16, dtype=torch.int64)
-    with pytest.raises(ValueError, match="item 11"):
-        mt.qfloat_matrix_inverse_with_overflow(
-            cpu, cpu, 4, p.qfloat_len, p.qfloat_ints, p.qfloat_base, p.true_division,
-            lowering=lowering,
-        )
+    """"vec" and "scan" run the op-by-op path, tracked: the same outputs,
+    flags included, as "unroll" (the name dates from when they raised).
+    tests/test_torch_large_n.py holds that path against JAX."""
+    mags, signs, args, ref_m, ref_s = check_plain_version("high", 4)
+    tm, ts = torch.from_numpy(mags), torch.from_numpy(signs)
+    tm[0], ts[0] = 0, 1  # a zero matrix: its divisions saturate and flag
+    got = mt.qfloat_matrix_inverse_with_overflow(tm, ts, *args, lowering=lowering)
+    ref = mt.qfloat_matrix_inverse_with_overflow(tm, ts, *args, lowering="unroll")
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert got[2][0] == 1 and not got[2].all()
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -131,7 +134,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="n in"):
         fused_inverse.fused_matrix_inverse(cpu, cpu, 13, *args)
     with pytest.raises(ValueError, match="lowering"):
-        mt.qfloat_matrix_inverse_packed_io(cpu[:, :16], cpu[:, :16], 4, *args, lowering="vec")
+        mt.qfloat_matrix_inverse_packed_io(cpu[:, :16], cpu[:, :16], 4, *args, lowering="tile")
 
 
 def test_batched_api_matches_jax_end_to_end():

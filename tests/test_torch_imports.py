@@ -22,7 +22,8 @@ def imported_modules(path):
 
 def test_port_sources_found():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
-    assert {"__init__.py", "ops/fused_inverse.py", "ops/emit.py", "runtime/api.py"} <= names
+    assert {"__init__.py", "ops/fused_inverse.py", "ops/emit.py", "ops/long_division.py",
+            "ops/cuda_build.py", "runtime/api.py"} <= names
 
 
 @pytest.mark.parametrize(

@@ -40,10 +40,13 @@ def test_presets_match_jax_field_by_field(name):
 
 @pytest.mark.parametrize("lowering", ["vec", "scan"])
 def test_unported_lowerings_name_roadmap(lowering):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        mt.QFloatParams(lowering=lowering)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        from_jax_params(mi.HIGH.replace(lowering=lowering))
+    """JAX's "vec" and "scan" lowerings carry across: both run the port's
+    op-by-op path (the name dates from when they raised)."""
+    assert mt.QFloatParams(lowering=lowering).lowering == lowering
+    ref = mi.HIGH.replace(n=16, lowering=lowering)
+    assert from_jax_params(ref) == mt.HIGH.replace(n=16, lowering=lowering)
+    with pytest.raises(ValueError, match="lowering must be"):
+        mt.QFloatParams(lowering=lowering + "x")
 
 
 def _inputs(p, B, seed):

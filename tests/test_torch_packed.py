@@ -212,8 +212,10 @@ def test_long_division_exact():
     vs += [vmax, vmax, 0, 1, vmax]
     ds += [1, (1 << divisor_bits) - 1, 5, 1, 0]
     expected = [v // d if d else vmax for v, d in zip(vs, ds)]
-    got = packed_long_division(torch.tensor(vs), torch.tensor(ds), n_bits)
-    assert got.tolist() == expected
+    for divisor_bits_arg in (divisor_bits, None):  # K2's route, K3's route
+        got = packed_long_division(torch.tensor(vs), torch.tensor(ds), n_bits, 1,
+                                   divisor_bits=divisor_bits_arg)
+        assert got.tolist() == expected
 
 
 def test_set_len_ints(rng):
