@@ -19,12 +19,26 @@ past K1's n <= 12, on the op-by-op path (K2 and K4), and that path on
 and HIGH n=4 with ``lowering="unroll"`` (K2 and K4) against K1.  Each path runs with the launch
 counts set to 0 just before and read just after, and agrees with its plain
 version on the card and on the CPU.  Times each kernel, ``run_raw`` and
-plain version with CUDA events.  Any failure raises.  The last line is one
-JSON object naming the device.  Imports nothing of JAX.
+plain version with CUDA events.
+
+Then the roofline path: the issue-rate probes K5 (``utils/ubench.py``,
+built in the same parallel step) equal their plain version bit for bit on
+all thirteen mixes, on a ragged input and at the width they are measured
+at, are timed at three K values (nominal ops/s per mix, the two slopes,
+the SASS instructions per nominal op), and their rates go into
+``kernel_roofline`` with K1's histogram and K1's time from this run, for
+HIGH n = 2..5, untracked and tracked.  A kernel's bound is the least work
+known for its function (bytes, or instructions by the cheapest exact way
+known) and must stay under every time measured for that function; what the
+kernel's own code issues is printed beside it, for K2, K3 and K4 too.
+Any failure raises.  The last line is one JSON object naming
+the device.  Imports nothing of JAX.
 """
 
 import concurrent.futures
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -43,6 +57,8 @@ from matrix_inversion_tpu_torch import (
 )
 from matrix_inversion_tpu_torch.models.marshal import float_matrix_to_mags_and_signs
 from matrix_inversion_tpu_torch.ops import fused_inverse, long_division, packed
+from matrix_inversion_tpu_torch.utils import roofline, ubench
+from matrix_inversion_tpu_torch.utils.timing import card_name_and_limit, timed_chain
 
 MAIN_BATCH = 1_048_576
 LARGE_N = 16
@@ -51,6 +67,54 @@ CHECK_BATCH = 4096 + 17  # ragged: not a multiple of the block size
 REPS = 7
 LARGE_REPS = 3  # the n=16 op-by-op run_raw takes seconds
 KERNEL_ELEMS = 16_777_216
+HBM_BYTES_PER_S = 3.35e12  # published memory rate of the card
+
+# The probes: rows of 128 elements, chains per element, the three K values
+# whose two differences must agree (a cell primitive is hundreds of
+# instructions, so the cell mixes take 16x shorter chains), and launches
+# per timing pass.
+UBENCH_ROWS = 8192
+UBENCH_C = 8
+UBENCH_KS = (256, 1024, 2048)
+UBENCH_CELL_KS = (16, 64, 128)
+UBENCH_REPS = 10
+UBENCH_PASSES = 5
+# chain lengths of the check at full width: 67 = 8 * 8 + 3 runs the unrolled
+# K loop and its remainder; a cell mix's loop is not unrolled, and its plain
+# version is hundreds of torch ops per iteration
+UBENCH_CHECK_K = 67
+UBENCH_CELL_CHECK_K = 9
+SLOPES_AGREE_WITHIN = 0.10  # of the smaller slope; the passes spread by under 5%
+
+# 32-bit instructions per element that the FUNCTION of each op-by-op kernel
+# needs, by the cheapest exact way known (utils/roofline.py's table): K2 and
+# K3 both compute a floor division, whatever their algorithms, and K4 a
+# truncated multiply.  These give the bounds.
+OP_KERNEL_FUNCTION = {
+    "long_division_float": "divide",
+    "long_division_classic": "divide",
+    "mul_window": "mul",
+}
+
+# What each kernel's own algorithm issues per element at the High divide
+# (60-bit dividend, divisor < 2**40) and the High dot-product multiply,
+# reckoned by reading csrc/long_division.cu and csrc/mul_window.cu: printed
+# beside the bound as the kernel's issued instructions, never as the bound.
+OP_KERNEL_ISSUED_INSTR = {
+    # an f32 reciprocal (~25) and 4 chunks of ~30: 64-bit shift-or, two
+    # conversions, f32 multiply, clamp, 16x64-bit product, compare, add-back
+    "long_division_float": 150,
+    # 60 restoring steps of ~10: 64-bit shift-or, compare, masked subtract, count
+    "long_division_classic": 600,
+    # 40 table rows of ~8: digit, window shift-mask-shift, masked 64-bit add
+    "mul_window": 320,
+}
+
+# Instructions that one iteration of one u32_kernelmix chain needs: of its 22
+# nominal ops the two converts are free, (x - y) + (c - b) is two three-input
+# adds, and the xor and the and of the last line are one logic op; nvcc finds
+# no fewer (16.05 in its SASS with the loop's own).
+UBENCH_KERNELMIX_INSTR = 16
 
 # (label, n_bits, divisor_bits) of the divisions of the High and Low
 # circuits: the true division (len + frac digits by len) and the
@@ -121,20 +185,14 @@ def ptxas_info(build_dir):
     )
 
 
-def timed_ms(fn):
-    """Median milliseconds of one call, CUDA events, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+def timed_ms(fn, dev, passes=REPS, warm_up=True):
+    """Median milliseconds of one call over ``passes`` timed calls (CUDA
+    events on the card), after a warm-up call."""
+    if warm_up:
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    return timed_chain(lambda s: fn(), lambda s: None, None, 1, passes, device=dev)[0] * 1e3
 
 
 def reset_counts():
@@ -153,17 +211,6 @@ def timed_s(fn, *args):
     t0 = time.perf_counter()
     fn(*args)
     return time.perf_counter() - t0
-
-
-def event_ms(fn):
-    """Milliseconds of one call, CUDA events; returns (ms, result)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end), out
 
 
 def division_inputs(rng, n_bits, divisor_bits, dev):
@@ -347,11 +394,11 @@ def large_n_paths(dev, card, batch=LARGE_BATCH, check_batch=CHECK_BATCH, reps=LA
     # run_raw with the kernels and inside plain_arithmetic(), in turns
     # (kernels first, then plain first, ...) after the warm checked runs
     def with_kernels():
-        return event_ms(lambda: inv.run_raw(mags, signs))[0]
+        return timed_ms(lambda: inv.run_raw(mags, signs), dev, passes=1, warm_up=False)
 
     def plain():
         with packed.plain_arithmetic():
-            return event_ms(lambda: inv.run_raw(mags, signs))[0]
+            return with_kernels()
 
     runs = {with_kernels: [], plain: []}
     for i in range(reps):
@@ -373,25 +420,33 @@ def large_n_paths(dev, card, batch=LARGE_BATCH, check_batch=CHECK_BATCH, reps=LA
 def time_op_kernels(dev, card, elems=KERNEL_ELEMS):
     """K2, K3 and K4 alone and their plain versions at the High divide
     shape and the High dot-product multiply, median of REPS; returns
-    {name: (ms, plain_ms)}."""
+    {name: (ms, plain_ms, library_ms)}, ``library_ms`` the time of the one
+    PyTorch call that computes a kernel's function (``torch.div`` with
+    floor rounding for the divisions; the multiply has none)."""
     g = torch.Generator(device=dev).manual_seed(21)
     v = torch.randint(0, 1 << 60, (elems,), dtype=torch.int64, device=dev, generator=g)
     d = torch.randint(1, 1 << 40, (elems,), dtype=torch.int64, device=dev, generator=g)
     a = torch.randint(0, 1 << 40, (elems,), dtype=torch.int64, device=dev, generator=g)
     b = torch.randint(0, 1 << 40, (elems,), dtype=torch.int64, device=dev, generator=g)
     consts = packed.mul_window_consts(40, 20, 40, 20, 40, 20, 1)
-    div_plain = timed_ms(lambda: packed.packed_long_division_reference(v, d, 60))
+    div_plain = timed_ms(lambda: packed.packed_long_division_reference(v, d, 60), dev)
+    div_library = timed_ms(lambda: torch.div(v, d, rounding_mode="floor"), dev)
     times = {
         "long_division_float": (
-            timed_ms(lambda: long_division.batched_long_division_float(v, d, 60, 15)), div_plain),
+            timed_ms(lambda: long_division.batched_long_division_float(v, d, 60, 15), dev),
+            div_plain, div_library),
         "long_division_classic": (
-            timed_ms(lambda: long_division.batched_long_division(v, d, 60, 1)), div_plain),
+            timed_ms(lambda: long_division.batched_long_division(v, d, 60, 1), dev),
+            div_plain, div_library),
         "mul_window": (
-            timed_ms(lambda: long_division.batched_mul_window(a, b, consts, 40)),
-            timed_ms(lambda: packed.mul_window_packed(a, 40, 20, b, 40, 20, 40, 20, 1)[0])),
+            timed_ms(lambda: long_division.batched_mul_window(a, b, consts, 40), dev),
+            timed_ms(lambda: packed.mul_window_packed(a, 40, 20, b, 40, 20, 40, 20, 1)[0], dev),
+            None),
     }
-    trunc_ms = timed_ms(lambda: packed.mul_trunc_packed(a, 40, 20, b, 40, 20, 40, 20, 1))
-    for name, (ms, plain) in times.items():
+    trunc_ms = timed_ms(lambda: packed.mul_trunc_packed(a, 40, 20, b, 40, 20, 40, 20, 1), dev)
+    print(f"time torch.div floor alone (the library call of K2 and K3): {div_library:.3f} ms "
+          f"on {elems} elements ({card})")
+    for name, (ms, plain, _) in times.items():
         print(f"time {name} alone: {ms:.3f} ms, plain version {plain:.3f} ms, on {elems} "
               f"elements (High {'divide n_bits 60, divisor < 2**40' if 'division' in name else 'dot product (40, 20) x (40, 20) -> (40, 20)'}; {card})")
     print(f"time mul_trunc_packed (the CPU route's multiply) on the card: {trunc_ms:.3f} ms "
@@ -399,14 +454,229 @@ def time_op_kernels(dev, card, elems=KERNEL_ELEMS):
     return times
 
 
+def differing_bytes(a, b):
+    """Bytes in which two tensors of one dtype and shape differ (0: the
+    same bits, also for inf and NaN)."""
+    assert a.dtype == b.dtype and a.shape == b.shape
+    return int((a.contiguous().view(torch.uint8) != b.contiguous().view(torch.uint8)).sum())
+
+
+def check_ubench(dev, rows=UBENCH_ROWS):
+    """K5 == the plain version on every mix, tolerance 0: C = 8 and C = 1 at
+    K = 64 on a ragged (33, 128) input, and C = 8 at the measurement's own
+    width (``rows``, 128), whose grid the rates come from, at a K that runs
+    the unrolled loop's remainder; returns the differing bytes (0)."""
+    for name in ubench.LAUNCHES:
+        ubench.LAUNCHES[name] = 0
+    worst = 0
+    for name, (_, dtype, _) in ubench.MIXES.items():
+        full_k = UBENCH_CELL_CHECK_K if dtype == torch.int64 else UBENCH_CHECK_K
+        for shape_rows, K, C in ((33, 64, UBENCH_C), (33, 64, 1), (rows, full_k, UBENCH_C)):
+            x, y = ubench.make_inputs(name, shape_rows, dev, seed=500 + C + shape_rows)
+            got = ubench.ubench_chain(name, x, y, K, C)
+            ref = ubench.ubench_reference(name, x, y, K, C)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            err = differing_bytes(got, ref)
+            worst = max(worst, err)
+            assert err == 0, (f"ubench {name} ({shape_rows}, 128) K={K} C={C}: kernel differs "
+                              "from the plain version")
+        assert ubench.LAUNCHES[name] == 3, f"ubench {name}: {ubench.LAUNCHES[name]} launches"
+        print(f"check ubench {name}: (33, 128) {dtype}, K=64, C={UBENCH_C} and C=1, and "
+              f"({rows}, 128), K={full_k}, C={UBENCH_C}: kernel == plain version bit for bit "
+              "(tolerance 0)")
+    return worst
+
+
+def sm_clock():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def measure_ubench(dev, card, rows=UBENCH_ROWS, reps=UBENCH_REPS, passes=UBENCH_PASSES):
+    """Nominal ops/s of every mix at full width from three K values; returns
+    ``({mix: ops/s}, ms of one u32_kernelmix launch at its largest K)``.
+
+    Raises if a mix's two slopes differ by more than SLOPES_AGREE_WITHIN of
+    the smaller, if a uint32 or float32 mix compiled to fewer than half an
+    instruction per nominal op (a folded chain; only a convert is free), or
+    if a mix's instruction rate reads above 105% of the card's issue limit.
+    """
+    sass = ubench.sass_loop_instructions() if dev.type == "cuda" else {}
+    regs = ubench.ptxas_registers() if dev.type == "cuda" else {}
+    print(f"clocks.sm before the probes: {sm_clock() if dev.type == 'cuda' else 'n/a'}")
+    rates, kernelmix_ms = {}, None
+    for name, (_, dtype, nops) in ubench.MIXES.items():
+        ks = UBENCH_CELL_KS if dtype == torch.int64 else UBENCH_KS
+        per_k = UBENCH_C * rows * 128 * nops * reps  # nominal ops per unit of K and pass
+        ts = [ubench.chain_seconds(name, k, rows, UBENCH_C, reps, passes, dev) for k in ks]
+        slopes = [(ks[i + 1] - ks[i]) * per_k / (ts[i + 1] - ts[i]) for i in (0, 1)]
+        assert min(slopes) > 0 and abs(slopes[0] - slopes[1]) <= SLOPES_AGREE_WITHIN * min(slopes), \
+            f"ubench {name}: the time is not linear in K (slopes {slopes})"
+        rate = (ks[2] - ks[0]) * per_k / (ts[2] - ts[0])
+        rates[name] = rate
+        line = (f"ubench {name}: {rate:.4e} nominal ops/s (K {ks[0]}->{ks[2]}; slopes "
+                f"{slopes[0]:.4e}, {slopes[1]:.4e}; {ts[2] / reps * 1e3:.3f} ms per launch at "
+                f"K={ks[2]}; rows {rows}, C {UBENCH_C}")
+        if (name, UBENCH_C) in sass:
+            instrs, calls = sass[(name, UBENCH_C)]
+            per_op = instrs / (ubench.UNROLL[dtype] * UBENCH_C * nops)
+            r = regs[(name, UBENCH_C)]
+            line += (f"; {per_op:.3f} SASS instructions per nominal op"
+                     + (f" and {calls // (UBENCH_C * nops)} call(s)" if calls else "")
+                     + f"; {r} registers, {ubench.resident_warps(r)} warps per SM")
+            share = rate * per_op / roofline.PUBLISHED_ISSUE_RATE_H100
+            assert share <= 1.05, (
+                f"ubench {name}: {rate * per_op:.4e} instructions/s is {share:.1%} of the "
+                "card's issue limit: the chain was folded or the timing is wrong")
+            if dtype != torch.int64:
+                assert per_op >= 0.5, f"ubench {name}: {per_op:.3f} instructions per nominal op"
+                line += (f"; {rate / roofline.PUBLISHED_INT32_RATE_H100:.1%} of the published "
+                         f"INT32 peak {roofline.PUBLISHED_INT32_RATE_H100:.3e}, instructions at "
+                         f"{share:.1%} of the issue limit")
+        print(line + f"; {card})")
+        if name == "u32_kernelmix":
+            kernelmix_ms = ts[2] / reps * 1e3
+    print(f"clocks.sm after the probes: {sm_clock() if dev.type == 'cuda' else 'n/a'}")
+    return rates, kernelmix_ms
+
+
+def time_ubench_plain(dev, card, rows=UBENCH_ROWS):
+    """The plain version of the u32_kernelmix launch at the kernel's own K
+    (the largest of UBENCH_KS): median of 3 passes after a short warm-up
+    chain through the same torch ops."""
+    x, y = ubench.make_inputs("u32_kernelmix", rows, dev)
+    ubench.ubench_reference("u32_kernelmix", x, y, 8, UBENCH_C)
+    ms = timed_ms(lambda: ubench.ubench_reference("u32_kernelmix", x, y, UBENCH_KS[2], UBENCH_C),
+                  dev, passes=3, warm_up=False)
+    print(f"time ubench plain version (u32_kernelmix, rows {rows}, C {UBENCH_C}, "
+          f"K={UBENCH_KS[2]}): {ms:.3f} ms ({card})")
+    return ms
+
+
+def cell_rates(rates):
+    """``measured_rates`` of ``kernel_roofline`` for the body as it is: each
+    of the port's cell primitives at its own mix's rate (a reciprocal is the
+    same 64-bit division as a true division; a tracked add or division
+    differs from the untracked one by a compare), everything else at
+    u32_kernelmix's."""
+    return {
+        "mul": rates["cell_mul"],
+        "sadd": rates["cell_sadd"], "sadd_t": rates["cell_sadd"],
+        "mul_window_t": rates["cell_mul_window_t"],
+        "divide": rates["cell_divide"], "invert": rates["cell_divide"],
+        "divide_t": rates["cell_divide"], "invert_t": rates["cell_divide"],
+        "default": rates["u32_kernelmix"],
+    }
+
+
+def static_sass(library):
+    """``(instructions, calls)`` in the SASS of a built library, NOPs left
+    out: for a straight-line kernel, what one thread issues, a subroutine's
+    instructions counted once however often it is called."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    ops = [op.strip() for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]+);", text)]
+    ops = [op for op in ops if not op.startswith("NOP")]
+    return len(ops), sum(1 for op in ops if re.search(r"\bCALL\b", op))
+
+
+def k1_bytes(n, batch, track):
+    """Bytes K1 must move: n*n cells of an int64 magnitude and an int64 sign,
+    read and written, and the tracked kernel's int32 flag."""
+    return batch * (n * n * 16 * 2 + (4 if track else 0))
+
+
+def roofline_path(dev, card, rates, op_times, batch=MAIN_BATCH, elems=KERNEL_ELEMS):
+    """kernel_roofline over K1's emitted body with K1's time from this run,
+    HIGH n = 2..5, untracked and tracked.  The bound: the fewest
+    instructions known for each primitive's function, the multiplies'
+    shared operands charged once, over u32_kernelmix's measured rate, or
+    the bytes over the memory rate where that is more; raises when K1 reads
+    over 105% of it.  Beside it the time that the body as written takes at
+    its own primitives' rates, each measured alone: not a bound, K1 may
+    pass it where multiplies share work.  Then the same two figures for K2,
+    K3 and K4.  Returns {(n, track): roofline dict of the bound}."""
+    default_rate = {"default": rates["u32_kernelmix"]}
+    g = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    for track in (False, True):
+        for n in (2, 3, 4, 5):
+            p = HIGH.replace(n=n)
+            # random x100 matrices quantized on the card, cell-major
+            M = torch.randn(n * n, batch, device=dev, generator=g, dtype=torch.float64) * 100
+            cm = (M.abs() * (1 << p.frac)).to(torch.int64)
+            cs = torch.where(M < 0, -1, 1)
+            ms = timed_ms(lambda: fused_inverse.fused_inverse_cell_major(
+                cm, cs, *config_of(p), track=track), dev)
+            r = roofline.kernel_roofline(batch / ms * 1e3, n, "high", default_rate, track)
+            ops_ms = batch / r["roofline_inversions_per_s_measured_rates"] * 1e3
+            bytes_ms = k1_bytes(n, batch, track) / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(ops_ms, bytes_ms)
+            share = 100.0 * bound_ms / ms
+            assert share <= 105.0, (
+                f"K1 HIGH n={n} track={track}: {ms:.3f} ms is under its bound {bound_ms:.3f} ms "
+                f"({share:.2f}%): the count of operations is too high or a rate too low")
+            as_written = roofline.kernel_roofline(batch / ms * 1e3, n, "high", cell_rates(rates), track)
+            written_ms = batch / as_written["roofline_inversions_per_s_measured_rates"] * 1e3
+            instrs, calls = static_sass(
+                fused_inverse.build_dir(config_of(p) + ((True,) if track else ())) / "libfused_inverse.so")
+            print(f"roofline K1 HIGH n={n}{' tracked' if track else ''}: "
+                  f"{int(r['ops_per_inversion_kernel'])} primitives per inversion "
+                  f"{ {k: int(v) for k, v in r['kernel_op_histogram'].items()} }, multiplies on "
+                  f"{r['distinct_mul_operands'][0]} distinct first and "
+                  f"{r['distinct_mul_operands'][1]} distinct second operands; "
+                  f"{int(r['nominal_instructions_per_inversion'])} nominal instructions by the "
+                  f"cheapest way known = {ops_ms:.3f} ms at B={batch} over the u32_kernelmix "
+                  f"rate, bytes {bytes_ms:.3f} ms: bound {bound_ms:.3f} ms by "
+                  f"{'operations' if ops_ms > bytes_ms else 'bytes'}; K1 {ms:.3f} ms, the bound "
+                  f"is {share:.2f}% of it.  Issued: {instrs} static SASS instructions "
+                  f"({calls} calls of the division routine, counted once); the body's own "
+                  f"primitives at their rates alone take {written_ms:.3f} ms, K1 reads "
+                  f"{as_written['mfu_pct_vs_measured_roofline']}% of that ({card})")
+            out[(n, track)] = r
+    memory_ms = 24 * elems / HBM_BYTES_PER_S * 1e3
+    for name, function in OP_KERNEL_FUNCTION.items():
+        instrs = roofline._PRIM_NOMINAL_INSTR[function]
+        ops_ms = instrs * elems / rates["u32_kernelmix"] * 1e3
+        issued_ms = OP_KERNEL_ISSUED_INSTR[name] * elems / rates["u32_kernelmix"] * 1e3
+        bound_ms = max(ops_ms, memory_ms)
+        ms, plain_ms, library_ms = op_times[name]
+        assert bound_ms <= 1.05 * min(t for t in op_times[name] if t is not None), \
+            f"{name}: bound {bound_ms:.3f} ms is over a measured time {op_times[name]}"
+        print(f"bound {name}: its function ({function}) needs {instrs:.0f} nominal instructions "
+              f"per element by the cheapest way known = {ops_ms:.3f} ms over the u32_kernelmix "
+              f"rate, memory (24 B per element at 3.35 TB/s) {memory_ms:.3f} ms, on {elems} "
+              f"elements: bound {bound_ms:.3f} ms by "
+              f"{'operations' if ops_ms > memory_ms else 'bytes'}; measured {ms:.3f} ms.  Issued: "
+              f"{OP_KERNEL_ISSUED_INSTR[name]} instructions per element by its own algorithm, "
+              f"read from the source = {issued_ms:.3f} ms ({card})")
+    return out
+
+
+def published_bound(bytes_moved, instructions, *times):
+    """``(bound_ms, bound_by)``: the larger of the bytes over the card's
+    published memory rate and the 32-bit instructions over its published
+    issue limit.  Raises if that is over 105% of a time in ``times``, each
+    measured for the same function on the same inputs: a bound that a
+    measurement beats counts too much."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = instructions / roofline.PUBLISHED_ISSUE_RATE_H100 * 1e3
+    bound = max(by_ops, by_bytes)
+    measured = [t for t in times if t is not None]
+    assert all(bound <= 1.05 * t for t in measured), \
+        f"bound {bound:.3f} ms ({by_ops:.3f} operations, {by_bytes:.3f} bytes) is over {measured}"
+    return bound, "operations" if by_ops > by_bytes else "bytes"
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_name_and_limit()
     kind = torch.cuda.get_device_name(0)
     print(card)
     print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -416,20 +686,26 @@ def main():
     # one nvcc per library, all started together
     t0 = time.perf_counter()
     tracked_configs = [config_of(p) + (True,) for _, p in TRACKED_CHECKS]
-    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=3) as pool:
         fused_build = pool.submit(
             timed_s, fused_inverse.build, [config_of(p) for _, p, _ in CHECKS] + tracked_configs)
         op_build = pool.submit(timed_s, long_division.build)
-        fused_s, op_s = fused_build.result(), op_build.result()
+        ubench_build = pool.submit(timed_s, ubench.build)
+        fused_s, op_s, ubench_s = fused_build.result(), op_build.result(), ubench_build.result()
     print(f"build: {len(CHECKS)} fused_inverse + {len(TRACKED_CHECKS)} tracked kernels "
           f"from {fused_inverse.CSRC} with nvcc {' '.join(fused_inverse.NVCC_FLAGS)} "
           f"in {fused_s:.1f} s; long_division + mul_window libraries in {op_s:.1f} s; "
-          f"all in {time.perf_counter() - t0:.1f} s")
+          f"the ubench library ({len(ubench.MIXES)} mixes x C in {ubench.CHAIN_COUNTS}) in "
+          f"{ubench_s:.1f} s; all in {time.perf_counter() - t0:.1f} s")
     main_config = config_of(HIGH.replace(n=4))
     for label, c in (("fused_inverse", main_config), ("fused_inverse_tracked", main_config + (True,))):
         print(f"ptxas {label} HIGH n=4: {ptxas_info(fused_inverse.build_dir(c))}")
     for name in ("long_division", "mul_window"):
         print(f"ptxas {name}: {ptxas_info(long_division.build_dir(name))}")
+    ubench_regs = ubench.ptxas_registers()
+    print(f"ptxas ubench, registers of the C={UBENCH_C} kernels: "
+          f"{ {name: ubench_regs[(name, UBENCH_C)] for name in ubench.MIXES} }; spills: "
+          f"{ubench.ptxas_spill_lines() or 'none'}")
 
     # -- kernel vs plain version on the card, bit for bit
     max_err = 0
@@ -555,15 +831,16 @@ def main():
     # -- timings (CUDA events, median of REPS after a warm-up)
     op_times = time_op_kernels(dev, card)
     cm, cs = mags.t().contiguous(), signs.t().contiguous()
-    kernel_ms = timed_ms(lambda: fused_inverse.fused_inverse_cell_major(cm, cs, *config_of(p)))
-    run_raw_ms = timed_ms(lambda: inv.run_raw(mags, signs))
-    plain_ms = timed_ms(lambda: fused_inverse.fused_matrix_inverse_reference(mags, signs, *config_of(p)))
+    kernel_ms = timed_ms(lambda: fused_inverse.fused_inverse_cell_major(cm, cs, *config_of(p)), dev)
+    run_raw_ms = timed_ms(lambda: inv.run_raw(mags, signs), dev)
+    plain_ms = timed_ms(
+        lambda: fused_inverse.fused_matrix_inverse_reference(mags, signs, *config_of(p)), dev)
     tcm, tcs = tmags.t().contiguous(), tsigns.t().contiguous()
     tkernel_ms = timed_ms(lambda: fused_inverse.fused_inverse_cell_major(
-        tcm, tcs, *config_of(p), track=True))
-    trun_raw_ms = timed_ms(lambda: tinv.run_raw(tmags, tsigns))
+        tcm, tcs, *config_of(p), track=True), dev)
+    trun_raw_ms = timed_ms(lambda: tinv.run_raw(tmags, tsigns), dev)
     tplain_ms = timed_ms(lambda: fused_inverse.fused_matrix_inverse_reference(
-        tmags, tsigns, *config_of(p), track=True))
+        tmags, tsigns, *config_of(p), track=True), dev)
     for label, ms in (("kernel alone (16, B)", kernel_ms), ("run_raw with transposes", run_raw_ms),
                       ("plain version on the card", plain_ms),
                       ("tracked kernel alone (16, B)", tkernel_ms),
@@ -573,6 +850,39 @@ def main():
               f"(HIGH n=4, B={MAIN_BATCH}; {card})")
     print(f"tracked / untracked: kernel {tkernel_ms / kernel_ms:.3f}, run_raw "
           f"{trun_raw_ms / run_raw_ms:.3f}, plain version {tplain_ms / plain_ms:.3f} ({card})")
+
+    # -- the roofline path: the probes K5 against their plain version, their
+    # rates at full width, and kernel_roofline over K1's emitted body
+    t0 = time.perf_counter()
+    ubench_err = check_ubench(dev)
+    for name in ubench.LAUNCHES:
+        ubench.LAUNCHES[name] = 0
+    rates, kernelmix_ms = measure_ubench(dev, card)
+    rooflines = roofline_path(dev, card, rates, op_times)
+    ubench_launches = sum(ubench.LAUNCHES.values())
+    assert all(count > 0 for count in ubench.LAUNCHES.values()), \
+        f"the roofline path did not launch every mix: {ubench.LAUNCHES}"
+    ubench_plain_ms = time_ubench_plain(dev, card)
+    print(f"host clock: the roofline path, its check and timings, {time.perf_counter() - t0:.1f} s")
+
+    # -- every kernel's bound, from this run's shapes: bytes over the published
+    # memory rate against the 32-bit instructions its function needs over
+    # the published issue limit; held against every time measured for it
+    k1_bound, k1_by = published_bound(
+        k1_bytes(4, MAIN_BATCH, False),
+        MAIN_BATCH * rooflines[(4, False)]["nominal_instructions_per_inversion"],
+        kernel_ms, plain_ms)
+    tk1_bound, tk1_by = published_bound(
+        k1_bytes(4, MAIN_BATCH, True),
+        MAIN_BATCH * rooflines[(4, True)]["nominal_instructions_per_inversion"],
+        tkernel_ms, tplain_ms)
+    op_bounds = {name: published_bound(
+        24 * KERNEL_ELEMS, roofline._PRIM_NOMINAL_INSTR[function] * KERNEL_ELEMS, *op_times[name])
+        for name, function in OP_KERNEL_FUNCTION.items()}
+    ubench_elems = UBENCH_ROWS * 128
+    ubench_bound, ubench_by = published_bound(
+        12 * ubench_elems, ubench_elems * UBENCH_KS[2] * UBENCH_C * UBENCH_KERNELMIX_INSTR,
+        kernelmix_ms, ubench_plain_ms)
 
     source = "matrix_inversion_tpu_torch/csrc/fused_inverse.cu"
     print(json.dumps({"kernels": [{
@@ -584,6 +894,9 @@ def main():
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": None,
     }, {
         "name": "fused_inverse_tracked",
         "route": "cuda",
@@ -593,6 +906,9 @@ def main():
         "max_abs_err": tracked_err,
         "ms": tkernel_ms,
         "plain_ms": tplain_ms,
+        "bound_ms": tk1_bound,
+        "bound_by": tk1_by,
+        "library_ms": None,
     }] + [{
         "name": name,
         "route": "cuda",
@@ -602,11 +918,26 @@ def main():
         "max_abs_err": op_err[name],
         "ms": op_times[name][0],
         "plain_ms": op_times[name][1],
+        "bound_ms": op_bounds[name][0],
+        "bound_by": op_bounds[name][1],
+        "library_ms": op_times[name][2],
     } for name, source, line in (
         ("long_division_float", "long_division.cu", 148),
         ("long_division_classic", "long_division.cu", 37),
         ("mul_window", "mul_window.cu", 198),
-    )]}))
+    )] + [{
+        "name": "ubench",
+        "route": "cuda",
+        "source": "matrix_inversion_tpu_torch/csrc/ubench.cu",
+        "replaces": "benchmarks/ubench_vpu.py:124",
+        "launches": ubench_launches,
+        "max_abs_err": ubench_err,
+        "ms": kernelmix_ms,
+        "plain_ms": ubench_plain_ms,
+        "bound_ms": ubench_bound,
+        "bound_by": ubench_by,
+        "library_ms": None,
+    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -3,7 +3,8 @@
 Exact batched matrix inversion in QFloat fixed-point arithmetic, with the
 same semantics, bit for bit, as the JAX package ``matrix_inversion_tpu``
 (the reference, kept beside it).  Ported so far: the packed-I/O main
-path at any n, untracked and with per-matrix overflow flags:
+path at any n, untracked and with per-matrix overflow flags, and the
+roofline path with the issue-rate probes:
 
 * ``config``        -- QFloatParams and the Low/Medium/Medium+/High presets;
 * ``core.qfloat``   -- the Zero / SignedBinary / QFloatBase dispatch layer;
@@ -19,7 +20,20 @@ path at any n, untracked and with per-matrix overflow flags:
 * ``models``        -- pivoting/LU/substitution/2x2 circuit and the op-by-op
   path, packed marshalling, the packed-I/O entry points (untracked and
   with overflow);
-* ``runtime.api``   -- BatchedMatrixInversion.
+* ``runtime.api``   -- BatchedMatrixInversion (on the card unless the
+  caller names the CPU);
+* ``utils.samplers``, ``utils.timing``, ``utils.profiling`` -- matrix
+  samplers, chained timing on CUDA events, ``torch.profiler`` traces and
+  the QFloat op counters;
+* ``utils.ubench`` + ``csrc/ubench.cu`` -- the issue-rate probes K5: op-mix
+  chains timed on the card, for sm_90a;
+* ``utils.roofline`` -- op counts of the eager circuit, the histogram of
+  K1's emitted body, and the measured-rate roofline.
+
+The ``utils`` modules are imported by name
+(``from matrix_inversion_tpu_torch.utils import roofline, ubench``), as in
+the JAX package; ``python -m matrix_inversion_tpu_torch.utils.ubench`` and
+``...utils.roofline`` run them.
 
 The package imports torch and numpy, never jax.
 """
@@ -28,6 +42,7 @@ from .config import HIGH, LOW, MEDIUM, MEDIUM_PLUS, PRESETS, QFloatParams
 from .core.qfloat import QFloatBase, SignedBinary, Zero
 from .models.inverse import qfloat_matrix_inverse_packed_io, qfloat_matrix_inverse_with_overflow
 from .ops.packed import PackedQFloat, set_division_impl, track_overflow
+from . import utils
 from .runtime.api import BatchedMatrixInversion
 
 __all__ = [
@@ -46,4 +61,5 @@ __all__ = [
     "qfloat_matrix_inverse_packed_io",
     "qfloat_matrix_inverse_with_overflow",
     "BatchedMatrixInversion",
+    "utils",
 ]

@@ -1,7 +1,7 @@
 """Zero / SignedBinary / QFloatBase: the static number-type layer.
 
 Port of ``matrix_inversion_tpu/core/qfloat.py:61-325,793-822`` with the
-same meaning.  ``Zero`` and ``SignedBinary`` are Python-level types whose
+same meaning, the op counters (``:189-210``) included.  ``Zero`` and ``SignedBinary`` are Python-level types whose
 dispatch prunes work while the circuit is built: the static pruning is
 what fixes the op sequence, so the eager PyTorch circuit and the CUDA
 kernel body emitted from it (ops/emit.py) run the same ops as the
@@ -116,8 +116,29 @@ class QFloatBase:
     ``ops.emit.EmitQFloat`` (records C++ for the CUDA kernel body).
     """
 
+    # Op statistics of the circuit being built or run (reference
+    # qfloat.py:262-265): process globals, one count per QFloat op.
+    ADDITIONS = 0
+    MULTIPLICATION = 0
+    DIVISION = 0
+
     _ints: int
     _base: int
+
+    @classmethod
+    def reset_stats(cls):
+        QFloatBase.ADDITIONS = 0
+        QFloatBase.MULTIPLICATION = 0
+        QFloatBase.DIVISION = 0
+
+    @classmethod
+    def show_stats(cls):
+        print("\nQFloat statistics :")
+        print("======================")
+        print("Additions       : " + str(QFloatBase.ADDITIONS))
+        print("Multiplications : " + str(QFloatBase.MULTIPLICATION))
+        print("Divisions       : " + str(QFloatBase.DIVISION))
+        print("\n")
 
     @property
     def ints(self):

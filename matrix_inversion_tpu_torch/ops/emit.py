@@ -18,9 +18,20 @@ A tracking emitter (``Emitter(track=True)``) applies the rule of a live
 ``track_overflow()`` scope in ``ops/packed.py``: every op that records a
 flag there emits the tracked primitive (``sadd_t``, ``mul_window_t``,
 ``divide_t``, ``invert_t``) and ``ovf |= flag;`` right after it.
+
+Beside the statements the emitter keeps a tally of what it recorded, by
+primitive of ``csrc/qfloat_cell.cuh`` (``Emitter.ops``): the histogram of
+the kernel body that ``utils/roofline.py`` costs; and the distinct first
+and second operands of its multiplies (``Emitter.mul_operands``), because
+the part of a multiply that depends on one operand only is computed once
+for all the multiplies that share it.  EmitQFloat cells also
+bump the ``QFloatBase`` op counters where the JAX package's kernel cell
+does (``matrix_inversion_tpu/ops/pair_qfloat.py:342,384,410,466,486``).
 """
 
 from __future__ import annotations
+
+import collections
 
 from ..core.qfloat import QFloatBase, SignedBinary, Zero, check_invert_sign
 from ..models.qfloat_lu import qfloat_matrix_inverse_cells
@@ -29,10 +40,17 @@ from .packed import digit_bits
 
 class Emitter:
     """Collects the body's statements and hands out fresh names;
-    ``track=True`` emits the tracked primitives."""
+    ``track=True`` emits the tracked primitives.  ``ops`` counts the
+    recorded statements by primitive: the name of the ``qfloat_cell.cuh``
+    function called, ``"int"`` for a statement of :class:`Sym` arithmetic
+    and ``"flag_or"`` for an ``ovf |= flag;``.  ``mul_operands`` holds the
+    names of the multiplies' first operands and of their second ones (every
+    name is assigned once, so a name is a value)."""
 
     def __init__(self, track=False):
         self.lines = []
+        self.ops = collections.Counter()
+        self.mul_operands = (set(), set())
         self._count = 0
         self.track = bool(track)
 
@@ -40,27 +58,27 @@ class Emitter:
         self._count += 1
         return f"{prefix}{self._count}"
 
-    def int_(self, expr):
-        name = self.fresh("t")
-        self.lines.append(f"const int {name} = {expr};")
-        return Sym(self, name)
-
-    def mag(self, expr):
-        name = self.fresh("m")
-        self.lines.append(f"const uint64_t {name} = {expr};")
+    def _statement(self, prefix, type_, expr, prim):
+        name = self.fresh(prefix)
+        self.lines.append(f"const {type_} {name} = {expr};")
+        self.ops[prim] += 1
         return name
 
-    def cell(self, expr):
-        name = self.fresh("c")
-        self.lines.append(f"const Cell {name} = {expr};")
-        return name
+    def int_(self, expr, prim="int"):
+        return Sym(self, self._statement("t", "int", expr, prim))
 
-    def tracked(self, type_, expr):
+    def mag(self, expr, prim):
+        return self._statement("m", "uint64_t", expr, prim)
+
+    def cell(self, expr, prim):
+        return self._statement("c", "Cell", expr, prim)
+
+    def tracked(self, type_, expr, prim):
         """A tracked primitive's result (``MagF`` or ``CellF``); its flag
         goes into ``ovf``."""
-        name = self.fresh("f")
-        self.lines.append(f"const {type_} {name} = {expr};")
+        name = self._statement("f", type_, expr, prim)
         self.lines.append(f"ovf |= {name}.f;")
+        self.ops["flag_or"] += 1
         return name
 
 
@@ -138,7 +156,8 @@ class EmitQFloat(QFloatBase):
 
     def set_len_ints(self, newlen, newints):
         self._mag = self._em.mag(
-            f"set_len_ints<{self._fmt()}, {int(newlen)}, {int(newints)}>({self._mag})"
+            f"set_len_ints<{self._fmt()}, {int(newlen)}, {int(newints)}>({self._mag})",
+            "set_len_ints",
         )
         self._length, self._ints = int(newlen), int(newints)
         return self
@@ -146,12 +165,14 @@ class EmitQFloat(QFloatBase):
     def __gt__(self, other):
         self.check_compatibility(other)
         return self._em.int_(
-            f"gt({self._mag}, {_expr(self._sign)}, {other._mag}, {_expr(other._sign)})"
+            f"gt({self._mag}, {_expr(self._sign)}, {other._mag}, {_expr(other._sign)})",
+            "gt",
         )
 
     def __iadd__(self, other):
         if isinstance(other, Zero):
             return self
+        QFloatBase.ADDITIONS += 1
         if isinstance(other, SignedBinary):
             unit = 1 << (self._bits * (self._length - self._ints))
             omag, osign = f"{unit}ull", other.value
@@ -165,9 +186,9 @@ class EmitQFloat(QFloatBase):
             f"{omag}, {_expr(osign)})"
         )
         if not self._em.track:
-            c = self._em.cell(f"sadd{args}")
+            c = self._em.cell(f"sadd{args}", "sadd")
         else:
-            c = self._em.tracked("CellF", f"sadd_t{args}")
+            c = self._em.tracked("CellF", f"sadd_t{args}", "sadd_t")
         self._mag, self._sign = f"{c}.m", Sym(self._em, f"{c}.s")
         return self
 
@@ -177,6 +198,7 @@ class EmitQFloat(QFloatBase):
             return self
         if not isinstance(other, EmitQFloat):
             raise TypeError(f"cannot multiply an EmitQFloat by {type(other).__name__}")
+        QFloatBase.MULTIPLICATION += 1
         self.check_compatibility(other)
         self._mag = _mul_mag(self, other, self._length, self._ints)
         self._sign = self._sign * other._sign
@@ -196,6 +218,7 @@ class EmitQFloat(QFloatBase):
             multiplication = a * b
             multiplication.set_len_ints(newlength, newints)
             return multiplication
+        QFloatBase.MULTIPLICATION += 1
         if not a.base == b.base:
             raise ValueError("bases are different")
         mag = _mul_mag(a, b, newlength, newints)
@@ -213,21 +236,26 @@ class EmitQFloat(QFloatBase):
                     self._sign = v
                 return self
             self._mag = self._em.mag(
-                f"sb_div_mag<{self._bits}, {self._length}>({self._mag}, {_expr(v)})"
+                f"sb_div_mag<{self._bits}, {self._length}>({self._mag}, {_expr(v)})",
+                "sb_div_mag",
             )
-            self._sign = self._em.int_(f"sb_div_sign({_expr(self._sign)}, {_expr(v)})")
+            self._sign = self._em.int_(
+                f"sb_div_sign({_expr(self._sign)}, {_expr(v)})", "sb_div_sign"
+            )
             return self
+        QFloatBase.DIVISION += 1
         self.check_compatibility(other)
         args = f"<{self._fmt()}>({self._mag}, {other._mag})"
         if not self._em.track:
-            self._mag = self._em.mag(f"divide{args}")
+            self._mag = self._em.mag(f"divide{args}", "divide")
         else:
-            self._mag = f"{self._em.tracked('MagF', f'divide_t{args}')}.m"
+            self._mag = f"{self._em.tracked('MagF', f'divide_t{args}', 'divide_t')}.m"
         self._sign = self.sign * other.sign
         return self
 
     def invert(self, sign=1, newlength=None, newints=None):
         check_invert_sign(sign)
+        QFloatBase.DIVISION += 1
         if newlength is None:
             newlength = self._length
         if newints is None:
@@ -236,14 +264,16 @@ class EmitQFloat(QFloatBase):
         n_digits = 1 + (self._length - self._ints) + (newlength - newints)
         if not self._em.track or newlength >= n_digits:
             # an uncropped quotient records nothing (ops/packed.py invert)
-            mag = self._em.mag(f"invert{args}")
+            mag = self._em.mag(f"invert{args}", "invert")
         else:
-            mag = f"{self._em.tracked('MagF', f'invert_t{args}')}.m"
+            mag = f"{self._em.tracked('MagF', f'invert_t{args}', 'invert_t')}.m"
         sb = sign.value if isinstance(sign, SignedBinary) else sign
         return EmitQFloat(self._em, mag, newlength, newints, self._base, sb * self.sign)
 
     def blend_from(self, other, cond):
-        self._mag = self._em.mag(f"blend({_expr(cond)}, {other._mag}, {self._mag})")
+        self._mag = self._em.mag(
+            f"blend({_expr(cond)}, {other._mag}, {self._mag})", "blend"
+        )
         return self
 
 
@@ -255,20 +285,17 @@ def _mul_mag(a, b, newlength, newints):
         f"<{a._fmt()}, {b._length}, {b._ints}, {int(newlength)}, {int(newints)}>"
         f"({a._mag}, {b._mag})"
     )
+    a._em.mul_operands[0].add(a._mag)
+    a._em.mul_operands[1].add(b._mag)
     if not a._em.track:
-        return a._em.mag(f"mul{args}")
-    return f"{a._em.tracked('MagF', f'mul_window_t{args}')}.m"
+        return a._em.mag(f"mul{args}", "mul")
+    return f"{a._em.tracked('MagF', f'mul_window_t{args}', 'mul_window_t')}.m"
 
 
-def emit_body(n, qfloat_len, qfloat_ints, qfloat_base, true_division, track=False):
-    """C++ source of ``fused_body`` for one configuration.
-
-    The source defines ``FUSED_N2`` and, inside namespace ``qcell``,
-    ``fused_body(m, s, om, os)``: the inverse of one matrix from its
-    ``n*n`` cell magnitudes ``m`` and signs ``s`` (row-major) into
-    ``om``/``os``.  ``track=True`` also defines ``FUSED_TRACK`` as 1, and
-    ``fused_body`` then returns the matrix's overflow flag.
-    """
+def emit_circuit(n, qfloat_len, qfloat_ints, qfloat_base, true_division, track=False):
+    """Run the inversion circuit of one configuration on :class:`EmitQFloat`
+    cells; returns the :class:`Emitter` holding the body's statements
+    (stores of the outputs included) and its tally ``ops``."""
     em = Emitter(track)
     M = [
         [
@@ -286,6 +313,19 @@ def emit_body(n, qfloat_len, qfloat_ints, qfloat_base, true_division, track=Fals
                 raise TypeError(f"output cell is a {type(cell).__name__}")
             em.lines.append(f"om[{i * n + j}] = {cell.mag};")
             em.lines.append(f"os[{i * n + j}] = {_expr(cell.sign)};")
+    return em
+
+
+def emit_body(n, qfloat_len, qfloat_ints, qfloat_base, true_division, track=False):
+    """C++ source of ``fused_body`` for one configuration.
+
+    The source defines ``FUSED_N2`` and, inside namespace ``qcell``,
+    ``fused_body(m, s, om, os)``: the inverse of one matrix from its
+    ``n*n`` cell magnitudes ``m`` and signs ``s`` (row-major) into
+    ``om``/``os``.  ``track=True`` also defines ``FUSED_TRACK`` as 1, and
+    ``fused_body`` then returns the matrix's overflow flag.
+    """
+    em = emit_circuit(n, qfloat_len, qfloat_ints, qfloat_base, true_division, track)
     header = (
         "// Emitted by matrix_inversion_tpu_torch/ops/emit.py from "
         "models/qfloat_lu.py: do not edit.\n"

@@ -245,6 +245,7 @@ class PackedQFloat(QFloatBase):
     def __iadd__(self, other):
         if isinstance(other, Zero):
             return self
+        QFloatBase.ADDITIONS += 1
         # sign in {-1, 0, +1}: mag * sign is the signed value
         v = self._mag * self._sign
         if isinstance(other, SignedBinary):
@@ -263,6 +264,7 @@ class PackedQFloat(QFloatBase):
             self._sign = self._sign * other.value
         elif isinstance(other, PackedQFloat):
             # identical to from_mul at the same format
+            QFloatBase.MULTIPLICATION += 1
             self.check_compatibility(other)
             self._mag = _mul_packed(
                 self._mag, self._length, self._ints,
@@ -289,6 +291,7 @@ class PackedQFloat(QFloatBase):
             multiplication = a * b
             multiplication.set_len_ints(newlength, newints)
             return multiplication
+        QFloatBase.MULTIPLICATION += 1
         if not a.base == b.base:
             raise ValueError("bases are different")
         mag = _mul_packed(
@@ -315,6 +318,7 @@ class PackedQFloat(QFloatBase):
             self._sign = torch.where(is_zero, _sign_tensor(self._sign, v), v)
             return self
 
+        QFloatBase.DIVISION += 1
         self.check_compatibility(other)
         fp = self._length - self._ints
         n_digits = self._length + fp
@@ -333,6 +337,7 @@ class PackedQFloat(QFloatBase):
     def invert(self, sign=1, newlength=None, newints=None):
         """Signed reciprocal (reference qfloat.py:1263-1309)."""
         check_invert_sign(sign)
+        QFloatBase.DIVISION += 1
         if newlength is None:
             newlength = self._length
         if newints is None:

@@ -2,8 +2,8 @@
 
 Port of ``matrix_inversion_tpu/runtime/api.py:287-441``, packed I/O only:
 ``BatchedMatrixInversion`` inverts (B, n, n) float batches in one device
-program.  PyTorch runs eagerly, so there is no compile step; the device is
-an explicit argument.
+program.  PyTorch runs eagerly, so there is no compile step.  The device
+defaults to the card: the CPU runs only for a caller who names it.
 """
 
 from __future__ import annotations
@@ -17,7 +17,9 @@ from ..models.marshal import float_matrix_to_mags_and_signs, mags_and_signs_to_f
 
 
 class BatchedMatrixInversion:
-    """Invert (B, n, n) float matrices in QFloat arithmetic on ``device``.
+    """Invert (B, n, n) float matrices in QFloat arithmetic on ``device``
+    (default ``"cuda"``; without a CUDA device the constructor raises, and
+    the CPU is used only when asked for by name).
 
     The stages are ``quantize`` (host float64 -> int64 magnitudes and signs
     on the device), ``run_raw`` (device tensors in, device tensors out,
@@ -40,7 +42,7 @@ class BatchedMatrixInversion:
         params: QFloatParams,
         batch_size: int,
         *,
-        device,
+        device="cuda",
         backend: str = "auto",
         io: str = "packed",
         in_shardings=None,
@@ -64,6 +66,11 @@ class BatchedMatrixInversion:
         self.params = params
         self.batch_size = int(batch_size)
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "BatchedMatrixInversion targets a CUDA device and none is available; "
+                'pass device="cpu" to run the plain PyTorch path'
+            )
         self.track_overflow = bool(track_overflow)
 
     def quantize(self, matrices: np.ndarray):

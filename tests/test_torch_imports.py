@@ -23,7 +23,9 @@ def imported_modules(path):
 def test_port_sources_found():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     assert {"__init__.py", "ops/fused_inverse.py", "ops/emit.py", "ops/long_division.py",
-            "ops/cuda_build.py", "runtime/api.py"} <= names
+            "ops/cuda_build.py", "runtime/api.py", "utils/__init__.py", "utils/samplers.py",
+            "utils/timing.py", "utils/profiling.py", "utils/ubench.py",
+            "utils/roofline.py"} <= names
 
 
 @pytest.mark.parametrize(
