@@ -10,8 +10,9 @@ division kernels K2/K3 and windowed-multiply kernel K4.  Holds each against
 its plain PyTorch version on the card bit for bit: K1 on eight untracked
 configurations and five tracked ones on batches with overflowing matrices
 (flags included); K2 and K3 at the High and Low divide and reciprocal
-widths on floor-boundary inputs, zero divisors and a broadcast dividend;
-K4 on the circuits' multiply formats.  Then it drives the paths through
+widths on floor-boundary inputs, zero divisors, a one-word dividend, an
+unaligned view and odd lengths, and on the 16,777,216 timed elements; K4 on
+the circuits' multiply formats.  Then it drives the paths through
 ``BatchedMatrixInversion``: HIGH n=4 over 1,048,576 matrices, untracked
 and with ``track_overflow=True`` (K1); HIGH n=16 over 262,144 matrices,
 past K1's n <= 12, on the op-by-op path (K2 and K4), and that path on
@@ -38,7 +39,6 @@ the device.  Imports nothing of JAX.
 import concurrent.futures
 import json
 import re
-import shutil
 import statistics
 import subprocess
 import sys
@@ -57,7 +57,7 @@ from matrix_inversion_tpu_torch import (
 )
 from matrix_inversion_tpu_torch.models.marshal import float_matrix_to_mags_and_signs
 from matrix_inversion_tpu_torch.ops import fused_inverse, long_division, packed
-from matrix_inversion_tpu_torch.utils import roofline, ubench
+from matrix_inversion_tpu_torch.utils import division_steps, roofline, sass, ubench
 from matrix_inversion_tpu_torch.utils.timing import card_name_and_limit, timed_chain
 
 MAIN_BATCH = 1_048_576
@@ -67,6 +67,7 @@ CHECK_BATCH = 4096 + 17  # ragged: not a multiple of the block size
 REPS = 7
 LARGE_REPS = 3  # the n=16 op-by-op run_raw takes seconds
 KERNEL_ELEMS = 16_777_216
+KERNEL_LAUNCHES = 10  # per timed pass of an op-by-op kernel: the queue hides the host's part
 HBM_BYTES_PER_S = 3.35e12  # published memory rate of the card
 
 # The probes: rows of 128 elements, chains per element, the three K values
@@ -96,19 +97,20 @@ OP_KERNEL_FUNCTION = {
     "mul_window": "mul",
 }
 
-# What each kernel's own algorithm issues per element at the High divide
-# (60-bit dividend, divisor < 2**40) and the High dot-product multiply,
-# reckoned by reading csrc/long_division.cu and csrc/mul_window.cu: printed
-# beside the bound as the kernel's issued instructions, never as the bound.
-OP_KERNEL_ISSUED_INSTR = {
-    # an f32 reciprocal (~25) and 4 chunks of ~30: 64-bit shift-or, two
-    # conversions, f32 multiply, clamp, 16x64-bit product, compare, add-back
-    "long_division_float": 150,
-    # 60 restoring steps of ~10: 64-bit shift-or, compare, masked subtract, count
-    "long_division_classic": 600,
-    # 40 table rows of ~8: digit, window shift-mask-shift, masked 64-bit add
-    "mul_window": 320,
+# The kernels whose SASS gives each op-by-op kernel's issued instructions per
+# element at the timed shapes: K2's compile-time (60, 15) instance and K3, four
+# elements a thread; K4 unrolled over its table's rows with an exit after each.
+DIVISION_SASS_KERNELS = {
+    "long_division_float": "stream_kernelILi2ENS_10FloatFixedILi60ELi15EEEEE",
+    "long_division_classic": "stream_kernelILi2ENS_7ClassicEEE",
 }
+DIVISION_ELEMS_PER_THREAD = 4
+# Opcodes that K3, an integer-only division, must not hold, and the 64-bit
+# conversions that K2 must not hold.
+FLOAT_OPCODES = re.compile(
+    r"^(FADD|FMUL|FFMA|FMNMX|FSEL|FSET|FSETP|FCHK|FRND|MUFU|I2F|I2FP|F2I|F2IP|F2F"
+    r"|DADD|DMUL|DFMA|DSETP|DMNMX|H[A-Z]+2)$")
+WIDE_CONVERSION = re.compile(r"\b(I2F|I2FP|F2I|F2IP)\S*\.[US]64\b")
 
 # Instructions that one iteration of one u32_kernelmix chain needs: of its 22
 # nominal ops the two converts are free, (x - y) + (c - b) is two three-input
@@ -185,14 +187,15 @@ def ptxas_info(build_dir):
     )
 
 
-def timed_ms(fn, dev, passes=REPS, warm_up=True):
-    """Median milliseconds of one call over ``passes`` timed calls (CUDA
-    events on the card), after a warm-up call."""
+def timed_ms(fn, dev, passes=REPS, warm_up=True, launches=1):
+    """Median milliseconds of one call over ``passes`` timed passes of
+    ``launches`` calls each (CUDA events on the card), after a warm-up call."""
     if warm_up:
         fn()
         if dev.type == "cuda":
             torch.cuda.synchronize()
-    return timed_chain(lambda s: fn(), lambda s: None, None, 1, passes, device=dev)[0] * 1e3
+    return timed_chain(lambda s: fn(), lambda s: None, None, launches, passes,
+                       device=dev)[0] * 1e3 / launches
 
 
 def reset_counts():
@@ -235,15 +238,21 @@ def division_inputs(rng, n_bits, divisor_bits, dev):
 
 
 def check_division_kernels(dev):
-    """K2 and K3 == the plain version, tolerance 0; returns each kernel's
-    max error."""
+    """K2 and K3 == the plain version, tolerance 0, on arrays, on a one-word
+    dividend, on views that are 8- but not 16-byte aligned and on odd
+    lengths; returns each kernel's max error."""
     max_err = {"long_division_float": 0, "long_division_classic": 0}
     for i, (label, n_bits, divisor_bits) in enumerate(DIVISION_SHAPES):
         v, d = division_inputs(np.random.RandomState(300 + i), n_bits, divisor_bits, dev)
         k = packed._float_div_chunk_bits(n_bits, divisor_bits)
-        ref = packed.packed_long_division_reference(v, d, n_bits)
         one = torch.tensor(1 << (n_bits - 1), dtype=torch.int64, device=dev)
-        ref_one = packed.packed_long_division_reference(one, d, n_bits)
+        odd = v.numel() - 1 + v.numel() % 2
+        # (dividend, divisor): whole arrays; a 0-dim dividend, read from its one
+        # address; both operands off 16-byte alignment; the divisor alone; an odd
+        # length; a one-element array as the dividend
+        cases = [(v, d), (one, d), (v[1:], d[1:]), (v[:-1], d[1:]), (v[:odd], d[:odd]),
+                 (v[3:4], d[:5])]
+        assert v[1:].data_ptr() % 16 == 8 and odd % 2 == 1
         runs = [("long_division_float k=%d" % k,
                  lambda x, y: long_division.batched_long_division_float(x, y, n_bits, k))]
         for bits in (1, 2):
@@ -252,18 +261,52 @@ def check_division_kernels(dev):
                              lambda x, y, b=bits: long_division.batched_long_division(
                                  x, y, n_bits // b, b)))
         for name, run in runs:
-            got, got_one = run(v, d), run(one, d)
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            err = max(max_abs_diff([got], [ref]), max_abs_diff([got_one], [ref_one]))
+            err = 0
+            for x, y in cases:
+                got, ref = run(x, y), packed.packed_long_division_reference(x, y, n_bits)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                assert got.shape == ref.shape == y.shape
+                err = max(err, max_abs_diff([got], [ref]))
             kernel = name.split()[0]
             max_err[kernel] = max(max_err[kernel], err)
-            assert got.shape == ref.shape and got_one.shape == d.shape
             assert err == 0, f"{name} {label}: kernel differs from the plain version (max {err})"
             print(f"check {name} {label} (n_bits {n_bits}, divisor < 2**{divisor_bits}): "
-                  f"{v.numel()} values incl. floor boundaries and zero divisors, and a broadcast "
-                  "dividend; kernel == plain version bit for bit (tolerance 0)")
+                  f"{v.numel()} values incl. floor boundaries and zero divisors; a 0-dim and a "
+                  "one-element dividend; views off 16-byte alignment; an odd length; kernel == "
+                  "plain version bit for bit (tolerance 0)")
     return max_err
+
+
+def check_reciprocal_launches(dev, batch=LARGE_BATCH):
+    """One ``PackedQFloat.invert`` as the High circuit calls it (61 bits by
+    40) under the profiler: the division kernel launches once, and no fill
+    kernel writes a dividend (it is one cached word, read from its address)."""
+    x = packed.PackedQFloat(
+        torch.randint(1, 1 << 40, (batch,), dtype=torch.int64, device=dev), 40, 20)
+    x.invert(1, 40, 0)  # the constant word is filled once, here at the latest
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    before = long_division.LAUNCHES["long_division_float"]
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        got = x.invert(1, 40, 0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    ref = packed.packed_long_division_reference(
+        torch.tensor(1 << 60, device=dev), x.mag, 61) & ((1 << 40) - 1)
+    assert torch.equal(got.mag, ref), "invert differs from the plain version"
+    assert long_division.LAUNCHES["long_division_float"] == before + 1
+    names = [e.key for e in prof.key_averages()
+             if getattr(e, "device_time_total", 0) > 0 and not e.key.startswith("aten::")]
+    assert dev.type != "cuda" or any("stream_kernel" in n for n in names), \
+        f"the profiler saw no division kernel: {names}"
+    fills = [n for n in names if "fill" in n.lower()]
+    assert not fills, f"a reciprocal launched a fill: {fills}"
+    print(f"reciprocal: invert of {batch} High values launched {names}: one division kernel, "
+          "no fill for the dividend")
 
 
 def check_mul_kernel(dev):
@@ -417,41 +460,72 @@ def large_n_paths(dev, card, batch=LARGE_BATCH, check_batch=CHECK_BATCH, reps=LA
     }
 
 
-def time_op_kernels(dev, card, elems=KERNEL_ELEMS):
+def time_op_kernels(dev, card, elems=KERNEL_ELEMS, launches=KERNEL_LAUNCHES):
     """K2, K3 and K4 alone and their plain versions at the High divide
-    shape and the High dot-product multiply, median of REPS; returns
-    {name: (ms, plain_ms, library_ms)}, ``library_ms`` the time of the one
-    PyTorch call that computes a kernel's function (``torch.div`` with
-    floor rounding for the divisions; the multiply has none)."""
+    shape and the High dot-product multiply, and K2 and K3 at the High
+    reciprocal (a one-word dividend); each a median of REPS passes of
+    ``launches`` calls (of one call for K4's plain versions, tens of
+    milliseconds each).  Both division kernels are first held against the
+    plain version on all the timed elements, tolerance 0.  Returns two
+    dicts ``{name: (ms, plain_ms, library_ms)}``, the second for K2 and K3
+    at the reciprocal; ``library_ms`` is the time of the one PyTorch call
+    that computes a kernel's function (``torch.div`` with floor rounding for
+    the divisions; the multiply has none)."""
     g = torch.Generator(device=dev).manual_seed(21)
     v = torch.randint(0, 1 << 60, (elems,), dtype=torch.int64, device=dev, generator=g)
     d = torch.randint(1, 1 << 40, (elems,), dtype=torch.int64, device=dev, generator=g)
     a = torch.randint(0, 1 << 40, (elems,), dtype=torch.int64, device=dev, generator=g)
     b = torch.randint(0, 1 << 40, (elems,), dtype=torch.int64, device=dev, generator=g)
+    one = torch.full((), 1 << 60, dtype=torch.int64, device=dev)
     consts = packed.mul_window_consts(40, 20, 40, 20, 40, 20, 1)
-    div_plain = timed_ms(lambda: packed.packed_long_division_reference(v, d, 60), dev)
-    div_library = timed_ms(lambda: torch.div(v, d, rounding_mode="floor"), dev)
-    times = {
-        "long_division_float": (
-            timed_ms(lambda: long_division.batched_long_division_float(v, d, 60, 15), dev),
-            div_plain, div_library),
-        "long_division_classic": (
-            timed_ms(lambda: long_division.batched_long_division(v, d, 60, 1), dev),
-            div_plain, div_library),
-        "mul_window": (
-            timed_ms(lambda: long_division.batched_mul_window(a, b, consts, 40), dev),
-            timed_ms(lambda: packed.mul_window_packed(a, 40, 20, b, 40, 20, 40, 20, 1)[0], dev),
-            None),
-    }
+
+    def timed(fn):
+        return timed_ms(fn, dev, launches=launches)
+
+    shapes = {}
+    for shape, x, n_bits in (("divide", v, 60), ("reciprocal", one, 61)):
+        kernels = {
+            "long_division_float":
+                lambda: long_division.batched_long_division_float(x, d, n_bits, 15),
+            "long_division_classic":
+                lambda: long_division.batched_long_division(x, d, n_bits, 1),
+        }
+        ref = packed.packed_long_division_reference(x, d, n_bits)
+        for name, run in kernels.items():
+            assert torch.equal(run(), ref), \
+                f"{name} differs from the plain version on the {elems} timed elements ({shape})"
+        del ref
+        plain = timed(lambda: packed.packed_long_division_reference(x, d, n_bits))
+        library = timed(lambda: torch.div(x, d, rounding_mode="floor"))
+        shapes[shape] = {name: (timed(run), plain, library) for name, run in kernels.items()}
+        print(f"check and time, High {shape} (n_bits {n_bits}, divisor < 2**40"
+              f"{', the dividend one word' if shape == 'reciprocal' else ''}): both kernels == "
+              f"plain version on all {elems} elements (tolerance 0); torch.div floor alone (the "
+              f"library call of K2 and K3) {library:.3f} ms; "
+              + "; ".join(f"{name} {ms:.3f} ms" for name, (ms, _, _) in shapes[shape].items())
+              + f"; plain version {plain:.3f} ms; {launches} calls a pass ({card})")
+    times = dict(shapes["divide"])
+    times["mul_window"] = (
+        timed(lambda: long_division.batched_mul_window(a, b, consts, 40)),
+        timed_ms(lambda: packed.mul_window_packed(a, 40, 20, b, 40, 20, 40, 20, 1)[0], dev),
+        None)
     trunc_ms = timed_ms(lambda: packed.mul_trunc_packed(a, 40, 20, b, 40, 20, 40, 20, 1), dev)
-    print(f"time torch.div floor alone (the library call of K2 and K3): {div_library:.3f} ms "
-          f"on {elems} elements ({card})")
-    for name, (ms, plain, _) in times.items():
-        print(f"time {name} alone: {ms:.3f} ms, plain version {plain:.3f} ms, on {elems} "
-              f"elements (High {'divide n_bits 60, divisor < 2**40' if 'division' in name else 'dot product (40, 20) x (40, 20) -> (40, 20)'}; {card})")
+    ms, plain, _ = times["mul_window"]
+    print(f"time mul_window alone: {ms:.3f} ms, plain version {plain:.3f} ms, on {elems} "
+          f"elements (High dot product (40, 20) x (40, 20) -> (40, 20); {card})")
     print(f"time mul_trunc_packed (the CPU route's multiply) on the card: {trunc_ms:.3f} ms "
           f"on {elems} elements ({card})")
-    return times
+    return times, shapes["reciprocal"]
+
+
+def division_design_steps(dev, card, elems=KERNEL_ELEMS):
+    """The steps of the division kernels' design in turns, each held
+    against ``torch.div`` first (``utils/division_steps.py``)."""
+    for row in division_steps.measure(dev, elems):
+        bound = row["bytes_per_element"] * elems / HBM_BYTES_PER_S * 1e3
+        print(f"design step, {row['shape']}: {row['step']}: {row['ms']:.4f} ms on {elems} "
+              f"elements (bound {bound:.3f} ms by bytes, {row['bytes_per_element']} B an "
+              f"element; {card})")
 
 
 def differing_bytes(a, b):
@@ -576,12 +650,53 @@ def static_sass(library):
     """``(instructions, calls)`` in the SASS of a built library, NOPs left
     out: for a straight-line kernel, what one thread issues, a subroutine's
     instructions counted once however often it is called."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
-                          check=True).stdout
-    ops = [op.strip() for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]+);", text)]
-    ops = [op for op in ops if not op.startswith("NOP")]
-    return len(ops), sum(1 for op in ops if re.search(r"\bCALL\b", op))
+    instrs = [i for fn in sass.functions(sass.dump(library)).values() for i in fn]
+    return len(instrs), sass.calls(instrs)
+
+
+def op_kernel_sass():
+    """Instructions per element that K2, K3 and K4 issue at the timed
+    shapes, read from the built libraries' SASS, as ``{name: (instructions
+    per element, note)}``.  K2 and K3: the straight-line body of the
+    four-elements-a-thread kernel, up to its EXIT, over four (K2's IEEE
+    divide keeps a slow path behind a call, never taken here and not
+    counted).  K4: the unrolled rows up to the exit after the High dot
+    product's last row, and the common end.  Raises if K3 holds a
+    floating-point opcode or a call (the 64-bit division is one), or if K2
+    holds a conversion to or from a 64-bit type; the first K2, kept in the
+    design-steps library, must hold one, which shows that the search sees
+    them."""
+    division = sass.functions(sass.dump(
+        long_division.build_dir("long_division") / "liblong_division.so"))
+    out = {}
+    for name, kernel in DIVISION_SASS_KERNELS.items():
+        (instrs,) = [i for fn, i in division.items() if kernel in fn]
+        body = sass.main_body(instrs)
+        out[name] = (len(body) / DIVISION_ELEMS_PER_THREAD,
+                     f"{len(body)} in the body of 4 elements, {len(instrs) - len(body)} behind "
+                     f"{sass.calls(instrs)} calls")
+    classic = [op for fn, i in division.items() if "Classic" in fn for _, op in i]
+    floats = sorted({sass.opcode(op) for op in classic if FLOAT_OPCODES.match(sass.opcode(op))})
+    assert not floats and not any(re.search(r"\bCALL\b", op) for op in classic), \
+        f"K3 holds floating-point opcodes {floats} or a call"
+    wide = [op for fn, i in division.items() if "Float" in fn for _, op in i
+            if WIDE_CONVERSION.search(op)]
+    assert not wide, f"K2 converts to or from a 64-bit type: {wide[:3]}"
+    first = [op for fn, i in sass.functions(sass.dump(division_steps.library_path())).items()
+             if "FirstFloat" in fn for _, op in i if WIDE_CONVERSION.search(op)]
+    assert first, "the first K2 shows no 64-bit conversion: the search is blind"
+    print(f"sass: K3's kernels hold no floating-point opcode and no call; K2's kernels no "
+          f"conversion to or from a 64-bit type (the first K2 holds {len(first)}, e.g. "
+          f"{first[0].split()[0]})")
+    (mul,) = sass.functions(sass.dump(
+        long_division.build_dir("mul_window") / "libmul_window.so")).values()
+    exits, end = sass.forward_exits(mul)
+    rows = sum(1 for c in packed.mul_window_consts(40, 20, 40, 20, 40, 20, 1) if c[2] != 0)
+    assert len(exits) > rows, f"mul_window: {len(exits)} exits for {rows} rows"
+    issued = sum(1 for addr, _ in mul if addr <= exits[rows] or addr >= end)
+    out["mul_window"] = (issued, f"{rows} rows of {len(mul)} static instructions for "
+                                 f"{len(exits)} rows")
+    return out
 
 
 def k1_bytes(n, batch, track):
@@ -590,7 +705,7 @@ def k1_bytes(n, batch, track):
     return batch * (n * n * 16 * 2 + (4 if track else 0))
 
 
-def roofline_path(dev, card, rates, op_times, batch=MAIN_BATCH, elems=KERNEL_ELEMS):
+def roofline_path(dev, card, rates, op_times, op_issued, batch=MAIN_BATCH, elems=KERNEL_ELEMS):
     """kernel_roofline over K1's emitted body with K1's time from this run,
     HIGH n = 2..5, untracked and tracked.  The bound: the fewest
     instructions known for each primitive's function, the multiplies'
@@ -599,7 +714,8 @@ def roofline_path(dev, card, rates, op_times, batch=MAIN_BATCH, elems=KERNEL_ELE
     over 105% of it.  Beside it the time that the body as written takes at
     its own primitives' rates, each measured alone: not a bound, K1 may
     pass it where multiplies share work.  Then the same two figures for K2,
-    K3 and K4.  Returns {(n, track): roofline dict of the bound}."""
+    K3 and K4, the issued one from ``op_issued`` (:func:`op_kernel_sass`).
+    Returns {(n, track): roofline dict of the bound}."""
     default_rate = {"default": rates["u32_kernelmix"]}
     g = torch.Generator(device=dev).manual_seed(23)
     out = {}
@@ -642,7 +758,8 @@ def roofline_path(dev, card, rates, op_times, batch=MAIN_BATCH, elems=KERNEL_ELE
     for name, function in OP_KERNEL_FUNCTION.items():
         instrs = roofline._PRIM_NOMINAL_INSTR[function]
         ops_ms = instrs * elems / rates["u32_kernelmix"] * 1e3
-        issued_ms = OP_KERNEL_ISSUED_INSTR[name] * elems / rates["u32_kernelmix"] * 1e3
+        issued, note = op_issued[name]
+        issued_ms = issued * elems / rates["u32_kernelmix"] * 1e3
         bound_ms = max(ops_ms, memory_ms)
         ms, plain_ms, library_ms = op_times[name]
         assert bound_ms <= 1.05 * min(t for t in op_times[name] if t is not None), \
@@ -652,8 +769,8 @@ def roofline_path(dev, card, rates, op_times, batch=MAIN_BATCH, elems=KERNEL_ELE
               f"rate, memory (24 B per element at 3.35 TB/s) {memory_ms:.3f} ms, on {elems} "
               f"elements: bound {bound_ms:.3f} ms by "
               f"{'operations' if ops_ms > memory_ms else 'bytes'}; measured {ms:.3f} ms.  Issued: "
-              f"{OP_KERNEL_ISSUED_INSTR[name]} instructions per element by its own algorithm, "
-              f"read from the source = {issued_ms:.3f} ms ({card})")
+              f"{issued:.1f} instructions per element by its own algorithm, read from its "
+              f"SASS ({note}) = {issued_ms:.3f} ms ({card})")
     return out
 
 
@@ -686,22 +803,29 @@ def main():
     # one nvcc per library, all started together
     t0 = time.perf_counter()
     tracked_configs = [config_of(p) + (True,) for _, p in TRACKED_CHECKS]
-    with concurrent.futures.ThreadPoolExecutor(max_workers=3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
         fused_build = pool.submit(
             timed_s, fused_inverse.build, [config_of(p) for _, p, _ in CHECKS] + tracked_configs)
         op_build = pool.submit(timed_s, long_division.build)
         ubench_build = pool.submit(timed_s, ubench.build)
+        steps_build = pool.submit(timed_s, division_steps.build)
         fused_s, op_s, ubench_s = fused_build.result(), op_build.result(), ubench_build.result()
+        steps_s = steps_build.result()
     print(f"build: {len(CHECKS)} fused_inverse + {len(TRACKED_CHECKS)} tracked kernels "
           f"from {fused_inverse.CSRC} with nvcc {' '.join(fused_inverse.NVCC_FLAGS)} "
           f"in {fused_s:.1f} s; long_division + mul_window libraries in {op_s:.1f} s; "
           f"the ubench library ({len(ubench.MIXES)} mixes x C in {ubench.CHAIN_COUNTS}) in "
-          f"{ubench_s:.1f} s; all in {time.perf_counter() - t0:.1f} s")
+          f"{ubench_s:.1f} s; the division design-steps library in {steps_s:.1f} s; all in "
+          f"{time.perf_counter() - t0:.1f} s")
     main_config = config_of(HIGH.replace(n=4))
     for label, c in (("fused_inverse", main_config), ("fused_inverse_tracked", main_config + (True,))):
         print(f"ptxas {label} HIGH n=4: {ptxas_info(fused_inverse.build_dir(c))}")
-    for name in ("long_division", "mul_window"):
-        print(f"ptxas {name}: {ptxas_info(long_division.build_dir(name))}")
+    division_log = (long_division.build_dir("long_division") / "nvcc.log").read_text()
+    division_regs = {re.sub(r"^_ZN7longdiv|EEvPKm.*$", "", entry): regs
+                     for entry, regs in sass.ptxas_registers(division_log).items()}
+    print(f"ptxas long_division, registers: {division_regs}; spills: "
+          f"{sass.ptxas_spill_lines(division_log) or 'none'}")
+    print(f"ptxas mul_window: {ptxas_info(long_division.build_dir('mul_window'))}")
     ubench_regs = ubench.ptxas_registers()
     print(f"ptxas ubench, registers of the C={UBENCH_C} kernels: "
           f"{ {name: ubench_regs[(name, UBENCH_C)] for name in ubench.MIXES} }; spills: "
@@ -829,7 +953,12 @@ def main():
     print(f"host clock: the op-by-op paths, checks and timings, {time.perf_counter() - t0:.1f} s")
 
     # -- timings (CUDA events, median of REPS after a warm-up)
-    op_times = time_op_kernels(dev, card)
+    t0 = time.perf_counter()
+    check_reciprocal_launches(dev)
+    op_times, reciprocal_times = time_op_kernels(dev, card)
+    division_design_steps(dev, card)
+    print("host clock: the reciprocal's launches, the op-by-op kernels' checks and timings at "
+          f"{KERNEL_ELEMS} elements and the design steps, {time.perf_counter() - t0:.1f} s")
     cm, cs = mags.t().contiguous(), signs.t().contiguous()
     kernel_ms = timed_ms(lambda: fused_inverse.fused_inverse_cell_major(cm, cs, *config_of(p)), dev)
     run_raw_ms = timed_ms(lambda: inv.run_raw(mags, signs), dev)
@@ -858,7 +987,7 @@ def main():
     for name in ubench.LAUNCHES:
         ubench.LAUNCHES[name] = 0
     rates, kernelmix_ms = measure_ubench(dev, card)
-    rooflines = roofline_path(dev, card, rates, op_times)
+    rooflines = roofline_path(dev, card, rates, op_times, op_kernel_sass())
     ubench_launches = sum(ubench.LAUNCHES.values())
     assert all(count > 0 for count in ubench.LAUNCHES.values()), \
         f"the roofline path did not launch every mix: {ubench.LAUNCHES}"
@@ -879,6 +1008,11 @@ def main():
     op_bounds = {name: published_bound(
         24 * KERNEL_ELEMS, roofline._PRIM_NOMINAL_INSTR[function] * KERNEL_ELEMS, *op_times[name])
         for name, function in OP_KERNEL_FUNCTION.items()}
+    for name, times in reciprocal_times.items():
+        bound, by = published_bound(16 * KERNEL_ELEMS, roofline._PRIM_NOMINAL_INSTR["divide"]
+                                    * KERNEL_ELEMS, *times)
+        print(f"bound {name} at the High reciprocal (16 B an element): {bound:.3f} ms by {by}; "
+              f"measured {times[0]:.3f} ms, torch.div floor {times[2]:.3f} ms ({card})")
     ubench_elems = UBENCH_ROWS * 128
     ubench_bound, ubench_by = published_bound(
         12 * ubench_elems, ubench_elems * UBENCH_KS[2] * UBENCH_C * UBENCH_KERNELMIX_INSTR,

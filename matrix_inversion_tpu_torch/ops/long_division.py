@@ -3,12 +3,15 @@
 Replace ``matrix_inversion_tpu/ops/pallas_kernels.py``'s
 ``_division_float_kernel`` (K2), ``_division_kernel`` (K3) and
 ``_mul_window_kernel`` (K4), the kernels of the JAX package's op-by-op
-path.  The CUDA sources are ``csrc/long_division.cu`` (K2, K3) and
-``csrc/mul_window.cu`` (K4), one thread per element on 64-bit words.
+path.  The CUDA sources are ``csrc/long_division.cu`` (K2, K3: four
+elements per thread through 128-bit streaming accesses) and
+``csrc/mul_window.cu`` (K4, one thread per element), on 64-bit words.
 
-Each wrapper keeps its JAX contract: int64 inputs broadcast to one shape
-(a dividend may be a scalar filled to the batch), any shape, no padding,
-the result in the broadcast shape.  A CUDA tensor launches the kernel; a
+Each wrapper keeps its JAX contract: int64 inputs broadcast to one shape,
+any shape, no padding, the result in the broadcast shape.  A dividend
+that is one word (0-dim, or a view broadcast from one element, as a
+reciprocal's constant is) is not filled to the batch: the division
+kernels read it from its one address.  A CUDA tensor launches the kernel; a
 CPU tensor runs the plain version (``ops/packed.py``:
 :func:`~.packed.packed_long_division_reference` for K2 and K3,
 :func:`~.packed.mul_window_sum` masked to the window, the magnitude of
@@ -18,7 +21,8 @@ are refused.
 The two libraries are built with ``nvcc`` at first use (:mod:`.cuda_build`),
 keyed by a hash of their sources and the flags.  The parameters (``n_bits``
 and ``k``, ``n_digits`` and ``bits``, the K4 table) are runtime arguments,
-so the two libraries serve every QFloat format.
+so the two libraries serve every QFloat format; K2 has compile-time
+instances for the presets' ``(n_bits, k)`` besides.
 """
 
 from __future__ import annotations
@@ -101,7 +105,7 @@ def _libraries():
     }
     for name in ("long_division_float", "long_division_classic"):
         fns[name].argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
     fns["mul_window"].argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int64, ctypes.POINTER(MulWindowTable), ctypes.c_void_p,
@@ -111,28 +115,48 @@ def _libraries():
     return fns
 
 
-def _operands(x, y):
-    """Two int64 tensors on one device, broadcast to one contiguous shape."""
+def _check(x, y):
     if x.dtype != torch.int64 or y.dtype != torch.int64:
         raise TypeError(f"expected int64 tensors, got {x.dtype} and {y.dtype}")
     if x.device != y.device:
         raise ValueError(f"operands on two devices: {x.device} and {y.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"expected CPU or CUDA tensors, got {x.device}")
+
+
+def _operands(x, y):
+    """Two int64 tensors on one device, broadcast to one contiguous shape."""
+    _check(x, y)
     x, y = torch.broadcast_tensors(x, y)
     return x.contiguous(), y.contiguous()
 
 
+def division_operands(dividend, divisor):
+    """``(dividend, its element stride, divisor)``: the divisor contiguous in
+    the broadcast shape; the dividend likewise with stride 1, or, where it
+    is a single word (0-dim, or every axis of size 1 or stride 0), left as
+    it is with stride 0."""
+    _check(dividend, divisor)
+    shape = torch.broadcast_shapes(dividend.shape, divisor.shape)
+    divisor = divisor.expand(shape).contiguous()
+    if all(size == 1 or stride == 0 for size, stride in zip(dividend.shape, dividend.stride())):
+        return dividend, 0, divisor
+    return dividend.expand(shape).contiguous(), 1, divisor
+
+
 def _launch(name, x, y, *args):
-    """One launch of kernel ``name`` over contiguous CUDA tensors ``x`` and
-    ``y`` of one shape; returns the output of that shape."""
-    out = torch.empty_like(x)
-    if x.numel() == 0:
+    """One call of kernel ``name``'s launch function over CUDA tensors: ``y``
+    contiguous, ``x`` contiguous of the same shape or, for a division with
+    stride 0 in ``args``, a single word; returns the output of ``y``'s
+    shape.  (A division of an odd length is two kernels: the pairs, and the
+    last element.)"""
+    out = torch.empty_like(y)
+    if y.numel() == 0:
         return out
     fn = _libraries()[name]
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), *args, stream)
+        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), y.numel(), *args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
@@ -146,22 +170,23 @@ def batched_long_division_float(dividend, divisor, n_bits, k):
     where ``k = _float_div_chunk_bits(n_bits, divisor_bits)``."""
     if not (1 <= n_bits <= 62 and 4 <= k <= 15):
         raise ValueError(f"need n_bits in [1, 62] and k in [4, 15], got {n_bits}, {k}")
-    v, d = _operands(dividend, divisor)
+    v, v_stride, d = division_operands(dividend, divisor)
     if v.device.type == "cpu":
         return packed_long_division_reference(v, d, n_bits)
-    return _launch("long_division_float", v, d, n_bits, k)
+    return _launch("long_division_float", v, d, v_stride, n_bits, k)
 
 
 def batched_long_division(dividend, divisor, n_digits, bits):
-    """K3: ``dividend // divisor`` by restoring division, one
-    base-``2**bits`` digit per step; a zero divisor saturates every
-    quotient digit."""
+    """K3: ``dividend // divisor`` in integers only, through an integer
+    reciprocal of the divisor; ``n_digits`` base-``2**bits`` digits fix the
+    dividend's width ``n_bits = n_digits * bits`` (bits above it are
+    ignored) and nothing else.  A zero divisor gives ``2**n_bits - 1``."""
     if not (1 <= bits <= 16 and 1 <= bits * n_digits <= 62):
         raise ValueError(f"need bits in [1, 16] and bits * n_digits <= 62, got {bits}, {n_digits}")
-    v, d = _operands(dividend, divisor)
+    v, v_stride, d = division_operands(dividend, divisor)
     if v.device.type == "cpu":
         return packed_long_division_reference(v, d, bits * n_digits)
-    return _launch("long_division_classic", v, d, n_digits, bits)
+    return _launch("long_division_classic", v, d, v_stride, n_digits, bits)
 
 
 def batched_mul_window(a_mag, b_mag, consts, newlength):

@@ -35,6 +35,7 @@ same magnitudes.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 
 import torch
@@ -145,6 +146,13 @@ def digit_bits(base: int) -> int:
     if base < 2 or base & (base - 1):
         raise ValueError("packed backend requires a power-of-two base")
     return base.bit_length() - 1
+
+
+@functools.lru_cache(maxsize=None)
+def _constant_word(value, device):
+    """A 0-dim int64 tensor holding ``value``, filled on ``device`` once and
+    kept: a reciprocal's dividend, which no caller writes."""
+    return torch.full((), value, dtype=MAG_DTYPE, device=device)
 
 
 def _sign_tensor(sign, like):
@@ -347,7 +355,8 @@ class PackedQFloat(QFloatBase):
         n_digits = 1 + fpself + fp
         if self._bits * n_digits > 62:
             raise ValueError("invert dividend too wide for packed backend")
-        dividend = torch.full_like(self._mag, 1 << (self._bits * (fpself + fp)))
+        # one word on the device: the kernels read it from its address
+        dividend = _constant_word(1 << (self._bits * (fpself + fp)), self._mag.device)
         q = packed_long_division(dividend, self._mag, n_digits, self._bits,
                                  divisor_bits=self._bits * self._length)
         if newlength < n_digits:

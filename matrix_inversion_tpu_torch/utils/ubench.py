@@ -50,8 +50,6 @@ import datetime
 import functools
 import json
 import re
-import shutil
-import subprocess
 import sys
 
 import numpy as np
@@ -60,6 +58,7 @@ import torch
 from ..ops import packed
 from ..ops.cuda_build import CSRC, NVCC_FLAGS, build_library
 from ..ops.packed import PackedQFloat
+from . import sass
 from .timing import card_name_and_limit, synchronize, timed_chain
 
 U32 = torch.uint32
@@ -303,23 +302,23 @@ def measure(name, rows=8192, C=8, reps=20, K1=256, K2=2048):
     return dops / (t2 - t1)
 
 
+def _kernel_of(entry):
+    """``(mix name, C)`` of a mangled ``chain_kernel<mix, C>`` name, else None."""
+    m = re.search(r"chain_kernelILi(\d+)ELi(\d+)E", entry)
+    return (_MIX_OF_INDEX[int(m.group(1))], int(m.group(2))) if m else None
+
+
 def ptxas_registers():
     """``{(mix name, C): registers per thread}`` from ptxas's lines in the
     library's ``nvcc.log``."""
     log = (build_dir() / "nvcc.log").read_text()
-    out = {}
-    for m in re.finditer(
-            r"Compiling entry function '[^']*chain_kernelILi(\d+)ELi(\d+)E[^']*'"
-            r".*?Used (\d+) registers", log, flags=re.S):
-        out[(_MIX_OF_INDEX[int(m.group(1))], int(m.group(2)))] = int(m.group(3))
-    return out
+    return {_kernel_of(entry): regs for entry, regs in sass.ptxas_registers(log).items()
+            if _kernel_of(entry)}
 
 
 def ptxas_spill_lines():
     """ptxas's lines of the library's ``nvcc.log`` that report a spill."""
-    log = (build_dir() / "nvcc.log").read_text()
-    return [line.strip() for line in log.splitlines()
-            if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    return sass.ptxas_spill_lines((build_dir() / "nvcc.log").read_text())
 
 
 def resident_warps(registers, threads=256):
@@ -337,28 +336,8 @@ def sass_loop_instructions():
     body: ``UNROLL`` iterations of ``C`` chains) and how many of them are
     calls (the 64-bit division is a subroutine, whose instructions are not
     in the count).  Read with ``cuobjdump -sass``."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(_build())], capture_output=True, text=True,
-                          check=True).stdout
-    out = {}
-    for block in text.split("Function : ")[1:]:
-        m = re.search(r"chain_kernelILi(\d+)ELi(\d+)E", block.split("\n", 1)[0])
-        if not m:
-            continue
-        # addresses run past 0xffff: four or more hex digits
-        instrs = [(int(addr, 16), op.strip()) for addr, op in
-                  re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", block)]
-        best = (0, 0)
-        for addr, op in instrs:
-            target = re.search(r"\bBRA\S*\s+(?:\S+,\s*)*`?\(?(0x[0-9a-f]+)", op)
-            if not target or int(target.group(1), 16) > addr:
-                continue
-            body = [o for a, o in instrs if int(target.group(1), 16) <= a <= addr
-                    and not o.startswith("NOP")]
-            calls = sum(1 for o in body if re.search(r"\bCALL\b", o))
-            best = max(best, (len(body), calls))
-        out[(_MIX_OF_INDEX[int(m.group(1))], int(m.group(2)))] = best
-    return out
+    return {_kernel_of(name): sass.largest_loop(instrs)
+            for name, instrs in sass.functions(sass.dump(_build())).items() if _kernel_of(name)}
 
 
 def main(argv=None):

@@ -11,12 +11,18 @@ tests/test_pallas.py runs them; K4 also against the port's truncated
 multiply.  The inputs sit on the floor boundaries where an unfixed f32
 estimate would be off by one, at the divide and invert widths of every
 preset, with zero divisors and the widest divisor the exactness argument
-allows.
+allows; on the divisors where K3's integer reciprocal could slip (around
+2**32, powers of two, 1, 2**61 and above); and anywhere hypothesis looks.
+``csrc/long_division_steps.cu`` keeps the first K2 and K3 for timing: they
+must agree with the present ones.
 """
 
 import ctypes
 import subprocess
 import threading
+
+import hypothesis
+import hypothesis.strategies as st
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +37,7 @@ from matrix_inversion_tpu_torch.core.qfloat import qf_from_mul
 from matrix_inversion_tpu_torch.ops import fused_inverse, long_division, packed
 from matrix_inversion_tpu_torch.ops.cuda_build import CSRC
 from matrix_inversion_tpu_torch.ops.packed import PackedQFloat, track_overflow
+from matrix_inversion_tpu_torch.utils import division_steps
 
 torch.set_num_threads(2)
 
@@ -88,10 +95,10 @@ def floor_div(vs, ds, n_bits):
 
 @pytest.fixture(scope="module")
 def host(tmp_path_factory):
-    """One g++ build per source, both at once; the host launch functions."""
+    """One g++ build per source, all at once; the host launch functions."""
     root = tmp_path_factory.mktemp("division_host")
     procs = {}
-    for name in ("long_division", "mul_window"):
+    for name in ("long_division", "mul_window", "long_division_steps"):
         cmd = [
             "g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off",
             "-x", "c++", "-I", str(CSRC), "-o", str(root / f"{name}.so"),
@@ -107,22 +114,43 @@ def host(tmp_path_factory):
         "float": div.long_division_float_host,
         "classic": div.long_division_classic_host,
         "mul": mul.mul_window_host,
+        "step": ctypes.CDLL(str(root / "long_division_steps.so")).division_step_host,
     }
+    # (v, d, q, n, v_stride, then n_bits and k, or n_digits and bits)
     for key in ("float", "classic"):
-        fns[key].argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+        fns[key].argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 3
     fns["mul"].argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int64, ctypes.POINTER(long_division.MulWindowTable),
     ]
+    fns["step"].argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 3
     for fn in fns.values():
         fn.restype = ctypes.c_int
     return fns
 
 
 def run_host(fn, x, y, *args):
+    """The host launch of K4, or of a division with one dividend per
+    divisor (stride 1) or, where ``x`` is a single word, stride 0."""
     x, y = np.ascontiguousarray(x, np.int64), np.ascontiguousarray(y, np.int64)
-    out = np.empty_like(x)
-    assert fn(x.ctypes.data, y.ctypes.data, out.ctypes.data, len(x), *args) == 0
+    out = np.empty_like(y)
+    if args and isinstance(args[0], int):
+        args = (int(x.size == y.size),) + args
+    assert x.size in (1, y.size)
+    assert fn(x.ctypes.data, y.ctypes.data, out.ctypes.data, y.size, *args) == 0
     return out
+
+
+def run_step(fn, frame, op, x, y, n_bits, k=15):
+    x, y = np.ascontiguousarray(x, np.int64), np.ascontiguousarray(y, np.int64)
+    out = np.empty_like(y)
+    assert fn(frame, op, x.ctypes.data, y.ctypes.data, out.ctypes.data, y.size,
+              int(x.size == y.size), n_bits, k) == 0
+    return out
+
+
+def as_int64(values):
+    """Python ints below 2**64 as the int64 words that hold their bits."""
+    return np.array(values, dtype=np.uint64).view(np.int64)
 
 
 @pytest.mark.parametrize("name,n_bits,divisor_bits", SHAPES, ids=SHAPE_IDS)
@@ -176,13 +204,220 @@ def test_division_host_matches_pallas_interpret(host, name, n_bits, divisor_bits
     one = 1 << (n_bits - 1)
     ref_scalar = np.asarray(pk.batched_long_division_float(
         jnp.asarray(one, jnp.int64), jnp.asarray(ds), n_bits, k, interpret=True))
-    got_scalar = run_host(host["float"], np.full_like(ds, one), ds, n_bits, k)
+    got_scalar = run_host(host["float"], [one], ds, n_bits, k)  # stride 0
     np.testing.assert_array_equal(got_scalar, ref_scalar)
+    np.testing.assert_array_equal(run_host(host["float"], np.full_like(ds, one), ds, n_bits, k),
+                                  ref_scalar)
+    ref_classic_scalar = np.asarray(pk.batched_long_division(
+        jnp.asarray(one, jnp.int64), jnp.asarray(ds), n_bits, 1, interpret=True))
+    np.testing.assert_array_equal(run_host(host["classic"], [one], ds, n_bits, 1),
+                                  ref_classic_scalar)
     np.testing.assert_array_equal(
         long_division.batched_long_division_float(
             torch.tensor(one), torch.from_numpy(ds), n_bits, k).numpy(),
         ref_scalar,
     )
+
+
+# Divisors where an integer reciprocal, a normalising shift or a truncated
+# remainder could slip.
+EDGE_DIVISORS = {
+    "around_2_32": [(1 << 32) + o for o in range(-3, 4)] + [(1 << 33) - 1, (1 << 31) + 1],
+    "powers_of_two": [1 << b for b in range(0, 62)],
+    "one_two_three": [1, 2, 3],
+    "all_ones": [(1 << b) - 1 for b in range(1, 63)],
+    "wide": [(1 << 61) + o for o in (-1, 0, 1)] + [(1 << 62) - 1, 1 << 62, (1 << 63) - 1,
+                                                  1 << 63, (1 << 64) - 1],
+    "zero": [0],
+    "top_word_all_ones": [((1 << 32) - 1) << s for s in (0, 7, 29)] + [(1 << 61) - (1 << 20)],
+}
+
+
+def edge_dividends(d, n_bits, rng):
+    """Dividends on d's floor boundaries, the widest, and random ones."""
+    vmax = (1 << n_bits) - 1
+    vs = [0, 1, vmax, vmax - 1, vmax >> 1]
+    for _ in range(24):
+        q = int(rng.randint(0, 1 << 31)) * int(rng.randint(0, 1 << 31)) >> int(rng.randint(0, 62))
+        vs += [q * d - 1, q * d, q * d + d - 1, int(rng.randint(0, 1 << 62))]
+    return [v & vmax for v in vs if v >= 0]
+
+
+@pytest.mark.parametrize("n_bits", [62, 61, 60, 38, 31, 32, 5, 1])
+@pytest.mark.parametrize("kind", list(EDGE_DIVISORS))
+def test_classic_division_edge_divisors(host, kind, n_bits):
+    """K3 == Python-int floor division on the divisors its reciprocal and
+    its shifts could get wrong, at widths on both sides of one 31-bit digit."""
+    rng = np.random.RandomState(n_bits)
+    vs, ds = [], []
+    for d in EDGE_DIVISORS[kind]:
+        for v in edge_dividends(d, n_bits, rng):
+            vs.append(v)
+            ds.append(d)
+    want = as_int64([v // d if d else (1 << n_bits) - 1 for v, d in zip(vs, ds)])
+    got = run_host(host["classic"], as_int64(vs), as_int64(ds), n_bits, 1)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name,n_bits,divisor_bits", SHAPES, ids=SHAPE_IDS)
+def test_float_division_edge_divisors(host, name, n_bits, divisor_bits):
+    """K2 == Python-int floor division on the floor boundaries of the
+    divisors where its remainder is cut to 32 bits from the most bits
+    (the widest), from none (short ones), and at powers of two."""
+    rng = np.random.RandomState(n_bits)
+    k = packed._float_div_chunk_bits(n_bits, divisor_bits)
+    dmax = (1 << divisor_bits) - 1
+    vs, ds = [], []
+    for kind in ("around_2_32", "powers_of_two", "one_two_three", "all_ones", "zero",
+                 "top_word_all_ones"):
+        for d in EDGE_DIVISORS[kind] + [dmax, dmax - 1, (dmax >> 1) + 1]:
+            if d <= dmax:
+                for v in edge_dividends(d, n_bits, rng):
+                    vs.append(v)
+                    ds.append(d)
+    want = as_int64([v // d if d else (1 << n_bits) - 1 for v, d in zip(vs, ds)])
+    np.testing.assert_array_equal(run_host(host["float"], as_int64(vs), as_int64(ds), n_bits, k), want)
+    # the run-time form of the same pair (k = 14 has no compile-time instance)
+    if 61 - divisor_bits >= 14:
+        np.testing.assert_array_equal(
+            run_host(host["float"], as_int64(vs), as_int64(ds), n_bits, 14), want)
+
+
+@hypothesis.settings(max_examples=300, deadline=None)
+@hypothesis.given(v=st.integers(0, (1 << 64) - 1), d=st.integers(0, (1 << 64) - 1),
+                  n_bits=st.integers(1, 62), shift=st.integers(0, 63))
+def test_classic_division_property(host, v, d, n_bits, shift):
+    """K3 == floor division of the dividend's low n_bits, for any words."""
+    d >>= shift
+    want = (v & ((1 << n_bits) - 1)) // d if d else (1 << n_bits) - 1
+    assert run_host(host["classic"], as_int64([v]), as_int64([d]), n_bits, 1)[0] == want
+
+
+@hypothesis.settings(max_examples=300, deadline=None)
+@hypothesis.given(v=st.integers(0, (1 << 62) - 1), d=st.integers(0, (1 << 57) - 1),
+                  n_bits=st.integers(4, 62), divisor_bits=st.integers(1, 57),
+                  boundary=st.sampled_from([None, -1, 0, 1]))
+def test_float_division_property(host, v, d, n_bits, divisor_bits, boundary):
+    """K2 == floor division wherever _float_div_chunk_bits lets it run,
+    also right on, just under and at the far end of a quotient's range."""
+    k = packed._float_div_chunk_bits(n_bits, divisor_bits)
+    hypothesis.assume(k)
+    d &= (1 << divisor_bits) - 1
+    v &= (1 << n_bits) - 1
+    if boundary is not None and d:
+        v = max(0, (v // d) * d + (d - 1 if boundary == 1 else boundary))
+        v &= (1 << n_bits) - 1
+    want = v // d if d else (1 << n_bits) - 1
+    assert run_host(host["float"], as_int64([v]), as_int64([d]), n_bits, k)[0] == want
+
+
+@pytest.mark.parametrize("name,n_bits,divisor_bits", SHAPES, ids=SHAPE_IDS)
+def test_division_ignores_bits_above_n_bits(host, name, n_bits, divisor_bits):
+    """Neither kernel reads the dividend's bits above n_bits."""
+    k = packed._float_div_chunk_bits(n_bits, divisor_bits)
+    vs, ds = boundary_inputs(n_bits, divisor_bits, seed=7, n_random=200)
+    rng = np.random.RandomState(8)
+    high = as_int64([(int(x) << n_bits) & ((1 << 64) - 1)
+                     for x in rng.randint(0, 1 << 30, size=len(vs))])
+    want = floor_div(vs, ds, n_bits)
+    np.testing.assert_array_equal(run_host(host["float"], vs | high, ds, n_bits, k), want)
+    np.testing.assert_array_equal(run_host(host["classic"], vs | high, ds, n_bits, 1), want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 1025])
+def test_division_host_lengths_and_strides(host, n):
+    """Odd and even lengths, with one dividend per divisor and with a
+    one-word dividend (stride 0), through both host launches."""
+    vs, ds = boundary_inputs(60, 40, seed=n, n_random=n)
+    vs, ds = vs[:n], ds[:n]
+    for key, args in (("float", (60, 15)), ("classic", (60, 1)), ("classic", (30, 2))):
+        np.testing.assert_array_equal(run_host(host[key], vs, ds, *args), floor_div(vs, ds, 60))
+        np.testing.assert_array_equal(
+            run_host(host[key], vs[:1], ds, *args), floor_div(np.full_like(ds, vs[0]), ds, 60))
+
+
+@pytest.mark.parametrize("name,n_bits,divisor_bits", [SHAPES[i] for i in (6, 7)],
+                         ids=[SHAPE_IDS[i] for i in (6, 7)])
+def test_first_kernels_agree_with_present_ones(host, name, n_bits, divisor_bits):
+    """The element functions kept for timing in long_division_steps.cu
+    (the first K2 and K3, the machine's own ``/``) == the present K2 and K3,
+    whichever frame is asked for."""
+    vs, ds = boundary_inputs(n_bits, divisor_bits, seed=11, n_random=400)
+    want = floor_div(vs, ds, n_bits)
+    for op in division_steps.OPS.values():
+        for frame in division_steps.FRAMES.values():
+            np.testing.assert_array_equal(run_step(host["step"], frame, op, vs, ds, n_bits), want)
+        np.testing.assert_array_equal(
+            run_step(host["step"], 2, op, vs[:1], ds, n_bits),
+            floor_div(np.full_like(ds, vs[0]), ds, n_bits))
+    out = np.empty_like(ds)
+    refused = host["step"](2, 3, vs.ctypes.data, ds.ctypes.data, out.ctypes.data, len(ds), 1, 59, 15)
+    assert refused == -1 and host["step"](3, 0, 0, 0, 0, 0, 1, 60, 15) == -1
+
+
+def test_design_steps_name_real_frames_and_ops():
+    for _, frame, op in division_steps.STEPS:
+        assert frame in division_steps.FRAMES and op in division_steps.OPS
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        division_steps.run_step("streaming, 2 pairs", "K3", torch.tensor(8), torch.tensor([3]), 60, 15)
+
+
+def testdivision_operands():
+    """A one-word dividend keeps its one address (stride 0); anything else
+    is laid out beside the divisor (stride 1); the divisor is contiguous in
+    the broadcast shape."""
+    d = torch.arange(1, 13).reshape(3, 4)
+    word = torch.tensor(77)
+    for dividend in (word, word.reshape(1, 1), word.expand(3, 4), torch.tensor([77])[0:1]):
+        v, stride, dd = long_division.division_operands(dividend, d)
+        assert stride == 0 and v.data_ptr() == dividend.data_ptr() and dd.shape == (3, 4)
+    row = torch.arange(4)
+    v, stride, dd = long_division.division_operands(row, d.t().contiguous().t())
+    assert stride == 1 and v.shape == dd.shape == (3, 4) and v.is_contiguous() and dd.is_contiguous()
+    v, stride, dd = long_division.division_operands(d, torch.tensor(5))
+    assert stride == 1 and dd.shape == (3, 4) and dd.is_contiguous() and int(dd[2, 3]) == 5
+    v, stride, dd = long_division.division_operands(torch.zeros(0, dtype=torch.int64), torch.zeros(0, dtype=torch.int64))
+    assert stride == 1 and dd.numel() == 0
+
+
+@pytest.mark.parametrize("fmt,newlength,newints", [((40, 20), 40, 0), ((23, 9), 23, 0),
+                                                    ((43, 40), 40, 0), ((31, 16), 20, 5)])
+def test_invert_passes_one_word_and_matches_jax(monkeypatch, kernel_route, fmt, newlength, newints):
+    """On the kernel route ``invert`` hands the division one 0-dim word, made
+    once per value and device and never filled to the batch; values, signs
+    and the overflow flags equal JAX's ``invert`` bit for bit."""
+    from matrix_inversion_tpu.ops.packed import PackedQFloat as JPacked
+    from matrix_inversion_tpu.ops.packed import track_overflow as jax_track
+
+    rng = np.random.RandomState(sum(fmt))
+    mags = rng.randint(0, 1 << 62, size=96, dtype=np.int64) & ((1 << fmt[0]) - 1)
+    mags[:24] = rng.randint(0, 4, size=24)  # tiny and zero divisors: they overflow
+    signs = rng.choice([-1, 0, 1], size=96)
+    seen = []
+    wrapper = long_division.batched_long_division_float
+
+    def spy(dividend, divisor, n_bits, k):
+        seen.append(dividend)
+        return wrapper(dividend, divisor, n_bits, k)
+
+    monkeypatch.setattr(long_division, "batched_long_division_float", spy)
+    monkeypatch.setattr(torch, "full_like", lambda *a, **kw: pytest.fail("invert filled a tensor"))
+    t = PackedQFloat(torch.from_numpy(mags), *fmt, 2, torch.from_numpy(signs))
+    j = JPacked(jnp.asarray(mags), *fmt, 2, jnp.asarray(signs))
+    with track_overflow() as tt:
+        tq = t.invert(1, newlength, newints)
+        tq2 = t.invert(-1, newlength, newints)
+    with jax_track() as jt:
+        jq = j.invert(1, newlength, newints)
+    assert len(seen) == 2 and seen[0].dim() == 0 and seen[0] is seen[1]
+    assert int(seen[0]) == 1 << ((fmt[0] - fmt[1]) + (newlength - newints))
+    np.testing.assert_array_equal(tq.mag.numpy(), np.asarray(jq.mag))
+    np.testing.assert_array_equal(tq.sign.numpy(), np.asarray(jq.sign))
+    assert torch.equal(tq2.mag, tq.mag) and torch.equal(tq2.sign, -tq.sign)
+    flags = tt.combined((96,))
+    np.testing.assert_array_equal(flags.numpy(), np.asarray(jt.combined((96,))))
+    assert 0 < int(flags.sum()) < 96
+
 
 
 # (len, ints) of a and b and the output: tests/test_pallas.py:80-83 (there
