@@ -9,7 +9,10 @@ whole-inversion kernel K1, untracked and tracked, and the op-by-op path's
 division kernels K2/K3 and windowed-multiply kernel K4.  Holds each against
 its plain PyTorch version on the card bit for bit: K1 on eight untracked
 configurations and five tracked ones on batches with overflowing matrices
-(flags included); K2 and K3 at the High and Low divide and reciprocal
+(flags included), each through both of its layouts, the callers'
+``(B, n*n)`` and cell-major, and at n = 3, 4, 5 on a ragged batch, one
+matrix, a view 8 bytes off 16-byte alignment and a view that is not
+contiguous; K2 and K3 at the High and Low divide and reciprocal
 widths on floor-boundary inputs, zero divisors, a one-word dividend, an
 unaligned view and odd lengths, and on the 16,777,216 timed elements; K4 on
 the circuits' multiply formats.  Then it drives the paths through
@@ -19,8 +22,12 @@ past K1's n <= 12, on the op-by-op path (K2 and K4), and that path on
 4,113 matrices under ``set_division_impl("classic")`` (K3) and tracked;
 and HIGH n=4 with ``lowering="unroll"`` (K2 and K4) against K1.  Each path runs with the launch
 counts set to 0 just before and read just after, and agrees with its plain
-version on the card and on the CPU.  Times each kernel, ``run_raw`` and
-plain version with CUDA events.
+version on the card and on the CPU.  One ``run_raw`` of each n=4 main path
+runs under the profiler and must show K1 and no other kernel or copy.
+Times each kernel, ``run_raw`` and plain version with CUDA events; K1 and
+the n=4 ``run_raw`` in turns beside what they replaced (the transposes
+around the first kernel), and the steps of K1's design in turns, with
+registers, spills and static SASS (``utils/fused_steps.py``).
 
 Then the roofline path: the issue-rate probes K5 (``utils/ubench.py``,
 built in the same parallel step) equal their plain version bit for bit on
@@ -42,6 +49,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -57,7 +65,8 @@ from matrix_inversion_tpu_torch import (
 )
 from matrix_inversion_tpu_torch.models.marshal import float_matrix_to_mags_and_signs
 from matrix_inversion_tpu_torch.ops import fused_inverse, long_division, packed
-from matrix_inversion_tpu_torch.utils import division_steps, roofline, sass, ubench
+from matrix_inversion_tpu_torch.utils import division_steps, fused_steps, roofline, sass, ubench
+from matrix_inversion_tpu_torch.utils.profiling import device_trace
 from matrix_inversion_tpu_torch.utils.timing import card_name_and_limit, timed_chain
 
 MAIN_BATCH = 1_048_576
@@ -68,6 +77,8 @@ REPS = 7
 LARGE_REPS = 3  # the n=16 op-by-op run_raw takes seconds
 KERNEL_ELEMS = 16_777_216
 KERNEL_LAUNCHES = 10  # per timed pass of an op-by-op kernel: the queue hides the host's part
+K1_LAUNCHES = 5  # per timed pass of K1 alone
+K1_LAYOUT_NS = (3, 4, 5)  # the layout checks: n*n odd, a power of two, odd
 HBM_BYTES_PER_S = 3.35e12  # published memory rate of the card
 
 # The probes: rows of 128 elements, chains per element, the three K values
@@ -216,6 +227,166 @@ def timed_s(fn, *args):
     return time.perf_counter() - t0
 
 
+def timed_in_turns(fns, dev, rounds=REPS, launches=1):
+    """``{label: median ms of one call}`` of the functions ``fns``, each
+    timed once per round (``launches`` calls between two events), ``rounds``
+    rounds, after one warm-up call each: two versions timed so see the same
+    clocks."""
+    for fn in fns.values():
+        fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    samples = {label: [] for label in fns}
+    for _ in range(rounds):
+        for label, fn in fns.items():
+            samples[label].append(timed_ms(fn, dev, passes=1, warm_up=False, launches=launches))
+    return {label: statistics.median(v) for label, v in samples.items()}
+
+
+def k1_both_layouts(m, s, config, track):
+    """K1 on ``(B, n*n)`` tensors through its two layouts: as they lie, and
+    transposed to cell-major and back; two tuples of outputs."""
+    rows = fused_inverse.fused_matrix_inverse(m, s, *config, track=track)
+    cm = fused_inverse.fused_inverse_cell_major(
+        m.t().contiguous(), s.t().contiguous(), *config, track=track)
+    return rows, (cm[0].t(), cm[1].t(), *cm[2:])
+
+
+def check_k1(dev, label, p, M, track):
+    """K1 == the plain version, tolerance 0, through both layouts (flags
+    included when tracked); returns the max error and the (B, n*n) outputs."""
+    m, s = float_matrix_to_mags_and_signs(M, p.qfloat_len, p.qfloat_ints, p.qfloat_base)
+    m, s = torch.from_numpy(m).to(dev), torch.from_numpy(s).to(dev)
+    config = config_of(p)
+    ref = fused_inverse.fused_matrix_inverse_reference(m, s, *config, track=track)
+    rows, cell_major = k1_both_layouts(m, s, config, track)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    err = max(max_abs_diff(rows, ref), max_abs_diff(cell_major, ref))
+    assert err == 0, f"{label}: kernel differs from the plain version (max {err})"
+    return err, rows
+
+
+def check_k1_layouts(dev, batch=CHECK_BATCH + 37):
+    """K1 == the plain version, tolerance 0, untracked and tracked, HIGH
+    n = 3, 4, 5, on what a caller's ``(B, n*n)`` tensors may be: a ragged
+    batch, one matrix, a view that starts 8 bytes off 16-byte alignment and
+    a view that is not contiguous; every case through both layouts.
+    Returns the max error of each variant."""
+    worst = {False: 0, True: 0}
+    for n in K1_LAYOUT_NS:
+        p = HIGH.replace(n=n)
+        config, n2 = config_of(p), n * n
+        M = overflowy(np.random.RandomState(600 + n), batch, n, rows=1)
+        m, s = float_matrix_to_mags_and_signs(M, p.qfloat_len, p.qfloat_ints, p.qfloat_base)
+        m, s = torch.from_numpy(m).to(dev), torch.from_numpy(s).to(dev)
+
+        def off_alignment(x):
+            flat = torch.empty(x.numel() + 3, dtype=x.dtype, device=dev)
+            start = 1 if flat.data_ptr() % 16 == 0 else 2
+            view = flat[start:start + x.numel()].view(x.shape)
+            view.copy_(x)
+            assert view.data_ptr() % 16 == 8 and view.is_contiguous()
+            return view
+
+        def strided(x):
+            view = torch.cat([x, x + 1], dim=1)[:, :n2]
+            assert not view.is_contiguous()
+            return view
+
+        cases = {
+            f"ragged B={batch}": (m, s, batch),
+            "B=1": (m[:1], s[:1], 1),
+            "8 bytes off 16-byte alignment": (off_alignment(m), off_alignment(s), batch),
+            "not contiguous": (strided(m), strided(s), batch),
+        }
+        for track in (False, True):
+            ref = fused_inverse.fused_matrix_inverse_reference(m, s, *config, track=track)
+            for what, (cm, cs, count) in cases.items():
+                for got in k1_both_layouts(cm, cs, config, track):
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    err = max_abs_diff(got, [r[:count] for r in ref])
+                    worst[track] = max(worst[track], err)
+                    assert err == 0, (f"K1 HIGH n={n} track={track}, {what}: differs from the "
+                                      f"plain version (max {err})")
+            if track:
+                assert int(ref[2][0]) == 1 and int(ref[2][1]) == 1 and not bool(ref[2].all())
+        print(f"check K1 layouts HIGH n={n}: {', '.join(cases)}; untracked and tracked, through "
+              "(B, n*n) and cell-major: kernel == plain version bit for bit (tolerance 0 on "
+              "magnitudes, signs and flags)")
+    return worst
+
+
+def kernels_by_step(dev, steps):
+    """``{label: {kernel name: launches}}`` of the device work of each
+    function in ``steps``, from one profiler trace (``device_trace``): each
+    step runs, and is synchronized, inside a labelled range, and a kernel,
+    copy or fill belongs to the range its start falls in.  Raises if some
+    device work falls in no range."""
+    with tempfile.TemporaryDirectory() as logdir:
+        with device_trace(logdir) as prof:
+            for label, fn in steps.items():
+                with torch.profiler.record_function(f"step:{label}"):
+                    fn()
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+    events = list(prof.events())
+    ranges = {e.name[5:]: e.time_range for e in events if e.name.startswith("step:")}
+    assert set(ranges) == set(steps), f"the trace holds the ranges {list(ranges)}"
+    ran = {label: {} for label in steps}
+    for e in events:
+        # the ranges themselves come back as device-side annotations too
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.name.startswith("step:"):
+            continue
+        owners = [label for label, r in ranges.items() if r.start <= e.time_range.start <= r.end]
+        assert len(owners) == 1, f"device work {e.name} lies in the ranges {owners}"
+        ran[owners[0]][e.name] = ran[owners[0]].get(e.name, 0) + 1
+    return ran
+
+
+def check_launches_under_profiler(dev, inv, mags, signs, tinv, tmags, tsigns,
+                                  batch=LARGE_BATCH):
+    """One trace over one ``run_raw`` of each n=4 main path and one
+    ``PackedQFloat.invert`` as the High circuit calls it (61 bits by 40).
+    Each ``run_raw`` must run K1 once and nothing else on the device: no
+    transpose, no copy, no fill.  The reciprocal must launch the division
+    kernel once and no fill for its dividend (one cached word, read from
+    its address)."""
+    x = packed.PackedQFloat(
+        torch.randint(1, 1 << 40, (batch,), dtype=torch.int64, device=dev), 40, 20)
+    x.invert(1, 40, 0)  # the constant word is filled once, here at the latest
+    inv.run_raw(mags, signs)
+    tinv.run_raw(tmags, tsigns)
+    before = long_division.LAUNCHES["long_division_float"]
+    got = []
+    ran = kernels_by_step(dev, {
+        "main path": lambda: inv.run_raw(mags, signs),
+        "tracked main path": lambda: tinv.run_raw(tmags, tsigns),
+        "reciprocal": lambda: got.append(x.invert(1, 40, 0)),
+    })
+    for label in ("main path", "tracked main path"):
+        k1 = [name for name in ran[label] if "fused_inverse_kernel" in name]
+        assert dev.type != "cuda" or (len(k1) == 1 and ran[label][k1[0]] == 1), \
+            f"{label}: the profiler saw K1 {[(n, ran[label][n]) for n in k1]}"
+        others = [name for name in ran[label] if name not in k1]
+        assert not others, f"{label}: run_raw put more than K1 on the device: {others}"
+        print(f"{label}: one run_raw under the profiler ran {ran[label]}: K1 once, no "
+              "transpose, no copy")
+    ref = packed.packed_long_division_reference(
+        torch.tensor(1 << 60, device=dev), x.mag, 61) & ((1 << 40) - 1)
+    assert torch.equal(got[0].mag, ref), "invert differs from the plain version"
+    assert long_division.LAUNCHES["long_division_float"] == before + 1
+    names = ran["reciprocal"]
+    division = [n for n in names if "stream_kernel" in n]
+    assert dev.type != "cuda" or (len(division) == 1 and names[division[0]] == 1), \
+        f"the profiler saw the division kernels {division} in {names}"
+    fills = [n for n in names if "fill" in n.lower()]
+    assert not fills, f"a reciprocal launched a fill: {fills}"
+    print(f"reciprocal: invert of {batch} High values launched {names}: one division kernel, "
+          "no fill for the dividend")
+
+
 def division_inputs(rng, n_bits, divisor_bits, dev):
     """CHECK_BATCH random dividends and divisors, the fixup-boundary set
     of tests/test_pair_qfloat.py:211-250 (v = q*d, q*d - 1, q*d + d - 1),
@@ -276,37 +447,6 @@ def check_division_kernels(dev):
                   "one-element dividend; views off 16-byte alignment; an odd length; kernel == "
                   "plain version bit for bit (tolerance 0)")
     return max_err
-
-
-def check_reciprocal_launches(dev, batch=LARGE_BATCH):
-    """One ``PackedQFloat.invert`` as the High circuit calls it (61 bits by
-    40) under the profiler: the division kernel launches once, and no fill
-    kernel writes a dividend (it is one cached word, read from its address)."""
-    x = packed.PackedQFloat(
-        torch.randint(1, 1 << 40, (batch,), dtype=torch.int64, device=dev), 40, 20)
-    x.invert(1, 40, 0)  # the constant word is filled once, here at the latest
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    before = long_division.LAUNCHES["long_division_float"]
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        got = x.invert(1, 40, 0)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-    ref = packed.packed_long_division_reference(
-        torch.tensor(1 << 60, device=dev), x.mag, 61) & ((1 << 40) - 1)
-    assert torch.equal(got.mag, ref), "invert differs from the plain version"
-    assert long_division.LAUNCHES["long_division_float"] == before + 1
-    names = [e.key for e in prof.key_averages()
-             if getattr(e, "device_time_total", 0) > 0 and not e.key.startswith("aten::")]
-    assert dev.type != "cuda" or any("stream_kernel" in n for n in names), \
-        f"the profiler saw no division kernel: {names}"
-    fills = [n for n in names if "fill" in n.lower()]
-    assert not fills, f"a reciprocal launched a fill: {fills}"
-    print(f"reciprocal: invert of {batch} High values launched {names}: one division kernel, "
-          "no fill for the dividend")
 
 
 def check_mul_kernel(dev):
@@ -526,6 +666,19 @@ def division_design_steps(dev, card, elems=KERNEL_ELEMS):
         print(f"design step, {row['shape']}: {row['step']}: {row['ms']:.4f} ms on {elems} "
               f"elements (bound {bound:.3f} ms by bytes, {row['bytes_per_element']} B an "
               f"element; {card})")
+
+
+def k1_design_steps(dev, card, batch=MAIN_BATCH):
+    """The steps of K1's design in turns, each held to the port's own build
+    first (``utils/fused_steps.py``); returns ``{step: ms}``."""
+    times = {}
+    for row in fused_steps.measure(dev, batch):
+        times[row["step"]] = row["ms"]
+        print(f"K1 design step, {row['step']}: {row['ms']:.4f} ms at HIGH n=4, B={batch}; "
+              f"{row['registers']} registers, spills: {'; '.join(row['spills']) or 'none'}; "
+              f"{row['sass_instructions']} static SASS instructions, {row['sass_calls']} calls; "
+              f"built with {' '.join(row['defines']) or 'no define'} ({card})")
+    return times
 
 
 def differing_bytes(a, b):
@@ -750,7 +903,8 @@ def roofline_path(dev, card, rates, op_times, op_issued, batch=MAIN_BATCH, elems
                   f"rate, bytes {bytes_ms:.3f} ms: bound {bound_ms:.3f} ms by "
                   f"{'operations' if ops_ms > bytes_ms else 'bytes'}; K1 {ms:.3f} ms, the bound "
                   f"is {share:.2f}% of it.  Issued: {instrs} static SASS instructions "
-                  f"({calls} calls of the division routine, counted once); the body's own "
+                  f"({calls} calls of the division routine and the multiply, each counted once); "
+                  "the body's own "
                   f"primitives at their rates alone take {written_ms:.3f} ms, K1 reads "
                   f"{as_written['mfu_pct_vs_measured_roofline']}% of that ({card})")
             out[(n, track)] = r
@@ -803,20 +957,22 @@ def main():
     # one nvcc per library, all started together
     t0 = time.perf_counter()
     tracked_configs = [config_of(p) + (True,) for _, p in TRACKED_CHECKS]
-    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=5) as pool:
         fused_build = pool.submit(
             timed_s, fused_inverse.build, [config_of(p) for _, p, _ in CHECKS] + tracked_configs)
         op_build = pool.submit(timed_s, long_division.build)
         ubench_build = pool.submit(timed_s, ubench.build)
         steps_build = pool.submit(timed_s, division_steps.build)
+        k1_steps_build = pool.submit(timed_s, fused_steps.build)
         fused_s, op_s, ubench_s = fused_build.result(), op_build.result(), ubench_build.result()
-        steps_s = steps_build.result()
+        steps_s, k1_steps_s = steps_build.result(), k1_steps_build.result()
     print(f"build: {len(CHECKS)} fused_inverse + {len(TRACKED_CHECKS)} tracked kernels "
           f"from {fused_inverse.CSRC} with nvcc {' '.join(fused_inverse.NVCC_FLAGS)} "
           f"in {fused_s:.1f} s; long_division + mul_window libraries in {op_s:.1f} s; "
           f"the ubench library ({len(ubench.MIXES)} mixes x C in {ubench.CHAIN_COUNTS}) in "
-          f"{ubench_s:.1f} s; the division design-steps library in {steps_s:.1f} s; all in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{ubench_s:.1f} s; the division design-steps library in {steps_s:.1f} s; the "
+          f"{len({(t, d) for _, t, d, _ in fused_steps.STEPS})} builds of K1's design steps in "
+          f"{k1_steps_s:.1f} s; all in {time.perf_counter() - t0:.1f} s")
     main_config = config_of(HIGH.replace(n=4))
     for label, c in (("fused_inverse", main_config), ("fused_inverse_tracked", main_config + (True,))):
         print(f"ptxas {label} HIGH n=4: {ptxas_info(fused_inverse.build_dir(c))}")
@@ -831,42 +987,36 @@ def main():
           f"{ {name: ubench_regs[(name, UBENCH_C)] for name in ubench.MIXES} }; spills: "
           f"{ubench.ptxas_spill_lines() or 'none'}")
 
-    # -- kernel vs plain version on the card, bit for bit
+    # -- kernel vs plain version on the card, bit for bit, through both layouts
     max_err = 0
     for i, (label, p, singular) in enumerate(CHECKS):
         rng = np.random.RandomState(100 + i)
         M = rng.randn(CHECK_BATCH, p.n, p.n) * (1 if singular else 100)
         if singular:
             M[:, 2, :] = M[:, 0, :] + M[:, 1, :]  # rank-deficient
-        m, s = float_matrix_to_mags_and_signs(M, p.qfloat_len, p.qfloat_ints, p.qfloat_base)
-        m, s = torch.from_numpy(m).to(dev), torch.from_numpy(s).to(dev)
-        got = fused_inverse.fused_matrix_inverse(m, s, *config_of(p))
-        ref = fused_inverse.fused_matrix_inverse_reference(m, s, *config_of(p))
-        torch.cuda.synchronize()
-        err = max_abs_diff(got, ref)
+        err, _ = check_k1(dev, label, p, M, track=False)
         max_err = max(max_err, err)
-        assert err == 0, f"{label}: kernel differs from the plain version (max {err})"
-        print(f"check {label}: B={CHECK_BATCH}, kernel == plain version bit for bit "
-              "(tolerance 0 on magnitudes and signs)")
+        print(f"check {label}: B={CHECK_BATCH}, kernel == plain version bit for bit through "
+              "(B, n*n) and cell-major (tolerance 0 on magnitudes and signs)")
 
     # -- tracked kernel vs tracked plain version on the card, bit for bit
     tracked_err = 0
     for i, (label, p) in enumerate(TRACKED_CHECKS):
         M = overflowy(np.random.RandomState(200 + i), CHECK_BATCH, p.n, rows=1)
-        m, s = float_matrix_to_mags_and_signs(M, p.qfloat_len, p.qfloat_ints, p.qfloat_base)
-        m, s = torch.from_numpy(m).to(dev), torch.from_numpy(s).to(dev)
-        got = fused_inverse.fused_matrix_inverse(m, s, *config_of(p), track=True)
-        ref = fused_inverse.fused_matrix_inverse_reference(m, s, *config_of(p), track=True)
-        torch.cuda.synchronize()
-        err = max_abs_diff(got, ref)
+        err, got = check_k1(dev, f"tracked {label}", p, M, track=True)
         tracked_err = max(tracked_err, err)
-        assert err == 0, f"tracked {label}: kernel differs from the plain version (max {err})"
         flagged = int(got[2].sum())
         assert got[2].dtype == torch.int32 and 0 < flagged < CHECK_BATCH, \
             f"tracked {label}: {flagged} flagged of {CHECK_BATCH}"
         assert int(got[2][0]) == 1 and int(got[2][1]) == 1, f"tracked {label}: overflow not flagged"
         print(f"check tracked {label}: B={CHECK_BATCH}, {flagged} flagged; kernel == plain "
-              "version bit for bit (tolerance 0 on magnitudes, signs and flags)")
+              "version bit for bit through (B, n*n) and cell-major (tolerance 0 on magnitudes, "
+              "signs and flags)")
+
+    # -- what a caller's (B, n*n) tensors may be: ragged, one matrix, off
+    # 16-byte alignment, not contiguous
+    layout_err = check_k1_layouts(dev)
+    max_err, tracked_err = max(max_err, layout_err[False]), max(tracked_err, layout_err[True])
 
     # -- the main path: quantize, run_raw on CUDA tensors, dequantize
     p = HIGH.replace(n=4)
@@ -880,7 +1030,7 @@ def main():
     out = inv.run_raw(mags, signs)
     torch.cuda.synchronize()
     launches = fused_inverse.LAUNCHES
-    assert launches > 0, "the main path did not launch the fused kernel"
+    assert launches == 1, f"the main path launched the fused kernel {launches} times, not once"
     assert fused_inverse.TRACKED_LAUNCHES == 0, "the untracked path launched the tracked kernel"
     t0 = time.perf_counter()
     res = inv.dequantize(out)
@@ -915,7 +1065,8 @@ def main():
     tout = tinv.run_raw(tmags, tsigns)
     torch.cuda.synchronize()
     tracked_launches = fused_inverse.TRACKED_LAUNCHES
-    assert tracked_launches > 0, "the tracked main path did not launch the tracked kernel"
+    assert tracked_launches == 1, \
+        f"the tracked main path launched the tracked kernel {tracked_launches} times, not once"
     assert fused_inverse.LAUNCHES == 0, "the tracked main path launched the untracked kernel"
     tres, tflags = tinv.dequantize(tout)
     assert len(tout) == 3 and tout[2].shape == (MAIN_BATCH,) and tout[2].dtype == torch.int32
@@ -944,6 +1095,10 @@ def main():
           "the CPU (first 256), flags included; magnitudes and signs == untracked kernel; "
           f"mean abs error vs np.linalg.inv on {int(ok.sum())} unflagged matrices {tmae:.3e}")
 
+    # -- one run_raw of each main path under the profiler: K1 and nothing
+    # else; and one reciprocal: the division kernel and no fill
+    check_launches_under_profiler(dev, inv, mags, signs, tinv, tmags, tsigns)
+
     # -- the op-by-op path's kernels vs their plain versions on the card
     op_err = {**check_division_kernels(dev), "mul_window": check_mul_kernel(dev)}
 
@@ -954,31 +1109,67 @@ def main():
 
     # -- timings (CUDA events, median of REPS after a warm-up)
     t0 = time.perf_counter()
-    check_reciprocal_launches(dev)
     op_times, reciprocal_times = time_op_kernels(dev, card)
     division_design_steps(dev, card)
-    print("host clock: the reciprocal's launches, the op-by-op kernels' checks and timings at "
+    print("host clock: the op-by-op kernels' checks and timings at "
           f"{KERNEL_ELEMS} elements and the design steps, {time.perf_counter() - t0:.1f} s")
+    # K1 as run_raw launches it, (B, n*n), and run_raw, in turns beside the
+    # cell-major layout and beside what they replaced: four transposed copies
+    # around the kernel as first ported (kept in the design-steps builds)
+    def as_before(m, s, track):
+        """run_raw as it was: (B, 16) -> (16, B) copies, the first kernel,
+        and the copies back."""
+        cm, cs = m.t().contiguous(), s.t().contiguous()
+        out = [torch.empty_like(cm), torch.empty_like(cs)]
+        if track:
+            out.append(torch.empty(m.shape[0], dtype=torch.int32, device=dev))
+        first = fused_steps.FIRST_TRACKED if track else fused_steps.FIRST
+        fused_steps.run_step(track, first, fused_steps.CELL_MAJOR, cm, cs, out)
+        return (out[0].t().contiguous(), out[1].t().contiguous(), *out[2:])
+
+    assert all(torch.equal(a, b) for a, b in zip(as_before(mags, signs, False), out))
+    assert all(torch.equal(a, b) for a, b in zip(as_before(tmags, tsigns, True), tout))
     cm, cs = mags.t().contiguous(), signs.t().contiguous()
-    kernel_ms = timed_ms(lambda: fused_inverse.fused_inverse_cell_major(cm, cs, *config_of(p)), dev)
-    run_raw_ms = timed_ms(lambda: inv.run_raw(mags, signs), dev)
-    plain_ms = timed_ms(
-        lambda: fused_inverse.fused_matrix_inverse_reference(mags, signs, *config_of(p)), dev)
     tcm, tcs = tmags.t().contiguous(), tsigns.t().contiguous()
-    tkernel_ms = timed_ms(lambda: fused_inverse.fused_inverse_cell_major(
-        tcm, tcs, *config_of(p), track=True), dev)
-    trun_raw_ms = timed_ms(lambda: tinv.run_raw(tmags, tsigns), dev)
+    config = config_of(p)
+    k1_turns = timed_in_turns({
+        "K1 (B, n*n)": lambda: fused_inverse.fused_matrix_inverse(mags, signs, *config),
+        "K1 cell-major (n*n, B)": lambda: fused_inverse.fused_inverse_cell_major(cm, cs, *config),
+        "tracked K1 (B, n*n)":
+            lambda: fused_inverse.fused_matrix_inverse(tmags, tsigns, *config, track=True),
+        "tracked K1 cell-major (n*n, B)":
+            lambda: fused_inverse.fused_inverse_cell_major(tcm, tcs, *config, track=True),
+    }, dev, launches=K1_LAUNCHES)
+    run_raws = {
+        "run_raw": lambda: inv.run_raw(mags, signs),
+        "run_raw as before (transposes around the first kernel)":
+            lambda: as_before(mags, signs, False),
+        "tracked run_raw": lambda: tinv.run_raw(tmags, tsigns),
+        "tracked run_raw as before (transposes around the first kernel)":
+            lambda: as_before(tmags, tsigns, True),
+    }
+    # one call between two events reads the host's part of the call too (the
+    # card idles until the launch arrives); K1_LAUNCHES calls a pass hide it
+    run_raw_turns = timed_in_turns(run_raws, dev)
+    queued_turns = timed_in_turns(run_raws, dev, launches=K1_LAUNCHES)
+    kernel_ms, tkernel_ms = k1_turns["K1 (B, n*n)"], k1_turns["tracked K1 (B, n*n)"]
+    run_raw_ms, trun_raw_ms = run_raw_turns["run_raw"], run_raw_turns["tracked run_raw"]
+    plain_ms = timed_ms(
+        lambda: fused_inverse.fused_matrix_inverse_reference(mags, signs, *config), dev)
     tplain_ms = timed_ms(lambda: fused_inverse.fused_matrix_inverse_reference(
-        tmags, tsigns, *config_of(p), track=True), dev)
-    for label, ms in (("kernel alone (16, B)", kernel_ms), ("run_raw with transposes", run_raw_ms),
+        tmags, tsigns, *config, track=True), dev)
+    for label, ms in (*((f"{k}, {K1_LAUNCHES} calls a pass", v) for k, v in k1_turns.items()),
+                      *((f"{k}, one call a pass", v) for k, v in run_raw_turns.items()),
+                      *((f"{k}, {K1_LAUNCHES} calls a pass", v) for k, v in queued_turns.items()),
                       ("plain version on the card", plain_ms),
-                      ("tracked kernel alone (16, B)", tkernel_ms),
-                      ("tracked run_raw with transposes", trun_raw_ms),
                       ("tracked plain version on the card", tplain_ms)):
         print(f"time {label}: {ms:.3f} ms = {MAIN_BATCH / ms * 1e3:.4e} inversions/s "
               f"(HIGH n=4, B={MAIN_BATCH}; {card})")
     print(f"tracked / untracked: kernel {tkernel_ms / kernel_ms:.3f}, run_raw "
           f"{trun_raw_ms / run_raw_ms:.3f}, plain version {tplain_ms / plain_ms:.3f} ({card})")
+    t0 = time.perf_counter()
+    k1_design_steps(dev, card)
+    print(f"host clock: K1's design steps, checks and timings, {time.perf_counter() - t0:.1f} s")
 
     # -- the roofline path: the probes K5 against their plain version, their
     # rates at full width, and kernel_roofline over K1's emitted body

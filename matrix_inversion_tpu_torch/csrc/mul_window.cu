@@ -16,8 +16,13 @@
 // capacity and stops at its row count, so every row is read at a constant
 // offset.  One thread per element.
 //
-// Bound: integer instruction throughput.  An element moves 24 bytes and
-// costs about 8 64-bit operations per row, ~40 rows at High.
+// Bound: bytes.  An element moves 24 bytes, and its function, a truncated
+// multiply, is known in about 81 32-bit instructions, which the card issues
+// in a third of the time the bytes take.  This kernel is not there: by its
+// SASS it issues 20 instructions a row (a row's four table words are read
+// at run time and its shifts are run-time shifts), 831 an element at the
+// High dot product's 40 rows, and takes about five times its bound
+// (PERF.md has the times).
 //
 // Built with nvcc for sm_90a into a library with a plain C interface
 // (ops/long_division.py).  Without __CUDACC__ the file compiles as host

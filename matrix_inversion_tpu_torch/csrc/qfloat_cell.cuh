@@ -32,6 +32,41 @@
 
 #define QI_FN __host__ __device__ __forceinline__
 
+// A primitive that is compiled once per format and called, not inlined at
+// each use.  The fused kernel's body is straight-line code, so an inlined
+// primitive of hundreds of instructions, used fifty times, is fifty copies
+// in the instruction stream (fused_inverse.cu says what that cost).
+#ifdef __CUDACC__
+#define QI_CALL_FN __host__ __device__ __noinline__
+#else
+#define QI_CALL_FN __attribute__((noinline))
+#endif
+
+// The build's choices for the two multiplies.  The defaults are what the
+// port runs; utils/fused_steps.py builds the other settings beside them,
+// for timing only.
+//   QCELL_MUL_WINDOW_INLINE  1: mul_window_t is inlined at every call
+//   QCELL_MUL_WINDOW_ACCS    accumulators that share the windowed sum's rows
+//   QCELL_MUL_WINDOW_NET     1: a row is one net shift and one mask,
+//                            0: shift down, mask, shift up
+//   QCELL_MUL_INLINE         1: mul is inlined at every call
+// Both INLINE 1 is the body as first ported.  More accumulators and the
+// net shift were measured in the called function and bought nothing (the
+// compiler makes the same count of instructions of every form, PERF.md),
+// so the sum keeps its plainest form.
+#ifndef QCELL_MUL_WINDOW_INLINE
+#define QCELL_MUL_WINDOW_INLINE 0
+#endif
+#ifndef QCELL_MUL_WINDOW_ACCS
+#define QCELL_MUL_WINDOW_ACCS 1
+#endif
+#ifndef QCELL_MUL_WINDOW_NET
+#define QCELL_MUL_WINDOW_NET 0
+#endif
+#ifndef QCELL_MUL_INLINE
+#define QCELL_MUL_INLINE 0
+#endif
+
 namespace qcell {
 
 typedef unsigned __int128 u128;
@@ -102,7 +137,7 @@ QI_FN uint64_t set_len_ints(uint64_t m) {
 // pair_math.py:371-376 do not apply.
 template <int BITS, int A_LEN, int A_INTS, int B_LEN, int B_INTS, int NEWLEN,
           int NEWINTS>
-QI_FN uint64_t mul(uint64_t a, uint64_t b) {
+QI_FN uint64_t mul_inl(uint64_t a, uint64_t b) {
   constexpr int kTDig = (A_LEN - A_INTS) + (B_LEN - B_INTS) - (NEWLEN - NEWINTS);
   constexpr int kT1 = BITS * kTDig;
   constexpr uint64_t kOut = low_mask(BITS * NEWLEN);
@@ -128,6 +163,18 @@ QI_FN uint64_t mul(uint64_t a, uint64_t b) {
     }
     return uint64_t((u128(a) * b - c) >> kT1) & kOut;
   }
+}
+
+// mul as the emitted body calls it: inlined, or one function per format.
+template <int BITS, int A_LEN, int A_INTS, int B_LEN, int B_INTS, int NEWLEN,
+          int NEWINTS>
+#if QCELL_MUL_INLINE
+QI_FN
+#else
+QI_CALL_FN
+#endif
+uint64_t mul(uint64_t a, uint64_t b) {
+  return mul_inl<BITS, A_LEN, A_INTS, B_LEN, B_INTS, NEWLEN, NEWINTS>(a, b);
 }
 
 // Exact quotient of (a << BITS*frac) by d, cropped to LEN digits
@@ -196,18 +243,27 @@ QI_FN CellF sadd_t(uint64_t am, int as, uint64_t bm, int bs) {
 }
 
 // The windowed multiply (packed.py:868-969, pair_math.py:475-532): one
-// cropped partial product per digit of a, from the top, summed in a
-// uint64_t accumulator.  The accumulator must stay 64 bits wide: carries
-// past 2**64 wrap and go unseen, exactly as in the reference, and a wider
-// one would flag more.  The flag is any bit above the output window.  The
-// per-digit constants (packed.py:779-798) depend on the template
-// arguments only, so the unrolled loop folds them.
-template <int BITS, int A_LEN, int A_INTS, int B_LEN, int B_INTS, int NEWLEN,
-          int NEWINTS>
-QI_FN MagF mul_window_t(uint64_t a, uint64_t b) {
+// cropped partial product per digit of a, from the top, summed in
+// uint64_t.  The sum must stay 64 bits wide: carries past 2**64 wrap and go
+// unseen, exactly as in the reference, and a wider one would flag more.
+// Addition mod 2**64 is associative, so the rows may go to ACCS
+// accumulators in turn, added at the end: the same value and the same flag
+// from ACCS shorter chains of dependent adds.  The flag is any bit above the output
+// window.  The per-digit constants (packed.py:779-798) depend on the
+// template arguments only, so the unrolled loop folds them.
+//
+// A row's window of b is ((b >> s) & m) << o.  With NET it is taken as the
+// reference's pair form takes it (pair_math.py:506-517): b shifted once by
+// o - s, under the one mask (m << o): two operations for three.  Both give
+// the same word: bit j of b lands at j + o - s, and the mask keeps the
+// positions [o, o + len(m)), which are the bits [s, s + len(m)) of b.
+template <int ACCS, bool NET, int BITS, int A_LEN, int A_INTS, int B_LEN, int B_INTS,
+          int NEWLEN, int NEWINTS>
+QI_FN MagF mul_window_sum(uint64_t a, uint64_t b) {
+  static_assert(ACCS >= 1, "at least one accumulator");
   constexpr uint64_t kOut = low_mask(BITS * NEWLEN);
   constexpr uint64_t kDigit = low_mask(BITS);
-  uint64_t acc = 0;
+  uint64_t acc[ACCS] = {};
 #pragma unroll
   for (int i = 0; i < A_LEN; ++i) {
     const int indb = NEWINTS - A_INTS + i + 1 - B_INTS;
@@ -216,18 +272,51 @@ QI_FN MagF mul_window_t(uint64_t a, uint64_t b) {
     if (ind2 <= ind1) continue;
     const uint64_t d = (a >> (BITS * (A_LEN - 1 - i))) & kDigit;
     // the cropped window of b at its output position: below 2**62
-    const uint64_t w = ((b >> (BITS * (B_LEN - ind2))) & low_mask(BITS * (ind2 - ind1)))
-                       << (BITS * (NEWLEN - indb - ind2));
-    if constexpr (BITS == 1) {
-      acc += w & (uint64_t(0) - d);
+    const int s = BITS * (B_LEN - ind2);
+    const int o = BITS * (NEWLEN - indb - ind2);
+    const uint64_t m = low_mask(BITS * (ind2 - ind1));
+    uint64_t w;
+    if (NET) {
+      w = (o >= s ? b << (o - s) : b >> (s - o)) & (m << o);
     } else {
-      acc += w * d;
+      w = ((b >> s) & m) << o;
+    }
+    if constexpr (BITS == 1) {
+      acc[i % ACCS] += w & (uint64_t(0) - d);
+    } else {
+      acc[i % ACCS] += w * d;
     }
   }
+  uint64_t sum = acc[0];
+#pragma unroll
+  for (int k = 1; k < ACCS; ++k) sum += acc[k];
   MagF r;
-  r.m = acc & kOut;
-  r.f = (acc & ~kOut) != 0;
+  r.m = sum & kOut;
+  r.f = (sum & ~kOut) != 0;
   return r;
+}
+
+// The windowed multiply in the build's form, always inlined: what the
+// issue-rate probe (ubench.cu) times alone.
+template <int BITS, int A_LEN, int A_INTS, int B_LEN, int B_INTS, int NEWLEN,
+          int NEWINTS>
+QI_FN MagF mul_window_inl(uint64_t a, uint64_t b) {
+  return mul_window_sum<QCELL_MUL_WINDOW_ACCS, QCELL_MUL_WINDOW_NET != 0, BITS, A_LEN,
+                        A_INTS, B_LEN, B_INTS, NEWLEN, NEWINTS>(a, b);
+}
+
+// mul_window_t as the emitted body calls it: one function per format,
+// called from each of the body's multiplies (HIGH n=4: one format, fifty
+// calls).
+template <int BITS, int A_LEN, int A_INTS, int B_LEN, int B_INTS, int NEWLEN,
+          int NEWINTS>
+#if QCELL_MUL_WINDOW_INLINE
+QI_FN
+#else
+QI_CALL_FN
+#endif
+MagF mul_window_t(uint64_t a, uint64_t b) {
+  return mul_window_inl<BITS, A_LEN, A_INTS, B_LEN, B_INTS, NEWLEN, NEWINTS>(a, b);
 }
 
 // divide, flagged when the quotient has digits above the kept LEN

@@ -203,8 +203,8 @@ struct CellChain {
 template <>
 struct Chain<CELL_MUL> : CellChain {  // 2 truncated multiplies
   QI_FN void step() {
-    x = qcell::mul<1, 40, 20, 40, 20, 40, 20>(x, y);
-    y = qcell::mul<1, 40, 20, 40, 20, 40, 20>(y, x);
+    x = qcell::mul_inl<1, 40, 20, 40, 20, 40, 20>(x, y);
+    y = qcell::mul_inl<1, 40, 20, 40, 20, 40, 20>(y, x);
   }
 };
 
@@ -235,10 +235,10 @@ struct Chain<CELL_MUL_WINDOW_T> : CellChain {  // 2 tracked windowed multiplies
     f = 0;
   }
   QI_FN void step() {
-    const qcell::MagF a = qcell::mul_window_t<1, 40, 20, 40, 20, 40, 20>(x, y);
+    const qcell::MagF a = qcell::mul_window_inl<1, 40, 20, 40, 20, 40, 20>(x, y);
     x = a.m;
     f |= a.f;
-    const qcell::MagF b = qcell::mul_window_t<1, 40, 20, 40, 20, 40, 20>(y, x);
+    const qcell::MagF b = qcell::mul_window_inl<1, 40, 20, 40, 20, 40, 20>(y, x);
     y = b.m;
     f |= b.f;
   }

@@ -235,5 +235,5 @@ def qfloat_matrix_inverse_op_by_op(mags, signs, n, qfloat_len, qfloat_ints,
         Minv = qfloat_matrix_inverse_cells(M, qfloat_len, qfloat_ints, true_division)
     out = qfloat_matrix_to_mags_and_signs(Minv, qfloat_len, qfloat_ints, qfloat_base)
     if track:
-        return (*out, tracker.combined(mags.shape[:-1]))
+        return (*out, tracker.combined(mags.shape[:-1], device=mags.device))
     return out

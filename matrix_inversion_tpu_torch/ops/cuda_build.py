@@ -32,11 +32,12 @@ def _nvcc():
     return path
 
 
-def build_library(source, lib_name, hashed, files=None, what=""):
+def build_library(source, lib_name, hashed, files=None, what="", flags=()):
     """Compile ``csrc/<source>`` into ``_build/<hash>/<lib_name>`` and return
     its path.  ``hashed`` is the sequence of texts that keys the build;
     ``files`` maps names to texts written into the build directory first
-    (found there by ``#include``)."""
+    (found there by ``#include``); ``flags`` follow ``NVCC_FLAGS`` (the
+    caller hashes them)."""
     digest = hashlib.sha256()
     for text in hashed:
         digest.update(text.encode())
@@ -51,7 +52,7 @@ def build_library(source, lib_name, hashed, files=None, what=""):
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     cmd = [
-        _nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir),
+        _nvcc(), *NVCC_FLAGS, *flags, "-I", str(CSRC), "-I", str(out_dir),
         "-o", tmp, str(CSRC / source),
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -5,7 +5,10 @@ kernel (``csrc/fused_inverse.cu``) runs the entire batched QFloat inversion,
 one thread per matrix, on cells in registers; its body is emitted per
 configuration from the circuit by :mod:`.emit`.  Without it the eager
 PyTorch circuit makes thousands of passes of batch-sized int64 tensors
-through device memory.
+through device memory.  The kernel reads and writes the callers'
+``(B, n*n)`` layout itself, a block's matrices staged through shared
+memory, so a call is one launch and moves its bytes once; a caller that
+holds cell-major ``(n*n, B)`` data has :func:`fused_inverse_cell_major`.
 
 :func:`fused_matrix_inverse` keeps the contract of the JAX wrapper:
 ``(..., n*n)`` int64 magnitudes and signs in, the same out, and with
@@ -48,17 +51,20 @@ def _key(config):
             bool(true_division), bool(track and track[0]))
 
 
-def build_dir(config):
+def build_dir(config, defines=()):
     """The build directory of one config (as for :func:`build`): the
     library, its emitted body, and ``nvcc.log`` with ptxas's registers and
     spills.  Builds first if needed."""
-    return _build_one(_key(config)).parent
+    return _build_one(_key(config), tuple(defines)).parent
 
 
-def _build_one(key):
+def _build_one(key, defines=()):
     """Compile the kernel for one ``(n, len, ints, base, true_division,
     track)``; returns the library path.  Reuses a library already built
-    from the same sources, body, flags and ``track``."""
+    from the same sources, body, flags and ``track``.  ``defines`` are
+    ``NAME=value`` macros for the compiler, the build switches of
+    ``csrc/qfloat_cell.cuh`` and ``csrc/fused_inverse.cu``: the port builds
+    with none, :mod:`..utils.fused_steps` with others, for timing."""
     body = emit_body(*key)
     return build_library(
         "fused_inverse.cu", "libfused_inverse.so",
@@ -68,9 +74,11 @@ def _build_one(key):
             body,
             " ".join(NVCC_FLAGS),
             f"track={key[5]}",
+            *defines,
         ),
         files={"fused_body.inc": body},
-        what=f"config {key}",
+        what=f"config {key} {' '.join(defines)}",
+        flags=tuple(f"-D{d}" for d in defines),
     )
 
 
@@ -85,13 +93,52 @@ def build(configs):
 
 
 @functools.lru_cache(maxsize=None)
-def _library(key):
-    lib = ctypes.CDLL(str(_build_one(key)))
-    track = key[5]
-    fn = lib.fused_inverse_tracked_launch if track else lib.fused_inverse_launch
-    fn.argtypes = [ctypes.c_void_p] * (5 if track else 4) + [ctypes.c_int64, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _library(key, defines=()):
+    """``(cell_major, rows)``: the two launch functions of one built
+    library.  Both take the four array pointers (five tracked: the flags),
+    the batch and the stream; ``rows`` takes the fetch mode before the
+    stream (-1: the arrays' own)."""
+    lib = ctypes.CDLL(str(_build_one(key, defines)))
+    pointers = [ctypes.c_void_p] * (5 if key[5] else 4)
+    stem = "fused_inverse_tracked" if key[5] else "fused_inverse"
+    cell_major = getattr(lib, f"{stem}_launch")
+    cell_major.argtypes = pointers + [ctypes.c_int64, ctypes.c_void_p]
+    rows = getattr(lib, f"{stem}_rows_launch")
+    rows.argtypes = pointers + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    cell_major.restype = rows.restype = ctypes.c_int
+    return cell_major, rows
+
+
+def _check_pair(m, s, what):
+    if m.device.type != "cuda" or s.device != m.device:
+        raise ValueError(
+            f"mags and signs must both be on one CUDA device, got {m.device} and {s.device}"
+        )
+    if m.dtype != torch.int64 or s.dtype != torch.int64:
+        raise TypeError("mags and signs must be int64")
+    if m.shape != s.shape:
+        raise ValueError(f"mags and signs must both have shape {what}")
+
+
+def _launch(fn, m, s, batch, track, *mode):
+    """Allocate the outputs like ``m``, launch ``fn`` on the current stream
+    and count the launch; raises if the launch is refused."""
+    om = torch.empty_like(m)
+    os_ = torch.empty_like(s)
+    ptrs = [m.data_ptr(), s.data_ptr(), om.data_ptr(), os_.data_ptr()]
+    if track:
+        flag = torch.empty(batch, dtype=torch.int32, device=m.device)
+        ptrs.append(flag.data_ptr())
+    with torch.cuda.device(m.device):
+        err = fn(*ptrs, batch, *mode, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_inverse kernel launch failed: cudaError {err}")
+    global LAUNCHES, TRACKED_LAUNCHES
+    if track:
+        TRACKED_LAUNCHES += 1
+        return om, os_, flag
+    LAUNCHES += 1
+    return om, os_
 
 
 def fused_matrix_inverse(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base,
@@ -101,7 +148,11 @@ def fused_matrix_inverse(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base,
     ``fused_matrix_inverse``).  ``track=True`` returns ``(mags, signs,
     flag)`` with ``flag`` int32 of the batch shape.
 
-    A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
+    A CUDA tensor launches the kernel, once, on the tensors as they lie:
+    the kernel takes the ``(B, n*n)`` layout, any batch size, and storage
+    that is 8- but not 16-byte aligned (through 64-bit accesses).  Only an
+    input that is not contiguous is copied first (``.contiguous()``).  A CPU
+    tensor runs the plain version.
     """
     if not 2 <= n <= FUSED_MAX_N:
         raise ValueError(f"the fused kernel takes n in [2, {FUSED_MAX_N}], got {n}")
@@ -111,22 +162,16 @@ def fused_matrix_inverse(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base,
             track=track,
         )
     n2 = n * n
-    if mags.shape != signs.shape or mags.shape[-1:] != (n2,):
+    _check_pair(mags, signs, f"(..., {n2})")
+    if mags.shape[-1:] != (n2,):
         raise ValueError(f"mags and signs must both have shape (..., {n2})")
     bshape = mags.shape[:-1]
-    # (..., n2) -> (n2, B): cell-major, so neighbouring threads read
-    # neighbouring words
-    out = fused_inverse_cell_major(
-        mags.reshape(-1, n2).t().contiguous(),
-        signs.reshape(-1, n2).t().contiguous(),
-        n, qfloat_len, qfloat_ints, qfloat_base, true_division, track=track,
-    )
-    om, os_ = (
-        x.t().contiguous().reshape(bshape + (n2,)) for x in out[:2]
-    )
+    key = _key((n, qfloat_len, qfloat_ints, qfloat_base, true_division, track))
+    out = _launch(_library(key)[1], mags.contiguous(), signs.contiguous(),
+                  bshape.numel(), track, -1)
     if track:
-        return om, os_, out[2].reshape(bshape)
-    return om, os_
+        return out[0], out[1], out[2].reshape(bshape)
+    return out
 
 
 def fused_inverse_cell_major(cm, cs, n, qfloat_len, qfloat_ints, qfloat_base,
@@ -134,35 +179,13 @@ def fused_inverse_cell_major(cm, cs, n, qfloat_len, qfloat_ints, qfloat_base,
     """One kernel launch on cell-major ``(n*n, B)`` contiguous int64 CUDA
     tensors; returns the ``(n*n, B)`` output magnitudes and signs, and with
     ``track=True`` also the ``(B,)`` int32 overflow flags."""
-    if cm.device.type != "cuda" or cs.device != cm.device:
-        raise ValueError(
-            f"mags and signs must both be on one CUDA device, got {cm.device} "
-            f"and {cs.device}"
-        )
-    if cm.dtype != torch.int64 or cs.dtype != torch.int64:
-        raise TypeError("mags and signs must be int64")
+    _check_pair(cm, cs, f"({n * n}, B)")
     if not (cm.is_contiguous() and cs.is_contiguous()):
         raise ValueError("cell-major inputs must be contiguous")
-    if cm.shape != cs.shape or cm.dim() != 2 or cm.shape[0] != n * n:
+    if cm.dim() != 2 or cm.shape[0] != n * n:
         raise ValueError(f"cell-major inputs must both have shape ({n * n}, B)")
-    launch = _library(_key((n, qfloat_len, qfloat_ints, qfloat_base, true_division, track)))
-    om = torch.empty_like(cm)
-    os_ = torch.empty_like(cs)
-    ptrs = [cm.data_ptr(), cs.data_ptr(), om.data_ptr(), os_.data_ptr()]
-    if track:
-        flag = torch.empty(cm.shape[1], dtype=torch.int32, device=cm.device)
-        ptrs.append(flag.data_ptr())
-    with torch.cuda.device(cm.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(*ptrs, cm.shape[1], stream)
-    if err != 0:
-        raise RuntimeError(f"fused_inverse kernel launch failed: cudaError {err}")
-    global LAUNCHES, TRACKED_LAUNCHES
-    if track:
-        TRACKED_LAUNCHES += 1
-        return om, os_, flag
-    LAUNCHES += 1
-    return om, os_
+    key = _key((n, qfloat_len, qfloat_ints, qfloat_base, true_division, track))
+    return _launch(_library(key)[0], cm, cs, cm.shape[1], track)
 
 
 def fused_matrix_inverse_reference(mags, signs, n, qfloat_len, qfloat_ints,

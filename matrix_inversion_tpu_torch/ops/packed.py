@@ -112,11 +112,14 @@ class OverflowTracker:
     def record(self, flag):
         self.flags.append(flag)
 
-    def combined(self, batch_shape=None):
+    def combined(self, batch_shape=None, device=None):
         """OR of all recorded flags as int32 of ``batch_shape``; extra
-        leading axes are any-reduced, and no flag at all gives zeros."""
+        leading axes are any-reduced.  No flag at all gives zeros on
+        ``device`` (the device of the scope's operands, which only the
+        caller knows then; default: PyTorch's default device); recorded
+        flags carry their own device."""
         if not self.flags:
-            return torch.zeros(batch_shape or (), dtype=torch.int32)
+            return torch.zeros(batch_shape or (), dtype=torch.int32, device=device)
         if batch_shape is None:
             batch_shape = min((f.shape for f in self.flags), key=len)
         out = torch.zeros(batch_shape, dtype=torch.bool, device=self.flags[0].device)

@@ -41,21 +41,32 @@ class BatchedMatrixInversion:
         self,
         params: QFloatParams,
         batch_size: int,
-        *,
-        device="cuda",
         backend: str = "auto",
         io: str = "packed",
         in_shardings=None,
         out_shardings=None,
-        data_parallel: bool = False,
+        donate: bool = False,
+        data_parallel: bool = None,
         track_overflow: bool = False,
+        *,
+        device="cuda",
     ):
+        """The arguments up to ``track_overflow`` are the reference's, in
+        its order (``matrix_inversion_tpu/runtime/api.py:297-308``), so a
+        positional call means the same in both.  ``io`` defaults to
+        ``"packed"``, the one form ported (the reference's default is
+        ``"digits"``).  ``donate`` is accepted and does nothing: eager
+        PyTorch has no buffers to donate.  ``data_parallel=None`` (auto)
+        and ``False`` both mean one device; ``True`` and the shardings
+        raise until multi-device batching is ported."""
+        if io not in ("digits", "packed"):
+            raise ValueError("io must be digits|packed")
+        if track_overflow and io != "packed":
+            raise ValueError("track_overflow requires io='packed'")
         if io == "digits":
             raise NotImplementedError(
                 "io='digits' is not ported yet (ROADMAP queue 1, item 7)"
             )
-        if io != "packed":
-            raise ValueError("io must be packed")
         if data_parallel or in_shardings is not None or out_shardings is not None:
             raise NotImplementedError(
                 "multi-device batching is not ported yet (ROADMAP queue 1, item 10)"

@@ -10,7 +10,11 @@ same way, are held to ``PackedQFloat`` across formats the inversion
 circuits do not reach.  The tracked variant (a body emitted under
 tracking) is held the same way to the tracked plain version, flags
 included, and the tracked primitives to ``PackedQFloat`` inside
-``track_overflow()``.
+``track_overflow()``.  The row-major ``(B, n*n)`` entry runs the kernel's
+staging (its index arithmetic, padding, pairs and bounds) as loops over a
+block's threads and is held to the cell-major entry and the plain version;
+the windowed multiply is held to ``PackedQFloat`` in every form the build
+switches of ``csrc/qfloat_cell.cuh`` give it.
 """
 
 import ctypes
@@ -81,10 +85,14 @@ def host_kernels(tmp_path_factory):
         assert proc.returncode == 0, f"g++ failed for {key}:\n{err}"
         lib = ctypes.CDLL(str(root / key / "lib.so"))
         track = builds[key][1]
+        pointers = [ctypes.c_void_p] * (5 if track else 4)
         fn = lib.fused_inverse_tracked_host if track else lib.fused_inverse_host
-        fn.argtypes = [ctypes.c_void_p] * (5 if track else 4) + [ctypes.c_int64]
-        fn.restype = ctypes.c_int
+        fn.argtypes = pointers + [ctypes.c_int64]
+        rows = lib.fused_inverse_tracked_rows_host if track else lib.fused_inverse_rows_host
+        rows.argtypes = pointers + [ctypes.c_int64, ctypes.c_int]
+        fn.restype = rows.restype = ctypes.c_int
         libs[key] = fn
+        libs[f"rows_{key}"] = rows
     return libs
 
 
@@ -100,6 +108,42 @@ def run_host(fn, mags, signs, track=False):
         ptrs.append(flags.ctypes.data)
     assert fn(*ptrs, cm.shape[1]) == 0
     return (om.T, os_.T, flags) if track else (om.T, os_.T)
+
+
+# the fetch modes of the row-major entry (csrc/fused_inverse.cu, qcell::Mode)
+ROWS_AUTO, ROWS_STAGED, ROWS_DIRECT = -1, 1, 2
+
+
+CANARY = 0x5A5A5A5A5A5A5A5A
+
+
+def _placed(a, misaligned):
+    """``(copy, buffer)``: a copy of ``a`` whose storage starts on a 16-byte
+    boundary, or 8 bytes past one, inside a buffer of canary words."""
+    buf = np.full(a.size + 4, CANARY, a.dtype)
+    off = 2 - ((buf.ctypes.data // 8) + (1 if misaligned else 0)) % 2
+    out = buf[off:off + a.size].reshape(a.shape)
+    out[...] = a
+    assert out.ctypes.data % 16 == (8 if misaligned else 0)
+    return out, buf
+
+
+def run_host_rows(fn, mags, signs, track=False, mode=ROWS_AUTO, misaligned=False):
+    """(B, n*n) int64 arrays through the row-major host entry as they lie;
+    returns its return code and the outputs (tracked: the flags too).
+    Fails if the entry wrote a word outside its output arrays."""
+    (m, _), (s, _) = _placed(mags, misaligned), _placed(signs, misaligned)
+    (om, om_buf), (os_, os_buf) = (_placed(np.zeros_like(x), misaligned) for x in (m, s))
+    ptrs = [m.ctypes.data, s.ctypes.data, om.ctypes.data, os_.ctypes.data]
+    flags = np.zeros(m.shape[0], np.int32)
+    if track:
+        ptrs.append(flags.ctypes.data)
+    rc = fn(*ptrs, m.shape[0], mode)
+    for out, buf in ((om, om_buf), (os_, os_buf)):
+        off = (out.ctypes.data - buf.ctypes.data) // 8
+        assert (buf[:off] == CANARY).all() and (buf[off + out.size:] == CANARY).all(), \
+            "the entry wrote outside its output array"
+    return rc, ((om, os_, flags) if track else (om, os_))
 
 
 def inputs(config, B, seed, singular=False):
@@ -167,6 +211,54 @@ def test_tracked_and_untracked_bodies_agree(host_kernels, key):
     untracked = run_host(host_kernels[key], mags, signs)
     np.testing.assert_array_equal(tracked[0], untracked[0])
     np.testing.assert_array_equal(tracked[1], untracked[1])
+
+
+# one matrix; a ragged, odd batch inside one block; three blocks, the last
+# with an odd count of matrices
+ROWS_BATCHES = [1, 37, 261]
+
+
+def _check_rows_entry(rows, cell_major, mags, signs, ref, track):
+    """Every fetch mode of the row-major entry == the cell-major entry ==
+    the plain version ``ref``, on aligned arrays and on arrays 8 bytes off."""
+    expected = [np.asarray(r) for r in run_host(cell_major, mags, signs, track)]
+    for e, r in zip(expected, ref):
+        np.testing.assert_array_equal(e, r.numpy())
+    n2 = mags.shape[1]
+    for misaligned in (False, True):
+        for mode in (ROWS_AUTO, ROWS_STAGED, ROWS_DIRECT):
+            rc, got = run_host_rows(rows, mags, signs, track, mode, misaligned)
+            # the direct mode's 128-bit loads need aligned arrays: refused, not run
+            refused = misaligned and mode == ROWS_DIRECT and n2 % 2 == 0
+            assert rc == (-1 if refused else 0), (mode, misaligned)
+            assert run_host_rows(rows, mags, signs, track, 7, misaligned)[0] == -1
+            if refused:
+                assert not any(g.any() for g in got)
+                continue
+            for g, e in zip(got, expected):
+                np.testing.assert_array_equal(g, e, err_msg=f"mode {mode} misaligned {misaligned}")
+
+
+@pytest.mark.parametrize("B", ROWS_BATCHES)
+@pytest.mark.parametrize("key", list(CONFIGS))
+def test_host_rows_entry_matches_cell_major_and_plain(host_kernels, key, B):
+    config = CONFIGS[key]
+    mags, signs = inputs(config, B, seed=B + len(key))
+    ref = fused_matrix_inverse_reference(torch.from_numpy(mags), torch.from_numpy(signs), *config)
+    _check_rows_entry(host_kernels[f"rows_{key}"], host_kernels[key], mags, signs, ref, False)
+
+
+@pytest.mark.parametrize("B", ROWS_BATCHES)
+@pytest.mark.parametrize("key", TRACKED)
+def test_tracked_host_rows_entry_matches_cell_major_and_plain(host_kernels, key, B):
+    config = CONFIGS[key]
+    mags, signs = overflowy_inputs(config, max(B, 2), seed=B + len(key))
+    mags, signs = mags[-B:], signs[-B:]  # B = 1: the all-zero matrix, flagged
+    ref = fused_matrix_inverse_reference(
+        torch.from_numpy(mags), torch.from_numpy(signs), *config, track=True)
+    assert int(ref[2][0]) == 1 or B > 2
+    _check_rows_entry(host_kernels[f"rows_t_{key}"], host_kernels[f"t_{key}"], mags, signs, ref,
+                      True)
 
 
 def test_tracked_body_records_what_the_plain_version_records():
@@ -287,18 +379,45 @@ def _emit_op(name, fa, fb, base, op):
     )
 
 
-@pytest.fixture(scope="module")
-def host_ops(tmp_path_factory):
-    """Every single-op case in one g++ build."""
-    d = tmp_path_factory.mktemp("ops_host")
-    src = '#include "qfloat_cell.cuh"\n' + "".join(_emit_op(*c) for c in OP_CASES)
+def _build_ops(d, cases, defines=()):
+    """One g++ build of the single-op ``cases`` with the build switches
+    ``defines`` (``NAME=value``)."""
+    src = '#include "qfloat_cell.cuh"\n' + "".join(_emit_op(*c) for c in cases)
     (d / "ops.cc").write_text(src)
     subprocess.run(
         ["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-I", str(CSRC),
-         "-o", str(d / "ops.so"), str(d / "ops.cc")],
+         *(f"-D{define}" for define in defines), "-o", str(d / "ops.so"), str(d / "ops.cc")],
         check=True, capture_output=True, text=True, timeout=300,
     )
     return ctypes.CDLL(str(d / "ops.so"))
+
+
+@pytest.fixture(scope="module")
+def host_ops(tmp_path_factory):
+    """Every single-op case in one g++ build, with the build's own
+    switches: both multiplies compiled once per format and called."""
+    return _build_ops(tmp_path_factory.mktemp("ops_host"), OP_CASES)
+
+
+# The other forms of the windowed multiply (csrc/qfloat_cell.cuh): inlined
+# as first ported, and split sums, with accumulator counts that do and do
+# not divide the row count, with and without the net shift.
+MUL_WINDOW_FORMS = {
+    "inlined": ("QCELL_MUL_WINDOW_INLINE=1",),
+    "two_accumulators": ("QCELL_MUL_WINDOW_ACCS=2",),
+    "four_accumulators_net": ("QCELL_MUL_WINDOW_ACCS=4", "QCELL_MUL_WINDOW_NET=1"),
+    "three_accumulators_net_inlined": ("QCELL_MUL_WINDOW_INLINE=1", "QCELL_MUL_WINDOW_ACCS=3",
+                                       "QCELL_MUL_WINDOW_NET=1"),
+}
+TRACKED_MUL_CASES = [c for c in OP_CASES if c[0].startswith("t_") and "mul" in c[0]
+                     and not c[0].startswith("t_sb_")]
+
+
+@pytest.fixture(scope="module")
+def host_ops_forms(tmp_path_factory):
+    """The tracked multiplies once per form of ``MUL_WINDOW_FORMS``."""
+    return {form: _build_ops(tmp_path_factory.mktemp(f"ops_{form}"), TRACKED_MUL_CASES, defines)
+            for form, defines in MUL_WINDOW_FORMS.items()}
 
 
 def _rand_cell(rng, B, fmt, base):
@@ -348,6 +467,37 @@ def test_emitted_op_matches_packed(host_ops, case):
         np.testing.assert_array_equal(os_, np.broadcast_to(np.asarray(ref.sign), B))
     else:
         np.testing.assert_array_equal(os_, ref.numpy())
+
+
+@pytest.mark.parametrize("form", list(MUL_WINDOW_FORMS))
+@pytest.mark.parametrize("case", TRACKED_MUL_CASES, ids=[c[0] for c in TRACKED_MUL_CASES])
+def test_mul_window_forms_match_packed(host_ops_forms, case, form):
+    """Every form of the windowed multiply gives ``PackedQFloat``'s tracked
+    product, value and flag."""
+    name, fa, fb, base, _ = case
+    rng = np.random.RandomState(len(name) + len(form))
+    B = 129
+    am, as_ = _rand_cell(rng, B, fa, base)
+    bm, bs = _rand_cell(rng, B, fb, base)
+    v = np.ones(B, np.int64)
+    (om, os_, of), (ref, ref_flags) = run_op(host_ops_forms[form], case, am, as_, bm, bs, v)
+    np.testing.assert_array_equal(of, ref_flags)
+    np.testing.assert_array_equal(om, ref.mag.numpy())
+    np.testing.assert_array_equal(os_, np.broadcast_to(np.asarray(ref.sign), B))
+
+
+@pytest.mark.parametrize("form", list(MUL_WINDOW_FORMS))
+def test_mul_window_forms_wrap_at_2_64(host_ops_forms, form):
+    """Split over accumulators or not, the sum wraps at 2**64 (see
+    ``test_emitted_mul_window_wraps_at_2_64``)."""
+    case = next(c for c in OP_CASES if c[0] == "t_mul_wide62")
+    am = np.array([31, 15, 1, 0], np.int64)
+    bm = np.full(4, (1 << 62) - 1, np.int64)
+    ones = np.ones(4, np.int64)
+    (om, _, of), (ref, ref_flags) = run_op(host_ops_forms[form], case, am, ones, bm, ones, ones)
+    np.testing.assert_array_equal(of, [0, 1, 0, 0])
+    np.testing.assert_array_equal(ref_flags, of)
+    np.testing.assert_array_equal(om, ref.mag.numpy())
 
 
 def test_emitted_mul_window_wraps_at_2_64(host_ops):

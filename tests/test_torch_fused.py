@@ -165,6 +165,39 @@ def test_batched_api_unported_options_name_roadmap(kw, match):
         mt.BatchedMatrixInversion(mt.HIGH.replace(n=4), 8, device="cpu", **kw)
 
 
+def test_batched_api_takes_the_reference_positional_order():
+    """``(params, batch_size, backend, io, in_shardings, out_shardings,
+    donate, data_parallel, track_overflow)`` as the JAX package's, with
+    ``device`` keyword-only after them."""
+    p = mt.HIGH.replace(n=3)
+    M = np.random.RandomState(6).randn(4, 3, 3) * 100
+    port = mt.BatchedMatrixInversion(p, 4, "packed", "packed", device="cpu")
+    ref = JaxBatched(mi.HIGH.replace(n=3), 4, "packed", "packed")
+    np.testing.assert_array_equal(port.run(M), ref.run(M))
+    # donate is a no-op, data_parallel=None is one device, the ninth is track_overflow
+    tracked = mt.BatchedMatrixInversion(p, 4, "packed", "packed", None, None, True, None, True,
+                                        device="cpu")
+    jtracked = JaxBatched(mi.HIGH.replace(n=3), 4, "packed", "packed", None, None, False, False,
+                          True)
+    (inv, flags), (jinv, jflags) = tracked.run(M), jtracked.run(M)
+    np.testing.assert_array_equal(inv, jinv)
+    np.testing.assert_array_equal(flags, np.asarray(jflags))
+    with pytest.raises(TypeError):
+        mt.BatchedMatrixInversion(p, 4, "packed", "packed", None, None, False, None, False, "cpu")
+
+
+@pytest.mark.parametrize("io", ["digits", "limbs"])
+def test_batched_api_io_errors_are_the_reference_ones(io):
+    """``track_overflow`` with another io than packed, and an unknown io,
+    raise the reference's ``ValueError``s."""
+    p, jp = mt.HIGH.replace(n=3), mi.HIGH.replace(n=3)
+    match = "track_overflow requires io='packed'" if io == "digits" else "io must be"
+    with pytest.raises(ValueError, match=match):
+        mt.BatchedMatrixInversion(p, 4, "packed", io, track_overflow=True, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        JaxBatched(jp, 4, "packed", io, track_overflow=True)
+
+
 def test_batched_api_track_overflow():
     """``track_overflow=True`` (ROADMAP item 6) runs the tracked circuit:
     the same inverses as untracked, plus an int32 flag per matrix."""

@@ -138,6 +138,17 @@ def test_combined_without_flags_is_zeros():
     np.testing.assert_array_equal(got.numpy(), np.asarray(JTracker().combined((4, 3))))
 
 
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_combined_without_flags_lies_on_the_named_device(device):
+    """A scope that recorded nothing cannot know its operands' device: the
+    caller names it, as the tracked circuit does with its inputs'."""
+    got = OverflowTracker().combined((4, 3), device=torch.device(device))
+    assert got.device.type == device and got.dtype == torch.int32 and got.shape == (4, 3)
+    with track_overflow() as tracker:
+        pass
+    assert tracker.combined((2,), device=device).device.type == device
+
+
 def test_scopes_nest():
     with track_overflow() as outer:
         with track_overflow() as inner:
