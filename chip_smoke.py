@@ -14,8 +14,12 @@ configurations and five tracked ones on batches with overflowing matrices
 matrix, a view 8 bytes off 16-byte alignment and a view that is not
 contiguous; K2 and K3 at the High and Low divide and reciprocal
 widths on floor-boundary inputs, zero divisors, a one-word dividend, an
-unaligned view and odd lengths, and on the 16,777,216 timed elements; K4 on
-the circuits' multiply formats.  Then it drives the paths through
+unaligned view and odd lengths, and on the 16,777,216 timed elements; K4,
+the truncated multiply in the streaming frame K2 and K3 share, at every
+preset's multiply format (each a compile-time instance) and at formats
+that take each of its word widths, with zeros and all-ones words, a
+one-word multiplier, an unaligned view and an odd length, and on the
+16,777,216 timed elements.  Then it drives the paths through
 ``BatchedMatrixInversion``: HIGH n=4 over 1,048,576 matrices, untracked
 and with ``track_overflow=True`` (K1); HIGH n=16 over 262,144 matrices,
 past K1's n <= 12, on the op-by-op path (K2 and K4), and that path on
@@ -24,10 +28,13 @@ and HIGH n=4 with ``lowering="unroll"`` (K2 and K4) against K1.  Each path runs 
 counts set to 0 just before and read just after, and agrees with its plain
 version on the card and on the CPU.  One ``run_raw`` of each n=4 main path
 runs under the profiler and must show K1 and no other kernel or copy.
-Times each kernel, ``run_raw`` and plain version with CUDA events; K1 and
+Times each kernel, ``run_raw`` and plain version with CUDA events; K2,
+K3 and K4 at 16,777,216 elements and at a call's own 262,144; K1 and
 the n=4 ``run_raw`` in turns beside what they replaced (the transposes
-around the first kernel), and the steps of K1's design in turns, with
-registers, spills and static SASS (``utils/fused_steps.py``).
+around the first kernel); the steps of K2's, K3's and K4's designs in turns
+(``utils/division_steps.py``, K4's with registers, spills and static SASS)
+and those of K1's, with registers, spills and static SASS
+(``utils/fused_steps.py``).
 
 Then the roofline path: the issue-rate probes K5 (``utils/ubench.py``,
 built in the same parallel step) equal their plain version bit for bit on
@@ -44,6 +51,7 @@ the device.  Imports nothing of JAX.
 """
 
 import concurrent.futures
+import functools
 import json
 import re
 import statistics
@@ -67,7 +75,7 @@ from matrix_inversion_tpu_torch.models.marshal import float_matrix_to_mags_and_s
 from matrix_inversion_tpu_torch.ops import fused_inverse, long_division, packed
 from matrix_inversion_tpu_torch.utils import division_steps, fused_steps, roofline, sass, ubench
 from matrix_inversion_tpu_torch.utils.profiling import device_trace
-from matrix_inversion_tpu_torch.utils.timing import card_name_and_limit, timed_chain
+from matrix_inversion_tpu_torch.utils.timing import card_name_and_limit, card_state, timed_chain
 
 MAIN_BATCH = 1_048_576
 LARGE_N = 16
@@ -80,6 +88,9 @@ KERNEL_LAUNCHES = 10  # per timed pass of an op-by-op kernel: the queue hides th
 K1_LAUNCHES = 5  # per timed pass of K1 alone
 K1_LAYOUT_NS = (3, 4, 5)  # the layout checks: n*n odd, a power of two, odd
 HBM_BYTES_PER_S = 3.35e12  # published memory rate of the card
+# K4's launches in one HIGH run_raw op by op, by n: one per untracked
+# multiply of the circuit
+K4_LAUNCHES = {4: 50, 16: 4840}
 
 # The probes: rows of 128 elements, chains per element, the three K values
 # whose two differences must agree (a cell primitive is hundreds of
@@ -109,13 +120,14 @@ OP_KERNEL_FUNCTION = {
 }
 
 # The kernels whose SASS gives each op-by-op kernel's issued instructions per
-# element at the timed shapes: K2's compile-time (60, 15) instance and K3, four
-# elements a thread; K4 unrolled over its table's rows with an exit after each.
-DIVISION_SASS_KERNELS = {
-    "long_division_float": "stream_kernelILi2ENS_10FloatFixedILi60ELi15EEEEE",
-    "long_division_classic": "stream_kernelILi2ENS_7ClassicEEE",
+# element at the timed shapes, four elements a thread: K2's compile-time
+# (60, 15) instance, K3, and K4's instance for the High dot product.
+OP_SASS_KERNELS = {
+    "long_division_float": ("long_division", "stream_kernelILi2EN7longdiv10FloatFixedILi60ELi15EEE"),
+    "long_division_classic": ("long_division", "stream_kernelILi2EN7longdiv7ClassicEE"),
+    "mul_window": ("mul_window", "stream_kernelILi2EN6mulwin10TruncFixedILi20ELi20ELi40EEE"),
 }
-DIVISION_ELEMS_PER_THREAD = 4
+OP_ELEMS_PER_THREAD = 4
 # Opcodes that K3, an integer-only division, must not hold, and the 64-bit
 # conversions that K2 must not hold.
 FLOAT_OPCODES = re.compile(
@@ -140,14 +152,23 @@ DIVISION_SHAPES = [
 ]
 
 # ((len, ints) of a, of b, of the output) of the windowed multiply:
-# tests/test_pallas.py:80-83, the High and Low dot products, the multiply
-# by a reciprocal and the widened 2x2 intermediate.
+# tests/test_pallas.py:80-83 (the 128-bit product), the widened 2x2
+# intermediate (C in 64 bits), the widening t1 <= 0, and the presets' own
+# multiplies, each a compile-time instance of K4: High's dot product,
+# Medium's and Medium+'s, Medium's by an integer-free operand (C in 64
+# bits), Low's two.
 MUL_FORMATS = [
     ((40, 16), (40, 16), (40, 16)),
     ((40, 16), (40, 0), (40, 16)),
-    ((23, 9), (23, 9), (23, 9)),
     ((23, 9), (23, 9), (21, 21)),
+    ((43, 40), (43, 40), (40, 0)),
+    ((40, 20), (40, 20), (40, 20)),
+    ((31, 16), (31, 16), (31, 16)),
+    ((31, 16), (31, 0), (31, 16)),
+    ((23, 9), (23, 9), (23, 9)),
+    ((23, 9), (23, 0), (23, 9)),
 ]
+HIGH_MUL = (40, 20, 40, 20, 40, 20)  # the High dot product's multiply, as the wrapper takes it
 
 CHECKS = [
     ("HIGH n=2", HIGH.replace(n=2), False),
@@ -207,6 +228,23 @@ def timed_ms(fn, dev, passes=REPS, warm_up=True, launches=1):
             torch.cuda.synchronize()
     return timed_chain(lambda s: fn(), lambda s: None, None, launches, passes,
                        device=dev)[0] * 1e3 / launches
+
+
+def replay_of(launch, count):
+    """The replay of a CUDA graph of ``count`` calls of ``launch``, which
+    launches on the current stream, allocates nothing and returns a
+    cudaError_t: the kernels' device time without the host's part of a
+    launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert launch() == 0, "a launch failed before capture"
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        errors = [launch() for _ in range(count)]
+    assert not any(errors), f"launches failed in capture: {errors}"
+    return graph.replay
 
 
 def reset_counts():
@@ -450,24 +488,36 @@ def check_division_kernels(dev):
 
 
 def check_mul_kernel(dev):
-    """K4 == the plain version, tolerance 0; returns the max error."""
+    """K4 == the plain version, tolerance 0, at every format of MUL_FORMATS
+    on random operands with zeros and all-ones words among them, on a 0-dim
+    and a one-element multiplier, on views that are 8- but not 16-byte
+    aligned and on an odd length; returns the max error."""
     max_err = 0
     for i, ((al, ai), (bl, bi), (nl, ni)) in enumerate(MUL_FORMATS):
         rng = np.random.RandomState(400 + i)
         a = rng.randint(0, 1 << 62, size=CHECK_BATCH, dtype=np.int64) & ((1 << al) - 1)
         b = rng.randint(0, 1 << 62, size=CHECK_BATCH, dtype=np.int64) & ((1 << bl) - 1)
-        a[:2], b[2:4] = 0, (1 << bl) - 1
+        a[:2], b[2:4], a[4:6], b[4] = 0, (1 << bl) - 1, (1 << al) - 1, 0
         a, b = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
-        consts = packed.mul_window_consts(al, ai, bl, bi, nl, ni, 1)
-        got = long_division.batched_mul_window(a, b, consts, nl)
-        ref = packed.mul_window_packed(a, al, ai, b, bl, bi, nl, ni, 1)[0]
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        err = max_abs_diff([got], [ref])
+        odd = a.numel() - 1 + a.numel() % 2
+        cases = [(a, b), (a[5], b), (a[1:], b[1:]), (a[:-1], b[1:]), (a[:odd], b[:odd]),
+                 (a[3:4], b[:5])]
+        assert a[1:].data_ptr() % 16 == 8 and odd % 2 == 1
+        err = 0
+        for x, y in cases:
+            got = long_division.batched_mul_window(x, y, al, ai, bl, bi, nl, ni)
+            ref = packed.mul_window_packed(x.expand_as(y), al, ai, y, bl, bi, nl, ni, 1)[0]
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            assert got.shape == ref.shape == y.shape
+            err = max(err, max_abs_diff([got], [ref]))
         max_err = max(max_err, err)
         assert err == 0, f"mul_window {(al, ai)}x{(bl, bi)}->{(nl, ni)}: kernel differs (max {err})"
-        print(f"check mul_window (len, ints) {(al, ai)} x {(bl, bi)} -> {(nl, ni)}: "
-              f"B={CHECK_BATCH}, kernel == plain version bit for bit (tolerance 0)")
+        print(f"check mul_window (len, ints) {(al, ai)} x {(bl, bi)} -> {(nl, ni)} (t1, nt, "
+              f"newlength {long_division.mul_trunc_format(al, ai, bl, bi, nl, ni)}): "
+              f"B={CHECK_BATCH} with zeros and all-ones words; a 0-dim and a one-element "
+              "multiplier; views off 16-byte alignment; an odd length; kernel == plain version "
+              "bit for bit (tolerance 0)")
     return max_err
 
 
@@ -504,7 +554,8 @@ def large_n_paths(dev, card, batch=LARGE_BATCH, check_batch=CHECK_BATCH, reps=LA
         torch.cuda.synchronize()
     main_counts = counts()
     assert main_counts["long_division_float"] > 0, "the n=16 path did not launch K2"
-    assert main_counts["mul_window"] > 0, "the n=16 path did not launch K4"
+    assert main_counts["mul_window"] == K4_LAUNCHES[LARGE_N], \
+        f"the n=16 path launched K4 {main_counts['mul_window']} times"
     assert main_counts["fused_inverse"] == main_counts["fused_inverse_tracked"] == 0, \
         "the n=16 path launched K1"
     assert main_counts["long_division_classic"] == 0
@@ -567,7 +618,9 @@ def large_n_paths(dev, card, batch=LARGE_BATCH, check_batch=CHECK_BATCH, reps=LA
     if dev.type == "cuda":
         torch.cuda.synchronize()
     unroll_counts = counts()
-    assert unroll_counts["long_division_float"] > 0 and unroll_counts["mul_window"] > 0
+    assert unroll_counts["long_division_float"] > 0
+    assert unroll_counts["mul_window"] == K4_LAUNCHES[4], \
+        f"HIGH n=4 op by op launched K4 {unroll_counts['mul_window']} times"
     assert unroll_counts["fused_inverse"] == 0
     k1 = fused_inverse.fused_matrix_inverse(um, us, *config_of(p4))
     assert all(torch.equal(a, b) for a, b in zip(uout, k1)), "HIGH n=4: op-by-op path != K1"
@@ -600,24 +653,26 @@ def large_n_paths(dev, card, batch=LARGE_BATCH, check_batch=CHECK_BATCH, reps=LA
     }
 
 
-def time_op_kernels(dev, card, elems=KERNEL_ELEMS, launches=KERNEL_LAUNCHES):
+def time_op_kernels(dev, card, elems=KERNEL_ELEMS, launches=KERNEL_LAUNCHES,
+                    call_elems=LARGE_BATCH):
     """K2, K3 and K4 alone and their plain versions at the High divide
     shape and the High dot-product multiply, and K2 and K3 at the High
     reciprocal (a one-word dividend); each a median of REPS passes of
     ``launches`` calls (of one call for K4's plain versions, tens of
-    milliseconds each).  Both division kernels are first held against the
-    plain version on all the timed elements, tolerance 0.  Returns two
-    dicts ``{name: (ms, plain_ms, library_ms)}``, the second for K2 and K3
-    at the reciprocal; ``library_ms`` is the time of the one PyTorch call
-    that computes a kernel's function (``torch.div`` with floor rounding for
-    the divisions; the multiply has none)."""
+    milliseconds each).  Every kernel is first held against the plain
+    version on all the timed elements, tolerance 0.  Then K2, K3 and K4 at
+    ``call_elems``, the size of one call on the n=16 path, beside the bound
+    at that size.  Returns two dicts ``{name: (ms, plain_ms, library_ms)}``,
+    the second for K2 and K3 at the reciprocal; ``library_ms`` is the time
+    of the one PyTorch call that computes a kernel's function
+    (``torch.div`` with floor rounding for the divisions; the multiply has
+    none)."""
     g = torch.Generator(device=dev).manual_seed(21)
     v = torch.randint(0, 1 << 60, (elems,), dtype=torch.int64, device=dev, generator=g)
     d = torch.randint(1, 1 << 40, (elems,), dtype=torch.int64, device=dev, generator=g)
     a = torch.randint(0, 1 << 40, (elems,), dtype=torch.int64, device=dev, generator=g)
     b = torch.randint(0, 1 << 40, (elems,), dtype=torch.int64, device=dev, generator=g)
     one = torch.full((), 1 << 60, dtype=torch.int64, device=dev)
-    consts = packed.mul_window_consts(40, 20, 40, 20, 40, 20, 1)
 
     def timed(fn):
         return timed_ms(fn, dev, launches=launches)
@@ -645,27 +700,73 @@ def time_op_kernels(dev, card, elems=KERNEL_ELEMS, launches=KERNEL_LAUNCHES):
               + "; ".join(f"{name} {ms:.3f} ms" for name, (ms, _, _) in shapes[shape].items())
               + f"; plain version {plain:.3f} ms; {launches} calls a pass ({card})")
     times = dict(shapes["divide"])
-    times["mul_window"] = (
-        timed(lambda: long_division.batched_mul_window(a, b, consts, 40)),
-        timed_ms(lambda: packed.mul_window_packed(a, 40, 20, b, 40, 20, 40, 20, 1)[0], dev),
-        None)
+    def mul():
+        return long_division.batched_mul_window(a, b, *HIGH_MUL)
+
+    def mul_plain():
+        return packed.mul_window_packed(a, 40, 20, b, 40, 20, 40, 20, 1)[0]
+
+    assert torch.equal(mul(), mul_plain()), \
+        f"mul_window differs from the plain version on the {elems} timed elements"
+    times["mul_window"] = (timed(mul), timed_ms(mul_plain, dev), None)
     trunc_ms = timed_ms(lambda: packed.mul_trunc_packed(a, 40, 20, b, 40, 20, 40, 20, 1), dev)
     ms, plain, _ = times["mul_window"]
-    print(f"time mul_window alone: {ms:.3f} ms, plain version {plain:.3f} ms, on {elems} "
-          f"elements (High dot product (40, 20) x (40, 20) -> (40, 20); {card})")
+    print(f"check and time mul_window alone: == plain version on all {elems} elements (tolerance "
+          f"0); {ms:.3f} ms, plain version {plain:.3f} ms (High dot product (40, 20) x (40, 20) "
+          f"-> (40, 20); {launches} calls a pass; {card})")
     print(f"time mul_trunc_packed (the CPU route's multiply) on the card: {trunc_ms:.3f} ms "
           f"on {elems} elements ({card})")
+
+    # at the size of one call on the n=16 path: a call through the wrapper
+    # (what the path pays, the host's part included) and the kernel alone,
+    # as `launches` bare launches replayed from one CUDA graph
+    cv, cd, ca, cb = (t[:call_elems] for t in (v, d, a, b))
+    out = torch.empty_like(cd)
+    t1, nt, nl = long_division.mul_trunc_format(*HIGH_MUL)
+    small = {
+        "long_division_float": (lambda: long_division.batched_long_division_float(cv, cd, 60, 15),
+                                (cv, cd, 1, 60, 15)),
+        "long_division_classic": (lambda: long_division.batched_long_division(cv, cd, 60, 1),
+                                  (cv, cd, 1, 60, 1)),
+        "mul_window": (lambda: long_division.batched_mul_window(ca, cb, *HIGH_MUL),
+                       (ca, cb, 1, t1, nt, nl)),
+    }
+    runs = {"torch.div floor": lambda: torch.div(cv, cd, rounding_mode="floor")}
+    graphs = {}
+    for name, (wrapper, (x, y, *args)) in small.items():
+        runs[f"{name} through its wrapper"] = wrapper
+        if dev.type == "cuda":
+            launch = functools.partial(long_division._libraries()[name], x.data_ptr(),
+                                       y.data_ptr(), out.data_ptr(), call_elems, *args)
+            graphs[f"{name} alone"] = replay_of(
+                lambda launch=launch: launch(torch.cuda.current_stream().cuda_stream), launches)
+    bound = 24 * call_elems / HBM_BYTES_PER_S * 1e3
+    for label, ms in {**timed_in_turns(runs, dev, rounds=REPS, launches=launches),
+                      **{label: ms / launches for label, ms in
+                         timed_in_turns(graphs, dev, rounds=REPS).items()}}.items():
+        how = (f"{launches} launches replayed from a CUDA graph" if label in graphs
+               else f"{launches} calls a pass")
+        print(f"time {label} at {call_elems} elements (one call of the n=16 path; High divide or "
+              f"dot product): {ms * 1e3:.2f} us a call, {how}, in turns; bound "
+              f"{bound * 1e3:.2f} us by bytes (24 B an element) ({card})")
     return times, shapes["reciprocal"]
 
 
 def division_design_steps(dev, card, elems=KERNEL_ELEMS):
-    """The steps of the division kernels' design in turns, each held
-    against ``torch.div`` first (``utils/division_steps.py``)."""
+    """The steps of the division kernels' and the multiply's designs in
+    turns, each held against ``torch.div`` or the port's K4 first
+    (``utils/division_steps.py``); the multiply's with registers, spills
+    and static SASS."""
     for row in division_steps.measure(dev, elems):
         bound = row["bytes_per_element"] * elems / HBM_BYTES_PER_S * 1e3
-        print(f"design step, {row['shape']}: {row['step']}: {row['ms']:.4f} ms on {elems} "
-              f"elements (bound {bound:.3f} ms by bytes, {row['bytes_per_element']} B an "
-              f"element; {card})")
+        line = (f"design step, {row['shape']}: {row['step']}: {row['ms']:.4f} ms on {elems} "
+                f"elements (bound {bound:.3f} ms by bytes, {row['bytes_per_element']} B an "
+                "element")
+        if "registers" in row:
+            line += (f"; {row['registers']} registers, spills: {row['spills'] or 'none'}; "
+                     f"{row['sass_instructions']} static SASS instructions in the body, "
+                     f"{row['sass_per_element']:.2f} an element")
+        print(line + f"; {card}; right after the shape's timings: {row['card_after']})")
 
 
 def k1_design_steps(dev, card, batch=MAIN_BATCH):
@@ -715,13 +816,6 @@ def check_ubench(dev, rows=UBENCH_ROWS):
     return worst
 
 
-def sm_clock():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
 def measure_ubench(dev, card, rows=UBENCH_ROWS, reps=UBENCH_REPS, passes=UBENCH_PASSES):
     """Nominal ops/s of every mix at full width from three K values; returns
     ``({mix: ops/s}, ms of one u32_kernelmix launch at its largest K)``.
@@ -733,7 +827,7 @@ def measure_ubench(dev, card, rows=UBENCH_ROWS, reps=UBENCH_REPS, passes=UBENCH_
     """
     sass = ubench.sass_loop_instructions() if dev.type == "cuda" else {}
     regs = ubench.ptxas_registers() if dev.type == "cuda" else {}
-    print(f"clocks.sm before the probes: {sm_clock() if dev.type == 'cuda' else 'n/a'}")
+    print(f"clocks.sm, clocks.mem, power.draw, temperature before the probes: {card_state() if dev.type == 'cuda' else 'n/a'}")
     rates, kernelmix_ms = {}, None
     for name, (_, dtype, nops) in ubench.MIXES.items():
         ks = UBENCH_CELL_KS if dtype == torch.int64 else UBENCH_KS
@@ -766,7 +860,7 @@ def measure_ubench(dev, card, rows=UBENCH_ROWS, reps=UBENCH_REPS, passes=UBENCH_
         print(line + f"; {card})")
         if name == "u32_kernelmix":
             kernelmix_ms = ts[2] / reps * 1e3
-    print(f"clocks.sm after the probes: {sm_clock() if dev.type == 'cuda' else 'n/a'}")
+    print(f"clocks.sm, clocks.mem, power.draw, temperature after the probes: {card_state() if dev.type == 'cuda' else 'n/a'}")
     return rates, kernelmix_ms
 
 
@@ -810,24 +904,26 @@ def static_sass(library):
 def op_kernel_sass():
     """Instructions per element that K2, K3 and K4 issue at the timed
     shapes, read from the built libraries' SASS, as ``{name: (instructions
-    per element, note)}``.  K2 and K3: the straight-line body of the
+    per element, note)}``: the straight-line body of the
     four-elements-a-thread kernel, up to its EXIT, over four (K2's IEEE
     divide keeps a slow path behind a call, never taken here and not
-    counted).  K4: the unrolled rows up to the exit after the High dot
-    product's last row, and the common end.  Raises if K3 holds a
-    floating-point opcode or a call (the 64-bit division is one), or if K2
-    holds a conversion to or from a 64-bit type; the first K2, kept in the
-    design-steps library, must hold one, which shows that the search sees
-    them."""
-    division = sass.functions(sass.dump(
-        long_division.build_dir("long_division") / "liblong_division.so"))
+    counted); for K4 the High dot product's instance.  Beside K4 the first
+    K4 (the steps library's row table, one element a thread): its unrolled
+    rows up to the exit after the High dot product's last row, and the
+    common end.  Raises if K3 holds a floating-point opcode or a call (the
+    64-bit division is one), or if K2 holds a conversion to or from a 64-bit
+    type; the first K2, kept in the design-steps library, must hold one,
+    which shows that the search sees them."""
+    libraries = {name: sass.functions(sass.dump(long_division.build_dir(name) / f"lib{name}.so"))
+                 for name in ("long_division", "mul_window")}
     out = {}
-    for name, kernel in DIVISION_SASS_KERNELS.items():
-        (instrs,) = [i for fn, i in division.items() if kernel in fn]
+    for name, (library, kernel) in OP_SASS_KERNELS.items():
+        (instrs,) = [i for fn, i in libraries[library].items() if kernel in fn]
         body = sass.main_body(instrs)
-        out[name] = (len(body) / DIVISION_ELEMS_PER_THREAD,
+        out[name] = (len(body) / OP_ELEMS_PER_THREAD,
                      f"{len(body)} in the body of 4 elements, {len(instrs) - len(body)} behind "
                      f"{sass.calls(instrs)} calls")
+    division = libraries["long_division"]
     classic = [op for fn, i in division.items() if "Classic" in fn for _, op in i]
     floats = sorted({sass.opcode(op) for op in classic if FLOAT_OPCODES.match(sass.opcode(op))})
     assert not floats and not any(re.search(r"\bCALL\b", op) for op in classic), \
@@ -835,20 +931,23 @@ def op_kernel_sass():
     wide = [op for fn, i in division.items() if "Float" in fn for _, op in i
             if WIDE_CONVERSION.search(op)]
     assert not wide, f"K2 converts to or from a 64-bit type: {wide[:3]}"
-    first = [op for fn, i in sass.functions(sass.dump(division_steps.library_path())).items()
-             if "FirstFloat" in fn for _, op in i if WIDE_CONVERSION.search(op)]
+    steps = sass.functions(sass.dump(division_steps.library_path()))
+    first = [op for fn, i in steps.items() if "FirstFloat" in fn for _, op in i
+             if WIDE_CONVERSION.search(op)]
     assert first, "the first K2 shows no 64-bit conversion: the search is blind"
     print(f"sass: K3's kernels hold no floating-point opcode and no call; K2's kernels no "
           f"conversion to or from a 64-bit type (the first K2 holds {len(first)}, e.g. "
           f"{first[0].split()[0]})")
-    (mul,) = sass.functions(sass.dump(
-        long_division.build_dir("mul_window") / "libmul_window.so")).values()
-    exits, end = sass.forward_exits(mul)
-    rows = sum(1 for c in packed.mul_window_consts(40, 20, 40, 20, 40, 20, 1) if c[2] != 0)
-    assert len(exits) > rows, f"mul_window: {len(exits)} exits for {rows} rows"
-    issued = sum(1 for addr, _ in mul if addr <= exits[rows] or addr >= end)
-    out["mul_window"] = (issued, f"{rows} rows of {len(mul)} static instructions for "
-                                 f"{len(exits)} rows")
+    first_mul = steps[division_steps.kernel_name(steps, "one element per thread", "first K4")]
+    exits, end = sass.forward_exits(first_mul)
+    rows = sum(1 for c in packed.mul_window_consts(*HIGH_MUL, 1) if c[2] != 0)
+    assert len(exits) > rows, f"the first K4: {len(exits)} exits for {rows} rows"
+    first_issued = sum(1 for addr, _ in first_mul if addr <= exits[rows] or addr >= end)
+    out["mul_window"] = (out["mul_window"][0], out["mul_window"][1] + (
+        f"; the first K4, one element a thread, {first_issued} at the High dot product's {rows} "
+        f"rows of {len(first_mul)} static instructions for {len(exits)} rows"))
+    print(f"sass: K4 at the High dot product {out['mul_window'][0]:.2f} instructions an element "
+          f"({out['mul_window'][1]})")
     return out
 
 
@@ -976,12 +1075,11 @@ def main():
     main_config = config_of(HIGH.replace(n=4))
     for label, c in (("fused_inverse", main_config), ("fused_inverse_tracked", main_config + (True,))):
         print(f"ptxas {label} HIGH n=4: {ptxas_info(fused_inverse.build_dir(c))}")
-    division_log = (long_division.build_dir("long_division") / "nvcc.log").read_text()
-    division_regs = {re.sub(r"^_ZN7longdiv|EEvPKm.*$", "", entry): regs
-                     for entry, regs in sass.ptxas_registers(division_log).items()}
-    print(f"ptxas long_division, registers: {division_regs}; spills: "
-          f"{sass.ptxas_spill_lines(division_log) or 'none'}")
-    print(f"ptxas mul_window: {ptxas_info(long_division.build_dir('mul_window'))}")
+    for name in ("long_division", "mul_window"):
+        log = (long_division.build_dir(name) / "nvcc.log").read_text()
+        regs = {re.sub(r"^_ZN6sframe|EEvPKm.*$", "", entry): r
+                for entry, r in sass.ptxas_registers(log).items()}
+        print(f"ptxas {name}, registers: {regs}; spills: {sass.ptxas_spill_lines(log) or 'none'}")
     ubench_regs = ubench.ptxas_registers()
     print(f"ptxas ubench, registers of the C={UBENCH_C} kernels: "
           f"{ {name: ubench_regs[(name, UBENCH_C)] for name in ubench.MIXES} }; spills: "

@@ -14,15 +14,11 @@
 // Bound: bytes.  An element moves 24 bytes (16 where the dividend is one
 // broadcast word), which the card's memory takes longer over than its
 // issue slots take over either algorithm below (about a hundred 32-bit
-// instructions an element).  So the two kernels share one streaming
-// frame: a thread takes kPairs pairs of neighbouring elements, each pair
-// with one 128-bit load per operand and one 128-bit store, all marked
-// streaming (nothing is read twice, nothing is staged in shared memory),
-// and its 2 * kPairs divisions are independent chains that interleave.
-// An odd last element, and every element when a pointer is not 16-byte
-// aligned, goes through a one-element-per-thread kernel with 64-bit
-// accesses.  The dividend has an element stride of 0 or 1: a reciprocal's
-// constant dividend is read from one address.
+// instructions an element).  So both run in the streaming frame of
+// stream_frame.cuh, which K4 shares: four elements a thread through
+// 128-bit streaming accesses, a one-element-per-thread kernel for an odd
+// last element and unaligned views, and a dividend of stride 0 or 1 (a
+// reciprocal's constant dividend is read from one address).
 //
 // K3 was digit-serial on the TPU (one compare-subtract per quotient bit on
 // uint32 pairs: Mosaic has no 64-bit integers and no wide multiply).
@@ -76,6 +72,7 @@
 #include <math.h>
 
 #include "qfloat_cell.cuh"
+#include "stream_frame.cuh"
 
 namespace longdiv {
 
@@ -242,145 +239,18 @@ int with_float_op(int n_bits, int k, Run run) {
   return run(FloatAny{n_bits, k});
 }
 
-#ifdef __CUDACC__
-
-constexpr int kThreads = 256;
-constexpr int kPairs = 2;  // 128-bit pairs per thread: 4 divisions in flight
-
-typedef unsigned long long ull;
-
-LD_FN uint64_t load1(const uint64_t* p) { return __ldcs(reinterpret_cast<const ull*>(p)); }
-
-// q[i] = op(v[i * v_stride], d[i]) for i < 2 * n_pairs, through 128-bit
-// accesses: d, q and a strided v are 16-byte aligned.  Pair j of a thread
-// is pair (block's first + j * kThreads + thread) of the array, so a warp's
-// accesses are contiguous.
-template <int PAIRS, class Op>
-__global__ void __launch_bounds__(kThreads)
-stream_kernel(const uint64_t* __restrict__ v, int v_stride, const uint64_t* __restrict__ d,
-              uint64_t* __restrict__ q, int64_t n_pairs, Op op) {
-  const int64_t first = int64_t(blockIdx.x) * (kThreads * PAIRS) + threadIdx.x;
-  const uint64_t v_one = v_stride ? 0 : load1(v);
-  uint64_t vv[2 * PAIRS], dd[2 * PAIRS];
-#pragma unroll
-  for (int j = 0; j < PAIRS; ++j) {
-    const int64_t pair = first + int64_t(j) * kThreads;
-    ulonglong2 dp = make_ulonglong2(1, 1), vp = make_ulonglong2(v_one, v_one);
-    if (pair < n_pairs) {
-      dp = __ldcs(reinterpret_cast<const ulonglong2*>(d) + pair);
-      if (v_stride) vp = __ldcs(reinterpret_cast<const ulonglong2*>(v) + pair);
-    }
-    dd[2 * j] = dp.x, dd[2 * j + 1] = dp.y;
-    vv[2 * j] = vp.x, vv[2 * j + 1] = vp.y;
-  }
-  uint64_t qq[2 * PAIRS];
-#pragma unroll
-  for (int e = 0; e < 2 * PAIRS; ++e) qq[e] = op(vv[e], dd[e]);
-#pragma unroll
-  for (int j = 0; j < PAIRS; ++j) {
-    const int64_t pair = first + int64_t(j) * kThreads;
-    if (pair < n_pairs) {
-      __stcs(reinterpret_cast<ulonglong2*>(q) + pair, make_ulonglong2(qq[2 * j], qq[2 * j + 1]));
-    }
-  }
-}
-
-// The same, one element per thread through 64-bit accesses: the odd last
-// element, and every element when a pointer is not 16-byte aligned.
-template <class Op>
-__global__ void __launch_bounds__(kThreads)
-scalar_kernel(const uint64_t* __restrict__ v, int v_stride, const uint64_t* __restrict__ d,
-              uint64_t* __restrict__ q, int64_t n, Op op) {
-  const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  if (i < n) __stcs(reinterpret_cast<ull*>(q + i), ull(op(load1(v + i * v_stride), load1(d + i))));
-}
-
-template <class Op>
-int launch_scalar(Op op, const uint64_t* v, int v_stride, const uint64_t* d, uint64_t* q,
-                  int64_t n, cudaStream_t stream) {
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  scalar_kernel<<<unsigned(blocks), kThreads, 0, stream>>>(v, v_stride, d, q, n, op);
-  return int(cudaGetLastError());
-}
-
-// The launches of one call on `stream`: the pairs through stream_kernel
-// and an odd last element through scalar_kernel, or, unaligned, all
-// through scalar_kernel.  Returns the first cudaError_t that is not 0.
-template <int PAIRS, class Op>
-int launch_stream(Op op, const void* v_, int v_stride, const void* d_, void* q_, int64_t n,
-                  void* stream_) {
-  const uint64_t* v = static_cast<const uint64_t*>(v_);
-  const uint64_t* d = static_cast<const uint64_t*>(d_);
-  uint64_t* q = static_cast<uint64_t*>(q_);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (n <= 0) return 0;
-  const uintptr_t addresses = reinterpret_cast<uintptr_t>(d) | reinterpret_cast<uintptr_t>(q) |
-                              (v_stride ? reinterpret_cast<uintptr_t>(v) : 0);
-  if (addresses % 16 != 0) return launch_scalar(op, v, v_stride, d, q, n, stream);
-  const int64_t n_pairs = n / 2;
-  if (n_pairs > 0) {
-    const int64_t blocks = (n_pairs + kThreads * PAIRS - 1) / (kThreads * PAIRS);
-    stream_kernel<PAIRS><<<unsigned(blocks), kThreads, 0, stream>>>(v, v_stride, d, q, n_pairs, op);
-    const int err = int(cudaGetLastError());
-    if (err != 0 || n % 2 == 0) return err;
-  }
-  return launch_scalar(op, v + (n - 1) * v_stride, v_stride, d + n - 1, q + n - 1, 1, stream);
-}
-
-#endif  // __CUDACC__
-
-// The host form of the frame: the same element function over n.
-template <class Op>
-int host_stream(Op op, const void* v, int v_stride, const void* d, void* q, int64_t n) {
-  for (int64_t i = 0; i < n; ++i) {
-    static_cast<uint64_t*>(q)[i] =
-        op(static_cast<const uint64_t*>(v)[i * v_stride], static_cast<const uint64_t*>(d)[i]);
-  }
-  return 0;
-}
-
-// The arguments of one call, applied to an element function: on `stream`
-// of the card, or on the host.
-struct Call {
-  const void* v;
-  const void* d;
-  void* q;
-  int64_t n;
-  int v_stride;
-  void* stream;
-  template <class Op>
-  int operator()(Op op) const {
-#ifdef __CUDACC__
-    return launch_stream<kPairs>(op, v, v_stride, d, q, n, stream);
-#else
-    return host_stream(op, v, v_stride, d, q, n);
-#endif
-  }
-};
-
 }  // namespace longdiv
 
 // n int64 divisors in, n quotients out; the dividends n words (v_stride 1)
 // or one word (v_stride 0).  K3's (n_digits, bits) fix n_bits = n_digits *
-// bits and nothing else.  The card's functions return the launch's
-// cudaError_t.
-#ifdef __CUDACC__
-#define LD_ENTRY(name) name##_launch
-#define LD_STREAM_PARAM , void* stream
-#define LD_STREAM stream
-#else
-#define LD_ENTRY(name) name##_host
-#define LD_STREAM_PARAM
-#define LD_STREAM nullptr
-#endif
-
-extern "C" int LD_ENTRY(long_division_float)(const void* v, const void* d, void* q, int64_t n,
-                                             int v_stride, int n_bits, int k LD_STREAM_PARAM) {
-  return longdiv::with_float_op(n_bits, k, longdiv::Call{v, d, q, n, v_stride, LD_STREAM});
+// bits and nothing else.
+extern "C" int SF_ENTRY(long_division_float)(const void* v, const void* d, void* q, int64_t n,
+                                             int v_stride, int n_bits, int k SF_STREAM_PARAM) {
+  return longdiv::with_float_op(n_bits, k, sframe::Call{v, d, q, n, v_stride, SF_STREAM});
 }
 
-extern "C" int LD_ENTRY(long_division_classic)(const void* v, const void* d, void* q, int64_t n,
+extern "C" int SF_ENTRY(long_division_classic)(const void* v, const void* d, void* q, int64_t n,
                                                int v_stride, int n_digits,
-                                               int bits LD_STREAM_PARAM) {
-  return longdiv::Call{v, d, q, n, v_stride, LD_STREAM}(longdiv::Classic{n_digits * bits});
+                                               int bits SF_STREAM_PARAM) {
+  return sframe::Call{v, d, q, n, v_stride, SF_STREAM}(longdiv::Classic{n_digits * bits});
 }

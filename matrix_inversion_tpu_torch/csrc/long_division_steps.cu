@@ -1,25 +1,31 @@
-// long_division_steps.cu -- the steps of the division kernels' design,
+// long_division_steps.cu -- the steps of the op-by-op kernels' design,
 // side by side, for timing (utils/division_steps.py).  Not on any path of
 // the port.
 //
-// long_division.cu is included whole, so the frame and the element
-// functions timed here are the ones the port launches.  Beside them stand
-// what they replaced: the port's first frame (one element per thread,
-// 64-bit accesses; the port keeps it for what 128-bit accesses cannot
-// take) and its first element functions (K2 with 64-bit conversions and
-// run-time shifts, K3 as the digit-serial restoring loop), and the card's
-// own 64-bit `/`, which the fused kernel's divide runs.  Any frame can run
-// any element function:
-//   frame 0  one element per thread          op 0  first K2
-//   frame 1  the streaming frame, 1 pair     op 1  first K3
-//   frame 2  the streaming frame, 2 pairs    op 2  K2, run-time (n_bits, k)
-//                                            op 3  K2, compile-time (60 or 61, 15)
-//                                            op 4  K3
-//                                            op 5  the card's `/`
+// long_division.cu and mul_window.cu are included whole, so the frame and
+// the element functions timed here are the ones the port launches.  Beside
+// them stand what they replaced: the port's first frame (one element per
+// thread, 64-bit accesses; the port keeps it for what 128-bit accesses
+// cannot take) and its first element functions (K2 with 64-bit conversions
+// and run-time shifts, K3 as the digit-serial restoring loop, K4 as the sum
+// of rows read from a table), and the card's own 64-bit `/`, which the
+// fused kernel's divide runs.  Any frame can run any element function:
+//   frame 0  one element per thread          division op 0  first K2
+//   frame 1  the streaming frame, 1 pair     division op 1  first K3
+//   frame 2  the streaming frame, 2 pairs    division op 2  K2, run-time (n_bits, k)
+//                                            division op 3  K2, compile-time (60 or 61, 15)
+//                                            division op 4  K3
+//                                            division op 5  the card's `/`
+//                                            multiply op 0  first K4 (the row table)
+//                                            multiply op 1  K4's algebra in 128 bits
+//                                                           (K1's mul_inl), run-time format
+//                                            multiply op 2  K4, C in 32 bits, run-time format
+//                                            multiply op 3  K4, High's compile-time instance
 // Compiles as host C++ too (the frames are then one loop), where the tests
 // hold the first element functions against the present ones.
 
 #include "long_division.cu"
+#include "mul_window.cu"
 
 namespace divsteps {
 
@@ -92,37 +98,72 @@ struct Native {
   }
 };
 
+// The first K4: the rows of ops/packed.py::mul_window_consts for the
+// operands' formats, by value (at most 62 rows, 1.3 KB of kernel
+// parameters), as utils/division_steps.py::MulWindowTable lays them out.
+constexpr int kMaxRows = 62;
+
+struct MulWindowTable {
+  uint64_t b_mask[kMaxRows];
+  uint64_t out_mask;
+  int32_t a_shift[kMaxRows];
+  int32_t b_shift[kMaxRows];
+  int32_t out_shift[kMaxRows];
+  int32_t rows;
+};
+
+// One cropped partial product per row, summed in a uint64_t that wraps mod
+// 2**64, then masked to the output window.  At base 2 a digit is 0 or 1, so
+// each partial product is a mask, not a multiply.  The row loop is unrolled
+// to the table's capacity and stops at its row count, so every row is read
+// at a constant offset: 20 instructions a row, two of them run-time 64-bit
+// shifts.
+struct FirstMul {
+  MulWindowTable t;
+  LD_FN uint64_t operator()(uint64_t a, uint64_t b) const {
+    uint64_t acc = 0;
+#pragma unroll
+    for (int i = 0; i < kMaxRows; ++i) {
+      if (i >= t.rows) break;
+      const uint64_t digit = (a >> t.a_shift[i]) & 1;
+      const uint64_t window = ((b >> t.b_shift[i]) & t.b_mask[i]) << t.out_shift[i];
+      acc += window & (uint64_t(0) - digit);
+    }
+    return acc & t.out_mask;
+  }
+};
+
 struct Call {
   int frame;
-  const void* v;
-  const void* d;
-  void* q;
+  const void* x;
+  const void* y;
+  void* out;
   int64_t n;
-  int v_stride;
+  int x_stride;
   void* stream;
   template <class Op>
   int operator()(Op op) const {
 #ifdef __CUDACC__
     if (n <= 0) return 0;
-    if (frame == 1) return longdiv::launch_stream<1>(op, v, v_stride, d, q, n, stream);
-    if (frame == 2) return longdiv::launch_stream<2>(op, v, v_stride, d, q, n, stream);
-    return longdiv::launch_scalar(op, static_cast<const uint64_t*>(v), v_stride,
-                                  static_cast<const uint64_t*>(d), static_cast<uint64_t*>(q), n,
-                                  static_cast<cudaStream_t>(stream));
+    if (frame == 1) return sframe::launch_stream<1>(op, x, x_stride, y, out, n, stream);
+    if (frame == 2) return sframe::launch_stream<2>(op, x, x_stride, y, out, n, stream);
+    return sframe::launch_scalar(op, static_cast<const uint64_t*>(x), x_stride,
+                                 static_cast<const uint64_t*>(y), static_cast<uint64_t*>(out), n,
+                                 static_cast<cudaStream_t>(stream));
 #else
-    return longdiv::host_stream(op, v, v_stride, d, q, n);
+    return sframe::host_stream(op, x, x_stride, y, out, n);
 #endif
   }
 };
 
 }  // namespace divsteps
 
-// One launch of element function `op` in frame `frame`; -1 for a pair the
-// file does not hold.
-extern "C" int LD_ENTRY(division_step)(int frame, int op, const void* v, const void* d, void* q,
-                                       int64_t n, int v_stride, int n_bits, int k LD_STREAM_PARAM) {
+// One launch of division element function `op` in frame `frame`; -1 for a
+// pair the file does not hold.
+extern "C" int SF_ENTRY(division_step)(int frame, int op, const void* v, const void* d, void* q,
+                                       int64_t n, int v_stride, int n_bits, int k SF_STREAM_PARAM) {
   if (frame < 0 || frame > 2) return -1;
-  const divsteps::Call call{frame, v, d, q, n, v_stride, LD_STREAM};
+  const divsteps::Call call{frame, v, d, q, n, v_stride, SF_STREAM};
   switch (op) {
     case 0: return call(divsteps::FirstFloat{n_bits, k});
     case 1: return call(divsteps::FirstClassic{n_bits, 1});
@@ -133,6 +174,30 @@ extern "C" int LD_ENTRY(division_step)(int frame, int op, const void* v, const v
       return -1;
     case 4: return call(longdiv::Classic{n_bits});
     case 5: return call(divsteps::Native{n_bits});
+  }
+  return -1;
+}
+
+// One launch of multiply element function `op` in frame `frame`: (t1, nt,
+// newlength) as mul_window.cu takes them, `table` for the first K4.  -1 for
+// a pair the file does not hold: the 32-bit correction where C does not fit
+// 32 bits or the product 64, the compile-time instance at any format but
+// High's.
+extern "C" int SF_ENTRY(mul_step)(int frame, int op, const void* a, const void* b, void* out,
+                                  int64_t n, int a_stride, int t1, int nt, int newlength,
+                                  const divsteps::MulWindowTable* table SF_STREAM_PARAM) {
+  if (frame < 0 || frame > 2 || t1 <= 0) return -1;
+  const divsteps::Call call{frame, a, b, out, n, a_stride, SF_STREAM};
+  const uint64_t out_mask = qcell::low_mask(newlength);
+  switch (op) {
+    case 0: return call(divsteps::FirstMul{*table});
+    case 1: return call(mulwin::TruncAny<mulwin::u128, mulwin::u128>{t1, nt, out_mask});
+    case 2:
+      if (t1 + newlength > 64 || !mulwin::c_fits(t1, nt, 32)) return -1;
+      return call(mulwin::TruncAny<uint32_t, uint64_t>{t1, nt, out_mask});
+    case 3:
+      if (t1 != 20 || nt != 20 || newlength != 40) return -1;
+      return call(mulwin::TruncFixed<20, 20, 40>{});
   }
   return -1;
 }

@@ -38,8 +38,7 @@ def float_matrix_to_mags_and_signs(M, qfloat_len, qfloat_ints, qfloat_base):
 
 
 def mags_and_signs_to_float_matrix(mags, signs, qfloat_len, qfloat_ints, qfloat_base):
-    """Packed output -> float matrix (..., n, n) (host side)."""
-    digit_bits(qfloat_base)  # power-of-two bases only, as in quantize
+    """Packed output -> float matrix (..., n, n) (host side), at any base."""
     mags = np.asarray(mags)
     signs = np.asarray(signs)
     n = int(np.sqrt(mags.shape[-1]))

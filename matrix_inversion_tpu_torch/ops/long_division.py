@@ -3,16 +3,19 @@
 Replace ``matrix_inversion_tpu/ops/pallas_kernels.py``'s
 ``_division_float_kernel`` (K2), ``_division_kernel`` (K3) and
 ``_mul_window_kernel`` (K4), the kernels of the JAX package's op-by-op
-path.  The CUDA sources are ``csrc/long_division.cu`` (K2, K3: four
-elements per thread through 128-bit streaming accesses) and
-``csrc/mul_window.cu`` (K4, one thread per element), on 64-bit words.
+path.  The CUDA sources are ``csrc/long_division.cu`` (K2, K3) and
+``csrc/mul_window.cu`` (K4: the windowed multiply's partial-product sum in
+its algebraic form, one 64-bit product less a 32-bit correction at every
+preset's format), on 64-bit words, in the streaming frame they share
+(``csrc/stream_frame.cuh``: four elements per thread through 128-bit
+streaming accesses).  ``PERF.md`` has their times, bounds and SASS counts.
 
 Each wrapper keeps its JAX contract: int64 inputs broadcast to one shape,
-any shape, no padding, the result in the broadcast shape.  A dividend
+any shape, no padding, the result in the broadcast shape.  A first operand
 that is one word (0-dim, or a view broadcast from one element, as a
-reciprocal's constant is) is not filled to the batch: the division
-kernels read it from its one address.  A CUDA tensor launches the kernel; a
-CPU tensor runs the plain version (``ops/packed.py``:
+reciprocal's constant dividend is) is not filled to the batch: the kernels
+read it from its one address.  A CUDA tensor launches the kernel; a CPU
+tensor runs the plain version (``ops/packed.py``:
 :func:`~.packed.packed_long_division_reference` for K2 and K3,
 :func:`~.packed.mul_window_sum` masked to the window, the magnitude of
 :func:`~.packed.mul_window_packed`, for K4).  Tensors on any other device
@@ -20,9 +23,9 @@ are refused.
 
 The two libraries are built with ``nvcc`` at first use (:mod:`.cuda_build`),
 keyed by a hash of their sources and the flags.  The parameters (``n_bits``
-and ``k``, ``n_digits`` and ``bits``, the K4 table) are runtime arguments,
-so the two libraries serve every QFloat format; K2 has compile-time
-instances for the presets' ``(n_bits, k)`` besides.
+and ``k``, ``n_digits`` and ``bits``, K4's ``(t1, nt, newlength)``) are
+runtime arguments, so the two libraries serve every QFloat format; the
+presets' divisions and multiplies have compile-time instances besides.
 """
 
 from __future__ import annotations
@@ -33,51 +36,33 @@ import functools
 import torch
 
 from .cuda_build import CSRC, NVCC_FLAGS, build_library, run_parallel
-from .packed import mul_window_sum, packed_long_division_reference
+from .packed import mul_window_consts, mul_window_sum, packed_long_division_reference
 
 # Launches of each kernel, for checks that a run went through them.
 LAUNCHES = {"long_division_float": 0, "long_division_classic": 0, "mul_window": 0}
 
-_MAX_ROWS = 62  # csrc/mul_window.cu kMaxRows
-
 _SOURCES = {"long_division": "long_division.cu", "mul_window": "mul_window.cu"}
 
 
-class MulWindowTable(ctypes.Structure):
-    """The K4 table, laid out as ``MulWindowTable`` in csrc/mul_window.cu."""
-
-    _fields_ = [
-        ("b_mask", ctypes.c_uint64 * _MAX_ROWS),
-        ("out_mask", ctypes.c_uint64),
-        ("a_shift", ctypes.c_int32 * _MAX_ROWS),
-        ("b_shift", ctypes.c_int32 * _MAX_ROWS),
-        ("out_shift", ctypes.c_int32 * _MAX_ROWS),
-        ("rows", ctypes.c_int32),
-    ]
-
-
-def mul_window_table(consts, newlength):
-    """The K4 table of one call: the rows of ``consts``
-    (:func:`~.packed.mul_window_consts`) that add a partial product, and the
-    base-2 output mask of ``newlength`` digits."""
-    rows = [c for c in consts if c[2] != 0]
-    if len(rows) > _MAX_ROWS:
-        raise ValueError(f"mul_window takes at most {_MAX_ROWS} partial products")
-    table = MulWindowTable()
-    for i, (a_sh, b_sh, b_mask, o_sh) in enumerate(rows):
-        table.a_shift[i], table.b_shift[i] = a_sh, b_sh
-        table.b_mask[i], table.out_shift[i] = b_mask, o_sh
-    table.rows = len(rows)
-    table.out_mask = (1 << newlength) - 1
-    return table
+def mul_trunc_format(a_len, a_ints, b_len, b_ints, newlength, newints):
+    """K4's ``(t1, nt, newlength)`` for base-2 operands of ``(a_len,
+    a_ints)`` and ``(b_len, b_ints)`` digits and a product of ``(newlength,
+    newints)``: ``t1`` the digits below the product's window, ``nt`` the
+    digits of ``a`` that keep their own floor (``csrc/mul_window.cu``).
+    Raises on a format the kernel does not take."""
+    for length, ints in ((a_len, a_ints), (b_len, b_ints), (newlength, newints)):
+        if not 0 <= ints <= length or not 1 <= length <= 62:
+            raise ValueError(f"need 0 <= ints <= len and 1 <= len <= 62, got ({length}, {ints})")
+    t1 = (a_len - a_ints) + (b_len - b_ints) - (newlength - newints)
+    return t1, max(0, min(t1, a_len)), newlength
 
 
 def _build_one(name):
     source = _SOURCES[name]
     return build_library(
         source, f"lib{name}.so",
-        ((CSRC / "qfloat_cell.cuh").read_text(), (CSRC / source).read_text(),
-         " ".join(NVCC_FLAGS)),
+        tuple((CSRC / f).read_text() for f in ("qfloat_cell.cuh", "stream_frame.cuh", source))
+        + (" ".join(NVCC_FLAGS),),
     )
 
 
@@ -103,13 +88,11 @@ def _libraries():
         "long_division_classic": div.long_division_classic_launch,
         "mul_window": mul.mul_window_launch,
     }
-    for name in ("long_division_float", "long_division_classic"):
-        fns[name].argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-    fns["mul_window"].argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int64, ctypes.POINTER(MulWindowTable), ctypes.c_void_p,
-    ]
+    # (x, y, out, n, x_stride, the kernel's parameters, stream)
+    for name, params in (("long_division_float", 2), ("long_division_classic", 2),
+                         ("mul_window", 3)):
+        fns[name].argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * (
+            1 + params) + [ctypes.c_void_p]
     for fn in fns.values():
         fn.restype = ctypes.c_int
     return fns
@@ -124,18 +107,11 @@ def _check(x, y):
         raise ValueError(f"expected CPU or CUDA tensors, got {x.device}")
 
 
-def _operands(x, y):
-    """Two int64 tensors on one device, broadcast to one contiguous shape."""
-    _check(x, y)
-    x, y = torch.broadcast_tensors(x, y)
-    return x.contiguous(), y.contiguous()
-
-
 def division_operands(dividend, divisor):
     """``(dividend, its element stride, divisor)``: the divisor contiguous in
     the broadcast shape; the dividend likewise with stride 1, or, where it
     is a single word (0-dim, or every axis of size 1 or stride 0), left as
-    it is with stride 0."""
+    it is with stride 0.  K4 takes its operands ``(a, b)`` the same way."""
     _check(dividend, divisor)
     shape = torch.broadcast_shapes(dividend.shape, divisor.shape)
     divisor = divisor.expand(shape).contiguous()
@@ -146,10 +122,10 @@ def division_operands(dividend, divisor):
 
 def _launch(name, x, y, *args):
     """One call of kernel ``name``'s launch function over CUDA tensors: ``y``
-    contiguous, ``x`` contiguous of the same shape or, for a division with
-    stride 0 in ``args``, a single word; returns the output of ``y``'s
-    shape.  (A division of an odd length is two kernels: the pairs, and the
-    last element.)"""
+    contiguous, ``x`` contiguous of the same shape or, with stride 0 first
+    in ``args``, a single word; returns the output of ``y``'s shape.  (A
+    call of an odd length is two kernels: the pairs, and the last
+    element.)"""
     out = torch.empty_like(y)
     if y.numel() == 0:
         return out
@@ -189,12 +165,14 @@ def batched_long_division(dividend, divisor, n_digits, bits):
     return _launch("long_division_classic", v, d, v_stride, n_digits, bits)
 
 
-def batched_mul_window(a_mag, b_mag, consts, newlength):
-    """K4: the base-2 windowed multiply of int64 magnitudes, untracked,
-    masked to ``newlength`` digits; ``consts`` from
-    :func:`~.packed.mul_window_consts` at ``bits = 1``."""
-    table = mul_window_table(consts, newlength)
-    a, b = _operands(a_mag, b_mag)
-    if a.device.type == "cpu":
-        return mul_window_sum(a, b, consts, 1) & table.out_mask
-    return _launch("mul_window", a, b, ctypes.byref(table))
+def batched_mul_window(a_mag, b_mag, a_len, a_ints, b_len, b_ints, newlength, newints):
+    """K4: the base-2 windowed multiply of int64 magnitudes, untracked:
+    the cropped partial-product sum of operands of ``(a_len, a_ints)`` and
+    ``(b_len, b_ints)`` digits, masked to the product's ``(newlength,
+    newints)``."""
+    t1, nt, _ = mul_trunc_format(a_len, a_ints, b_len, b_ints, newlength, newints)
+    a, a_stride, b = division_operands(a_mag, b_mag)
+    if b.device.type == "cpu":
+        consts = mul_window_consts(a_len, a_ints, b_len, b_ints, newlength, newints, 1)
+        return mul_window_sum(a, b, consts, 1) & ((1 << newlength) - 1)
+    return _launch("mul_window", a, b, a_stride, t1, nt, newlength)

@@ -462,10 +462,7 @@ def _mul_packed(a_mag, a_len, a_ints, b_mag, b_len, b_ints, newlength, newints, 
             from . import long_division
 
             return long_division.batched_mul_window(
-                a_mag, b_mag,
-                mul_window_consts(a_len, a_ints, b_len, b_ints, newlength, newints, bits),
-                newlength,
-            )
+                a_mag, b_mag, a_len, a_ints, b_len, b_ints, newlength, newints)
         return mul_trunc_packed(a_mag, a_len, a_ints, b_mag, b_len, b_ints,
                                 newlength, newints, bits)
     mag, flag = mul_window_packed(a_mag, a_len, a_ints, b_mag, b_len, b_ints,

@@ -87,6 +87,13 @@ def ptxas_registers(log):
         r"Compiling entry function '([^']*)'.*?Used (\d+) registers", log, flags=re.S)}
 
 
+def ptxas_spills(log):
+    """``{mangled function name: its stack-frame and spill line}`` from
+    ptxas's lines."""
+    return {m.group(1): m.group(2).strip() for m in re.finditer(
+        r"Function properties for (\S+)\n\s*([^\n]*spill[^\n]*)", log)}
+
+
 def ptxas_spill_lines(log):
     """ptxas's lines that report a spill."""
     return [line.strip() for line in log.splitlines()

@@ -47,6 +47,17 @@ def card_name_and_limit():
     ).stdout.strip().splitlines()[0]
 
 
+def card_state():
+    """The first card's SM and memory clocks, power draw and temperature,
+    as ``nvidia-smi --query-gpu=clocks.sm,clocks.mem,power.draw,
+    temperature.gpu --format=csv,noheader`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def _device_of(state):
     """The device of the first tensor in ``state`` (a tensor or a nest of
     tuples and lists), else the CPU."""

@@ -8,13 +8,15 @@ as K2's rounding argument needs), they are held with tolerance 0 against
 Python-int floor division, against the JAX package's XLA float division,
 and against its Pallas kernels run in interpret mode, as
 tests/test_pallas.py runs them; K4 also against the port's truncated
-multiply.  The inputs sit on the floor boundaries where an unfixed f32
-estimate would be off by one, at the divide and invert widths of every
-preset, with zero divisors and the widest divisor the exactness argument
-allows; on the divisors where K3's integer reciprocal could slip (around
-2**32, powers of two, 1, 2**61 and above); and anywhere hypothesis looks.
-``csrc/long_division_steps.cu`` keeps the first K2 and K3 for timing: they
-must agree with the present ones.
+multiply and windowed sum, at the presets' multiply formats, formats that
+take each of its word widths, and any base-2 format hypothesis picks.  The
+division inputs sit on the floor boundaries where an unfixed f32 estimate
+would be off by one, at the divide and invert widths of every preset, with
+zero divisors and the widest divisor the exactness argument allows; on the
+divisors where K3's integer reciprocal could slip (around 2**32, powers of
+two, 1, 2**61 and above); and anywhere hypothesis looks.
+``csrc/long_division_steps.cu`` keeps the first K2, K3 and K4 for timing:
+they must agree with the present ones.
 """
 
 import ctypes
@@ -115,22 +117,24 @@ def host(tmp_path_factory):
         "classic": div.long_division_classic_host,
         "mul": mul.mul_window_host,
         "step": ctypes.CDLL(str(root / "long_division_steps.so")).division_step_host,
+        "mul_step": ctypes.CDLL(str(root / "long_division_steps.so")).mul_step_host,
     }
-    # (v, d, q, n, v_stride, then n_bits and k, or n_digits and bits)
+    # (v, d, q, n, v_stride, then n_bits and k, or n_digits and bits; K4:
+    # a, b, out, n, a_stride, t1, nt, newlength)
     for key in ("float", "classic"):
         fns[key].argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 3
-    fns["mul"].argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int64, ctypes.POINTER(long_division.MulWindowTable),
-    ]
+    fns["mul"].argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 4
     fns["step"].argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 3
+    fns["mul_step"].argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [
+        ctypes.c_int] * 4 + [ctypes.POINTER(division_steps.MulWindowTable)]
     for fn in fns.values():
         fn.restype = ctypes.c_int
     return fns
 
 
 def run_host(fn, x, y, *args):
-    """The host launch of K4, or of a division with one dividend per
-    divisor (stride 1) or, where ``x`` is a single word, stride 0."""
+    """The host launch of a kernel of the streaming frame: one ``x`` per
+    ``y`` (stride 1) or, where ``x`` is a single word, stride 0."""
     x, y = np.ascontiguousarray(x, np.int64), np.ascontiguousarray(y, np.int64)
     out = np.empty_like(y)
     if args and isinstance(args[0], int):
@@ -138,6 +142,17 @@ def run_host(fn, x, y, *args):
     assert x.size in (1, y.size)
     assert fn(x.ctypes.data, y.ctypes.data, out.ctypes.data, y.size, *args) == 0
     return out
+
+
+def run_mul_step(fn, frame, op, a, b, formats):
+    """The host launch of multiply step ``op`` in frame ``frame``, or None
+    where the steps library does not hold that pair."""
+    a, b = np.ascontiguousarray(a, np.int64), np.ascontiguousarray(b, np.int64)
+    out = np.empty_like(b)
+    err = fn(frame, op, a.ctypes.data, b.ctypes.data, out.ctypes.data, b.size,
+             int(a.size == b.size), *division_steps.mul_step_args(*formats))
+    assert err in (0, -1)
+    return out if err == 0 else None
 
 
 def run_step(fn, frame, op, x, y, n_bits, k=15):
@@ -355,11 +370,76 @@ def test_first_kernels_agree_with_present_ones(host, name, n_bits, divisor_bits)
     assert refused == -1 and host["step"](3, 0, 0, 0, 0, 0, 1, 60, 15) == -1
 
 
+# (len, ints) of a and b and the output: tests/test_pallas.py:80-83 (there
+# written (ints, len)), and asymmetric formats, so that a swap of the
+# length and integer-digit arguments shows; then the presets' own multiplies
+# (High's dot product, Medium's and Medium+'s, Medium's multiply by an
+# integer-free operand, Low's second; its first is above), each a
+# compile-time instance of K4.
+# Between them they take every word width of K4: C in 32 bits and 64, the
+# product in 64 bits and 128, the widening t1 <= 0.
+MUL_FORMATS = [
+    ((40, 16), (40, 16), (40, 16)),
+    ((40, 16), (40, 0), (40, 16)),
+    ((23, 9), (23, 9), (23, 9)),
+    ((23, 9), (23, 9), (21, 21)),
+    ((31, 12), (23, 5), (27, 10)),
+    ((43, 40), (43, 40), (40, 0)),
+    ((62, 62), (62, 62), (62, 62)),
+    ((40, 20), (40, 20), (40, 20)),
+    ((31, 16), (31, 16), (31, 16)),
+    ((31, 16), (31, 0), (31, 16)),
+    ((23, 9), (23, 0), (23, 9)),
+]
+
+
+@pytest.mark.parametrize("a_fmt,b_fmt,out_fmt", MUL_FORMATS)
+def test_first_mul_kernel_agrees_with_present_one(host, a_fmt, b_fmt, out_fmt):
+    """The multiply's element functions kept for timing in
+    long_division_steps.cu (the first K4 from its row table, the algebra in
+    128 bits, the 32-bit correction at run time, High's instance) == the
+    port's K4, whichever frame is asked for, also with a one-word a; the
+    32-bit correction is refused where C or the product does not fit its
+    words, High's instance at any other format."""
+    (al, ai), (bl, bi), (nl, ni) = a_fmt, b_fmt, out_fmt
+    fmt = long_division.mul_trunc_format(al, ai, bl, bi, nl, ni)
+    a, b = mul_operands(al, bl, 300, 5)
+    want, want_one = run_host(host["mul"], a, b, *fmt), run_host(host["mul"], a[7:8], b, *fmt)
+    held = set()
+    for op in division_steps.MUL_OPS.values():
+        for frame in division_steps.FRAMES.values():
+            got = run_mul_step(host["mul_step"], frame, op, a, b, (a_fmt, b_fmt, out_fmt))
+            if got is not None:
+                held.add(op)
+                np.testing.assert_array_equal(got, want)
+                np.testing.assert_array_equal(
+                    run_mul_step(host["mul_step"], frame, op, a[7:8], b, (a_fmt, b_fmt, out_fmt)),
+                    want_one)
+    t1, nt, _ = fmt
+    if t1 <= 0:
+        assert held == set()
+        return
+    fits = t1 + nl <= 64 and t1 + 1 + nt.bit_length() <= 32
+    assert held == {0, 1} | ({2} if fits else set()) | ({3} if fmt == (20, 20, 40) else set())
+
+
 def test_design_steps_name_real_frames_and_ops():
     for _, frame, op in division_steps.STEPS:
         assert frame in division_steps.FRAMES and op in division_steps.OPS
     with pytest.raises(ValueError, match="CUDA tensors only"):
         division_steps.run_step("streaming, 2 pairs", "K3", torch.tensor(8), torch.tensor([3]), 60, 15)
+    for _, frame, op in division_steps.MUL_STEPS:
+        assert frame in division_steps.FRAMES and op in division_steps.MUL_OPS
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        division_steps.run_mul_step("streaming, 2 pairs", "first K4", torch.tensor([8]),
+                                    torch.tensor([3]))
+    # each step's kernel is found by name among the library's mangled ones
+    names = [f"_ZN6sframe{k}EN{t}EEEvPKmiS5_Pml"
+             for k in ("13scalar_kernelI", "13stream_kernelILi1E", "13stream_kernelILi2E")
+             for t in ("8divsteps8FirstMulE", "6mulwin8TruncAnyIooE", "6mulwin8TruncAnyIjmE",
+                       "6mulwin10TruncFixedILi20ELi20ELi40EE")]
+    for _, frame, op in division_steps.MUL_STEPS:
+        assert division_steps.kernel_name(names, frame, op) in names
 
 
 def testdivision_operands():
@@ -420,41 +500,69 @@ def test_invert_passes_one_word_and_matches_jax(monkeypatch, kernel_route, fmt, 
 
 
 
-# (len, ints) of a and b and the output: tests/test_pallas.py:80-83 (there
-# written (ints, len)), and asymmetric formats, so that a swap of the
-# length and integer-digit arguments shows.
-MUL_FORMATS = [
-    ((40, 16), (40, 16), (40, 16)),
-    ((40, 16), (40, 0), (40, 16)),
-    ((23, 9), (23, 9), (23, 9)),
-    ((23, 9), (23, 9), (21, 21)),
-    ((31, 12), (23, 5), (27, 10)),
-    ((43, 40), (43, 40), (40, 0)),
-    ((62, 62), (62, 62), (62, 62)),
-]
+def mul_operands(a_len, b_len, size, seed):
+    """Random magnitudes of a and b, with zeros and all-ones words among
+    them."""
+    rng = np.random.RandomState(seed)
+    a = rng.randint(0, 1 << 62, size=size, dtype=np.int64) & ((1 << a_len) - 1)
+    b = rng.randint(0, 1 << 62, size=size, dtype=np.int64) & ((1 << b_len) - 1)
+    a[:2], b[2:4], a[4:6], b[4] = 0, (1 << b_len) - 1, (1 << a_len) - 1, 0
+    return a, b
 
 
 @pytest.mark.parametrize("a_fmt,b_fmt,out_fmt", MUL_FORMATS)
 def test_mul_window_host_exact(host, a_fmt, b_fmt, out_fmt):
     """K4 == JAX's Pallas kernel in interpret mode == the port's truncated
-    multiply, and the port's table == JAX's."""
+    multiply == its windowed sum masked, also with a one-word a (stride 0);
+    the first K4's table (the steps library's) == JAX's."""
     (al, ai), (bl, bi), (nl, ni) = a_fmt, b_fmt, out_fmt
-    rng = np.random.RandomState(al + bl + nl)
-    a = rng.randint(0, 1 << 62, size=500, dtype=np.int64) & ((1 << al) - 1)
-    b = rng.randint(0, 1 << 62, size=500, dtype=np.int64) & ((1 << bl) - 1)
-    a[:2], b[2:4] = 0, (1 << bl) - 1
+    a, b = mul_operands(al, bl, 500, al + bl + nl)
     consts = packed.mul_window_consts(al, ai, bl, bi, nl, ni, 1)
     jax_consts = jax_packed._mul_window_consts(ai, al, bi, bl, nl, ni, 1)
     assert [tuple(map(int, row)) for row in zip(*jax_consts)] == consts
-    got = run_host(host["mul"], a, b, ctypes.byref(long_division.mul_window_table(consts, nl)))
+    fmt = long_division.mul_trunc_format(al, ai, bl, bi, nl, ni)
+    got = run_host(host["mul"], a, b, *fmt)
     ref = pk.batched_mul_window(jnp.asarray(a), jnp.asarray(b), jax_consts, nl, interpret=True)
     np.testing.assert_array_equal(got, np.asarray(ref))
-    trunc = packed.mul_trunc_packed(torch.from_numpy(a), al, ai, torch.from_numpy(b), bl, bi, nl, ni, 1)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    trunc = packed.mul_trunc_packed(ta, al, ai, tb, bl, bi, nl, ni, 1)
     np.testing.assert_array_equal(got, trunc.numpy())
+    window = packed.mul_window_sum(ta, tb, consts, 1) & ((1 << nl) - 1)
+    np.testing.assert_array_equal(got, window.numpy())
     np.testing.assert_array_equal(
-        long_division.batched_mul_window(torch.from_numpy(a), torch.from_numpy(b), consts, nl).numpy(),
-        got,
-    )
+        long_division.batched_mul_window(ta, tb, al, ai, bl, bi, nl, ni).numpy(), got)
+    one = int(a[7])
+    want = packed.mul_trunc_packed(torch.full_like(tb, one), al, ai, tb, bl, bi, nl, ni, 1)
+    np.testing.assert_array_equal(run_host(host["mul"], a[7:8], b, *fmt), want.numpy())
+    np.testing.assert_array_equal(
+        long_division.batched_mul_window(torch.tensor(one), tb, al, ai, bl, bi, nl, ni).numpy(),
+        want.numpy())
+
+
+@hypothesis.settings(max_examples=300, deadline=None)
+@hypothesis.given(
+    a_fmt=st.integers(1, 62).flatmap(lambda n: st.tuples(st.just(n), st.integers(0, n))),
+    b_fmt=st.integers(1, 62).flatmap(lambda n: st.tuples(st.just(n), st.integers(0, n))),
+    out_fmt=st.integers(1, 62).flatmap(lambda n: st.tuples(st.just(n), st.integers(0, n))),
+    words=st.lists(st.tuples(st.sampled_from(["zero", "ones", "random"]),
+                             st.sampled_from(["zero", "ones", "random"]),
+                             st.integers(0, (1 << 62) - 1), st.integers(0, (1 << 62) - 1)),
+                   min_size=1, max_size=6))
+def test_mul_window_host_property(host, a_fmt, b_fmt, out_fmt, words):
+    """K4 == the windowed sum masked == the truncated multiply at any base-2
+    format of at most 62 digits, on zeros, all-ones words and random ones."""
+    (al, ai), (bl, bi), (nl, ni) = a_fmt, b_fmt, out_fmt
+    pick = {"zero": lambda n, r: 0, "ones": lambda n, r: (1 << n) - 1,
+            "random": lambda n, r: r & ((1 << n) - 1)}
+    a = np.array([pick[ka](al, ra) for ka, _, ra, _ in words], np.int64)
+    b = np.array([pick[kb](bl, rb) for _, kb, _, rb in words], np.int64)
+    got = run_host(host["mul"], a, b, *long_division.mul_trunc_format(al, ai, bl, bi, nl, ni))
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    consts = packed.mul_window_consts(al, ai, bl, bi, nl, ni, 1)
+    np.testing.assert_array_equal(
+        got, (packed.mul_window_sum(ta, tb, consts, 1) & ((1 << nl) - 1)).numpy())
+    np.testing.assert_array_equal(
+        got, packed.mul_trunc_packed(ta, al, ai, tb, bl, bi, nl, ni, 1).numpy())
 
 
 # ---- routing ------------------------------------------------------------
@@ -468,7 +576,7 @@ def spies(monkeypatch):
         fn = getattr(long_division, name)
 
         def spy(*args, _fn=fn, _name=name):
-            calls.append((_name, args[2:] if "division" in _name else args[3:]))
+            calls.append((_name, args[2:]))
             return _fn(*args)
 
         monkeypatch.setattr(long_division, name, spy)
@@ -561,7 +669,7 @@ def test_switches_are_scoped_and_checked():
 
 def test_mul_routing(spies, kernel_route):
     """Untracked base-2 multiplies on the kernel route go to K4's wrapper,
-    with the port's table; base 4, tracked and plain_arithmetic()
+    with the operands' formats; base 4, tracked and plain_arithmetic()
     multiplies keep the plain forms."""
     rng = np.random.RandomState(1)
     a2 = PackedQFloat(torch.from_numpy(rng.randint(0, 1 << 31, size=40, dtype=np.int64)), 31, 12)
@@ -574,7 +682,7 @@ def test_mul_routing(spies, kernel_route):
     assert torch.equal((a4 * a4).mag, ref4)
     with track_overflow():
         assert torch.equal(qf_from_mul(a2, b2, 27, 10).mag, ref2)
-    assert spies == [("batched_mul_window", (27,))]
+    assert spies == [("batched_mul_window", (31, 12, 23, 5, 27, 10))]
 
 
 def test_plain_version_reaches_no_wrapper(spies, kernel_route):
@@ -605,3 +713,8 @@ def test_wrappers_check_inputs():
         long_division.batched_long_division_float(v, d, 60, 16)
     with pytest.raises(ValueError, match="bits"):
         long_division.batched_long_division(v, d, 40, 2)
+    for bad in ((40, 41, 40, 20, 40, 20), (63, 20, 40, 20, 40, 20), (40, 20, 40, 20, 0, 0)):
+        with pytest.raises(ValueError, match="len <= 62"):
+            long_division.batched_mul_window(v, v, *bad)
+    assert long_division.batched_mul_window(torch.tensor(3), v, 4, 2, 4, 2, 4, 2).tolist() == [
+        [0, 0, 1], [1, 3, 3]]

@@ -116,6 +116,21 @@ def test_dequantize_matches_jax(name, B):
     np.testing.assert_array_equal(got, np.asarray(ref))
 
 
+@pytest.mark.parametrize("base,length,ints", [(3, 20, 8), (10, 12, 5)])
+def test_dequantize_any_base_matches_jax(base, length, ints):
+    """Dequantize takes any base, as the reference does (quantize keeps its
+    power-of-two check); 16 x 16 = 256 cells, below the 4,096 where JAX
+    would take its native form."""
+    rng = np.random.RandomState(base)
+    mags = rng.randint(0, base ** length, size=(16, 16)).astype(np.int64)
+    mags[0, :3] = [0, 1, base ** length - 1]
+    signs = rng.choice([-1, 0, 1], size=(16, 16)).astype(np.int64)
+    got = marshal.mags_and_signs_to_float_matrix(mags, signs, length, ints, base)
+    ref = jax_marshal.mags_and_signs_to_float_matrix(mags, signs, length, ints, base)
+    assert got.shape == (16, 4, 4)
+    np.testing.assert_array_equal(got, np.asarray(ref))
+
+
 def test_cell_matrix_round_trip():
     p = mt.HIGH
     rng = np.random.RandomState(3)

@@ -106,6 +106,14 @@ def test_ptxas_lines():
     assert sass.ptxas_spill_lines(LOG.replace("12 bytes", "0 bytes")) == []
 
 
+def test_ptxas_spills_by_function():
+    assert sass.ptxas_spills(LOG) == {
+        "_Z6loopedPKmPml": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "_Z12chain_kernelILi3ELi8EEvPKvS1_Pvli":
+            "24 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads",
+    }
+
+
 def test_ubench_reads_its_kernels_through_sass(monkeypatch, tmp_path):
     """``utils/ubench.py`` names its kernels by mix and chain count."""
     assert ubench._kernel_of("_Z12chain_kernelILi3ELi8EEvPKvS1_Pvli") == ("u32_shr_xor_add", 8)
