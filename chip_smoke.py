@@ -24,14 +24,21 @@ one-word multiplier, an unaligned view and an odd length, and on the
 and with ``track_overflow=True`` (K1); HIGH n=16 over 262,144 matrices,
 past K1's n <= 12, on the op-by-op path (K2 and K4), and that path on
 4,113 matrices under ``set_division_impl("classic")`` (K3) and tracked;
-and HIGH n=4 with ``lowering="unroll"`` (K2 and K4) against K1.  Each path runs with the launch
+and HIGH n=4 with ``lowering="unroll"`` (K2 and K4) against K1.  Digit I/O:
+``BatchedMatrixInversion(io="digits")`` at HIGH n=4 over 262,144 matrices
+(pack, K1 once, unpack) against the packed path and the CPU, and at n=16
+(K2 and K4); ``EncryptedMatrixInversion`` one matrix at a time, digit and
+packed io, untracked and tracked, ``run`` (K1) == ``run(simulate=True)``
+(K2 and K4) == the CPU run; and ``qfloat_pivot``, ``qfloat_lu_L`` and
+``qfloat_lu_U`` against the CPU.  Each path runs with the launch
 counts set to 0 just before and read just after, and agrees with its plain
 version on the card and on the CPU.  One ``run_raw`` of each n=4 main path
 runs under the profiler and must show K1 and no other kernel or copy.
 Times each kernel, ``run_raw`` and plain version with CUDA events; K2,
 K3 and K4 at 16,777,216 elements and at a call's own 262,144; K1 and
 the n=4 ``run_raw`` in turns beside what they replaced (the transposes
-around the first kernel); the steps of K2's, K3's and K4's designs in turns
+around the first kernel); the digit ``run_raw`` in turns with the packed one,
+K1 alone, the pack and the unpack; the steps of K2's, K3's and K4's designs in turns
 (``utils/division_steps.py``, K4's with registers, spills and static SASS)
 and those of K1's, with registers, spills and static SASS
 (``utils/fused_steps.py``).
@@ -69,8 +76,15 @@ from matrix_inversion_tpu_torch import (
     MEDIUM,
     MEDIUM_PLUS,
     BatchedMatrixInversion,
+    EncryptedMatrixInversion,
+    float_matrix_to_qfloat_arrays,
+    qfloat_lu_L,
+    qfloat_lu_U,
+    qfloat_matrix_inverse,
+    qfloat_pivot,
     set_division_impl,
 )
+from matrix_inversion_tpu_torch.models.inverse import digit_output
 from matrix_inversion_tpu_torch.models.marshal import float_matrix_to_mags_and_signs
 from matrix_inversion_tpu_torch.ops import fused_inverse, long_division, packed
 from matrix_inversion_tpu_torch.utils import division_steps, fused_steps, roofline, sass, ubench
@@ -80,6 +94,7 @@ from matrix_inversion_tpu_torch.utils.timing import card_name_and_limit, card_st
 MAIN_BATCH = 1_048_576
 LARGE_N = 16
 LARGE_BATCH = 262_144
+DIGIT_BATCH = 262_144  # digit I/O: 1.34 GB of int64 digits in, 0.69 GB of int32 out
 CHECK_BATCH = 4096 + 17  # ragged: not a multiple of the block size
 REPS = 7
 LARGE_REPS = 3  # the n=16 op-by-op run_raw takes seconds
@@ -91,6 +106,11 @@ HBM_BYTES_PER_S = 3.35e12  # published memory rate of the card
 # K4's launches in one HIGH run_raw op by op, by n: one per untracked
 # multiply of the circuit
 K4_LAUNCHES = {4: 50, 16: 4840}
+# K2's launches in one HIGH run_raw op by op, by n: one per division
+K2_LAUNCHES = {4: 22, 16: 376}
+# K2's and K4's launches in each of qfloat_lu_L and qfloat_lu_U at HIGH,
+# by n: the LU half of the circuit
+LU_LAUNCHES = {4: {"long_division_float": 6, "mul_window": 14}}
 
 # The probes: rows of 128 elements, chains per element, the three K values
 # whose two differences must agree (a cell primitive is hundreds of
@@ -544,7 +564,7 @@ def large_n_paths(dev, card, batch=LARGE_BATCH, check_batch=CHECK_BATCH, reps=LA
     op-by-op kernel's launch count on its own path."""
     p = HIGH.replace(n=LARGE_N)
     config = config_of(p)
-    inv = BatchedMatrixInversion(p, batch, device=dev)
+    inv = BatchedMatrixInversion(p, batch, io="packed", device=dev)
     M = large_n_matrices(np.random.RandomState(16), batch, LARGE_N)
     mags, signs = inv.quantize(M)
     signs = with_sign0_cells(signs, 17)
@@ -575,7 +595,7 @@ def large_n_paths(dev, card, batch=LARGE_BATCH, check_batch=CHECK_BATCH, reps=LA
           f"np.linalg.inv on 64 well-conditioned matrices {mae:.3e}")
 
     # the same path on a check batch with the classic division (K3)
-    cinv = BatchedMatrixInversion(p, check_batch, device=dev)
+    cinv = BatchedMatrixInversion(p, check_batch, io="packed", device=dev)
     with set_division_impl("classic"):
         reset_counts()
         got = cinv.run_raw(mags[:check_batch], signs[:check_batch])
@@ -589,7 +609,8 @@ def large_n_paths(dev, card, batch=LARGE_BATCH, check_batch=CHECK_BATCH, reps=LA
     print(f"large-n path under classic division: B={check_batch}: launches {classic_counts}; "
           "== the default path bit for bit")
 
-    tinv = BatchedMatrixInversion(p, check_batch, device=dev, track_overflow=True)
+    tinv = BatchedMatrixInversion(p, check_batch, io="packed", device=dev,
+                                  track_overflow=True)
     TM = overflowy(np.random.RandomState(18), check_batch, LARGE_N, rows=1)
     tm, ts = tinv.quantize(TM)
     reset_counts()
@@ -610,7 +631,8 @@ def large_n_paths(dev, card, batch=LARGE_BATCH, check_batch=CHECK_BATCH, reps=LA
 
     # HIGH n=4 op by op (K2, K4) against K1 on the same matrices
     p4 = HIGH.replace(n=4)
-    uinv = BatchedMatrixInversion(p4.replace(lowering="unroll"), check_batch, device=dev)
+    uinv = BatchedMatrixInversion(p4.replace(lowering="unroll"), check_batch, io="packed",
+                                  device=dev)
     um, us = uinv.quantize(np.random.RandomState(19).randn(check_batch, 4, 4) * 100)
     us = with_sign0_cells(us, 20)
     reset_counts()
@@ -618,7 +640,8 @@ def large_n_paths(dev, card, batch=LARGE_BATCH, check_batch=CHECK_BATCH, reps=LA
     if dev.type == "cuda":
         torch.cuda.synchronize()
     unroll_counts = counts()
-    assert unroll_counts["long_division_float"] > 0
+    assert unroll_counts["long_division_float"] == K2_LAUNCHES[4], \
+        f"HIGH n=4 op by op launched K2 {unroll_counts['long_division_float']} times"
     assert unroll_counts["mul_window"] == K4_LAUNCHES[4], \
         f"HIGH n=4 op by op launched K4 {unroll_counts['mul_window']} times"
     assert unroll_counts["fused_inverse"] == 0
@@ -651,6 +674,159 @@ def large_n_paths(dev, card, batch=LARGE_BATCH, check_batch=CHECK_BATCH, reps=LA
         "long_division_classic": classic_counts["long_division_classic"],
         "mul_window": main_counts["mul_window"],
     }
+
+
+def expect_launches(label, got, **want):
+    """Raise unless every kernel's launch count in ``got`` (``counts()``) is
+    the one in ``want``, 0 where ``want`` names none."""
+    for name, count in got.items():
+        expected = want.get(name, 0)
+        assert count == expected, f"{label}: launched {name} {count} times, expected " \
+            f"{expected}: {got}"
+
+
+def launches_of(fn):
+    """``(fn(), counts())`` with the launch counts set to 0 just before the
+    call and read just after it has finished on the card."""
+    reset_counts()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, counts()
+
+
+def digit_paths(dev, card, batch=DIGIT_BATCH, check_batch=CHECK_BATCH, large_n=LARGE_N):
+    """Digit I/O on the card: ``BatchedMatrixInversion(io="digits")`` at HIGH
+    n=4 (pack, K1 once, unpack) against the packed path on the same
+    matrices and, on a check batch, against the CPU; at HIGH n=16 on a check
+    batch (K2 and K4, as the packed path); ``EncryptedMatrixInversion`` at
+    HIGH's format, n=4, one matrix at a time, digit and packed io, untracked
+    and tracked, whose ``run``, ``run(simulate=True)`` (op by op: K2 and K4)
+    and CPU run agree bit for bit; and the partial circuits against the CPU.
+    Times the digit ``run_raw``, the packed ``run_raw``, K1 alone and the
+    pack and unpack in turns."""
+    p = HIGH.replace(n=4)
+    config, L = config_of(p), p.qfloat_len
+    inv = BatchedMatrixInversion(p, batch, io="digits", device=dev)
+    M = np.random.RandomState(40).randn(batch, 4, 4) * 100
+    t0 = time.perf_counter()
+    d, s = inv.quantize(M)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    out, got = launches_of(lambda: inv.run_raw(d, s))
+    expect_launches("digit path HIGH n=4", got, fused_inverse=1)
+    t0 = time.perf_counter()
+    res = inv.dequantize(out)
+    dequantize_s = time.perf_counter() - t0
+    assert d.shape == (batch, 16, L) and d.dtype == torch.int64 and s.shape == (batch, 16)
+    assert out.shape == (batch, 16, L + 1) and out.dtype == torch.int32
+    assert res.shape == (batch, 4, 4) and np.isfinite(res).all()
+    pinv = BatchedMatrixInversion(p, batch, io="packed", device=dev)
+    pm, ps = pinv.quantize(M)
+    assert torch.equal(packed.digits_to_mags(d, 1), pm) and torch.equal(s, ps), \
+        "digit and packed quantize disagree"
+    pout = pinv.run_raw(pm, ps)
+    assert torch.equal(packed.mags_to_digits(pout[0], L, 1), out[..., :L]) and \
+        torch.equal(pout[1].to(torch.int32), out[..., L]), "digit path != packed path"
+    cpu = qfloat_matrix_inverse(d[:check_batch].cpu(), s[:check_batch].cpu(), *config,
+                                backend="packed")
+    assert torch.equal(out[:check_batch].cpu(), cpu), "digit path differs from the CPU"
+    mae = float(np.mean(np.abs(res[:64] - np.linalg.inv(M[:64]))))
+    assert mae < 1e-3, f"digit path: mean absolute error {mae} against np.linalg.inv"
+    print(f"digit path: HIGH n=4 B={batch} io=\"digits\": launches {got}; unpacked == the "
+          f"packed path (all); == the CPU plain path (first {check_batch}); mean abs error vs "
+          f"np.linalg.inv on 64 matrices {mae:.3e}")
+    print(f"host clock, one pass, digit I/O: quantize + H2D {quantize_s:.3f} s "
+          f"({d.numel() * 8 + s.numel() * 8} B), D2H + dequantize {dequantize_s:.3f} s "
+          f"({out.numel() * 4} B) (HIGH n=4, B={batch}; {card})")
+
+    # in turns: the digit run_raw, the packed run_raw, K1 alone, the pack
+    # and the unpack, one call a pass and K1_LAUNCHES calls a pass
+    fns = {
+        "digit run_raw": lambda: inv.run_raw(d, s),
+        "packed run_raw": lambda: pinv.run_raw(pm, ps),
+        "K1 (B, n*n)": lambda: fused_inverse.fused_matrix_inverse(pm, ps, *config),
+        "pack (digits_to_mags)": lambda: packed.digits_to_mags(d, 1),
+        "unpack (digit_output)": lambda: digit_output(pout[0], pout[1], L, 2),
+    }
+    for calls in (1, K1_LAUNCHES):
+        turns = timed_in_turns(fns, dev, launches=calls)
+        for label, ms in turns.items():
+            print(f"time digit I/O {label}, {calls} call(s) a pass: {ms:.3f} ms = "
+                  f"{batch / ms * 1e3:.4e} inversions/s (HIGH n=4, B={batch}; {card})")
+        print(f"digit / packed run_raw ({calls} call(s) a pass): "
+              f"{turns['digit run_raw'] / turns['packed run_raw']:.2f}x; digit run_raw / K1: "
+              f"{turns['digit run_raw'] / turns['K1 (B, n*n)']:.2f}x ({card})")
+    del inv, d, s, out, pinv, pm, ps, pout
+
+    # HIGH n=16 on a check batch: the op-by-op path between the pack and unpack
+    p16 = HIGH.replace(n=large_n)
+    M16 = large_n_matrices(np.random.RandomState(41), check_batch, large_n)
+    dinv = BatchedMatrixInversion(p16, check_batch, io="digits", device=dev)
+    d16, s16 = dinv.quantize(M16)
+    out16, got16 = launches_of(lambda: dinv.run_raw(d16, s16))
+    pinv16 = BatchedMatrixInversion(p16, check_batch, io="packed", device=dev)
+    pout16, pgot16 = launches_of(lambda: pinv16.run_raw(*pinv16.quantize(M16)))
+    for label, c in (("digit path", got16), ("packed path", pgot16)):
+        expect_launches(f"{label} HIGH n={large_n}", c, long_division_float=K2_LAUNCHES[large_n],
+                        mul_window=K4_LAUNCHES[large_n])
+    assert torch.equal(digit_output(pout16[0], pout16[1], p16.qfloat_len, 2), out16), \
+        f"digit path HIGH n={large_n} != packed path"
+    print(f"digit path HIGH n={large_n} B={check_batch}: launches {got16} (packed path "
+          f"{pgot16}); == the packed path bit for bit")
+
+    # EncryptedMatrixInversion at HIGH's format, n=4, one matrix (batch shape ())
+    rng = np.random.RandomState(42)
+    matrices = [rng.randn(4, 4) * 100 for _ in range(4)] + [overflowy(rng, 1, 4, 1)[0]]
+    kw = dict(qfloat_len=p.qfloat_len, qfloat_ints=p.qfloat_ints, true_division=True)
+    for io, track in (("digits", False), ("packed", False), ("packed", True)):
+        card_inv = EncryptedMatrixInversion(4, **kw, io=io, track_overflow=track, device=dev)
+        cpu_inv = EncryptedMatrixInversion(4, **kw, io=io, track_overflow=track, device="cpu")
+        k1 = {"fused_inverse_tracked" if track else "fused_inverse": 1}
+        flags = []
+        for i, A in enumerate(matrices):
+            run, run_counts = launches_of(lambda: card_inv.run(A))
+            sim, sim_counts = launches_of(lambda: card_inv.run(A, simulate=True))
+            expect_launches(f"EncryptedMatrixInversion io={io} track={track} run", run_counts,
+                            **k1)
+            expect_launches(f"EncryptedMatrixInversion io={io} track={track} simulate",
+                            sim_counts, long_division_float=K2_LAUNCHES[4],
+                            mul_window=0 if track else K4_LAUNCHES[4])
+            want = cpu_inv.run(A)
+            for got_out in (run, sim):
+                if track:
+                    assert got_out[1] == want[1], f"io={io} tracked: flag {got_out[1]} != {want[1]}"
+                    got_out, want_out = got_out[0], want[0]
+                else:
+                    want_out = want
+                assert np.array_equal(got_out, want_out), \
+                    f"EncryptedMatrixInversion io={io} track={track} matrix {i} != the CPU run"
+            if track:
+                flags.append(run[1])
+            if i == 0:
+                print(f"EncryptedMatrixInversion(4, HIGH's format, io={io!r}, "
+                      f"track_overflow={track}) on the card: run launches {run_counts}; "
+                      f"run(simulate=True) launches {sim_counts}")
+        assert not track or flags == [0, 0, 0, 0, 1], f"tracked flags {flags}"
+        print(f"EncryptedMatrixInversion io={io!r} track_overflow={track}: {len(matrices)} "
+              "matrices, one overflowing: run == run(simulate=True) == the CPU run bit for bit"
+              + (f", flags {flags}" if track else ""))
+
+    # the partial circuits at HIGH n=4 on a check batch
+    Mp = np.random.RandomState(43).randn(check_batch, 4, 4) * 100
+    dp, sp = (torch.from_numpy(a) for a in float_matrix_to_qfloat_arrays(
+        Mp, p.qfloat_len, p.qfloat_ints, p.qfloat_base))
+    dpc, spc = dp.to(dev), sp.to(dev)
+    for fn, want in ((qfloat_pivot, {}),
+                     (qfloat_lu_L, LU_LAUNCHES[4]),
+                     (qfloat_lu_U, LU_LAUNCHES[4])):
+        got_p, got_counts = launches_of(lambda: fn(dpc, spc, p.as_list(), "packed"))
+        expect_launches(fn.__name__, got_counts, **want)
+        assert torch.equal(got_p.cpu(), fn(dp, sp, p.as_list(), "packed")), \
+            f"{fn.__name__} on the card differs from the CPU"
+        print(f"{fn.__name__} HIGH n=4 B={check_batch}: launches {got_counts}; == the CPU run "
+              "bit for bit")
 
 
 def time_op_kernels(dev, card, elems=KERNEL_ELEMS, launches=KERNEL_LAUNCHES,
@@ -1118,7 +1294,7 @@ def main():
 
     # -- the main path: quantize, run_raw on CUDA tensors, dequantize
     p = HIGH.replace(n=4)
-    inv = BatchedMatrixInversion(p, MAIN_BATCH, device="cuda", backend="packed")
+    inv = BatchedMatrixInversion(p, MAIN_BATCH, device="cuda", backend="packed", io="packed")
     M = np.random.RandomState(0).randn(MAIN_BATCH, 4, 4) * 100
     t0 = time.perf_counter()
     mags, signs = inv.quantize(M)
@@ -1153,7 +1329,7 @@ def main():
           f"D2H + dequantize {dequantize_s:.3f} s")
 
     # -- the tracked main path: the same stages with track_overflow=True
-    tinv = BatchedMatrixInversion(p, MAIN_BATCH, device="cuda", backend="packed",
+    tinv = BatchedMatrixInversion(p, MAIN_BATCH, device="cuda", backend="packed", io="packed",
                                   track_overflow=True)
     rows = 1024
     TM = overflowy(np.random.RandomState(0), MAIN_BATCH, 4, rows)
@@ -1204,6 +1380,12 @@ def main():
     t0 = time.perf_counter()
     op_launches = large_n_paths(dev, card)
     print(f"host clock: the op-by-op paths, checks and timings, {time.perf_counter() - t0:.1f} s")
+
+    # -- digit I/O: the digit path at n=4 and n=16, EncryptedMatrixInversion,
+    # the partial circuits
+    t0 = time.perf_counter()
+    digit_paths(dev, card)
+    print(f"host clock: the digit-I/O paths, checks and timings, {time.perf_counter() - t0:.1f} s")
 
     # -- timings (CUDA events, median of REPS after a warm-up)
     t0 = time.perf_counter()

@@ -2,12 +2,17 @@
 
 Exact batched matrix inversion in QFloat fixed-point arithmetic, with the
 same semantics, bit for bit, as the JAX package ``matrix_inversion_tpu``
-(the reference, kept beside it).  Ported so far: the packed-I/O main
-path at any n, untracked and with per-matrix overflow flags, and the
-roofline path with the issue-rate probes:
+(the reference, kept beside it).  Ported so far, on the packed backend
+(int64 magnitudes, power-of-two bases): the inverse at any n with digit
+I/O and packed I/O, untracked and with per-matrix overflow flags, the
+single-matrix lifecycle ``EncryptedMatrixInversion``, the partial
+pivot/L/U circuits with the float oracle, and the roofline path with the
+issue-rate probes.  Not yet: ``QFloat``, the digit-array "limb" backend
+for any base (ROADMAP queue 1, item 7b), streaming, multi-device batching.
 
 * ``config``        -- QFloatParams and the Low/Medium/Medium+/High presets;
 * ``core.qfloat``   -- the Zero / SignedBinary / QFloatBase dispatch layer;
+* ``ops.radix``     -- host radix conversion (numpy);
 * ``ops.packed``    -- PackedQFloat on int64 tensors (eager path, and the
   semantic spec of the kernels), the ``track_overflow`` scope, and the
   division routing switch ``set_division_impl``;
@@ -18,10 +23,11 @@ roofline path with the issue-rate probes:
   kernel for sm_90a (untracked and tracked), its wrapper and its plain
   version;
 * ``models``        -- pivoting/LU/substitution/2x2 circuit and the op-by-op
-  path, packed marshalling, the packed-I/O entry points (untracked and
-  with overflow);
-* ``runtime.api``   -- BatchedMatrixInversion (on the card unless the
-  caller names the CPU);
+  path, digit and packed marshalling, the digit-I/O and packed-I/O entry
+  points (untracked and with overflow), the partial circuits, and the
+  float LU oracle ``models.lu_float``;
+* ``runtime.api``   -- EncryptedMatrixInversion and BatchedMatrixInversion
+  (on the card unless the caller names the CPU; digit I/O by default);
 * ``utils.samplers``, ``utils.timing``, ``utils.profiling`` -- matrix
   samplers, chained timing on CUDA events, ``torch.profiler`` traces and
   the QFloat op counters;
@@ -40,10 +46,18 @@ The package imports torch and numpy, never jax.
 
 from .config import HIGH, LOW, MEDIUM, MEDIUM_PLUS, PRESETS, QFloatParams
 from .core.qfloat import QFloatBase, SignedBinary, Zero
-from .models.inverse import qfloat_matrix_inverse_packed_io, qfloat_matrix_inverse_with_overflow
+from .models.inverse import (
+    qfloat_lu_L,
+    qfloat_lu_U,
+    qfloat_matrix_inverse,
+    qfloat_matrix_inverse_packed_io,
+    qfloat_matrix_inverse_with_overflow,
+    qfloat_pivot,
+)
+from .models.marshal import float_matrix_to_qfloat_arrays, qfloat_and_signs_arrays_to_float_matrix
 from .ops.packed import PackedQFloat, set_division_impl, track_overflow
 from . import utils
-from .runtime.api import BatchedMatrixInversion
+from .runtime.api import BatchedMatrixInversion, EncryptedMatrixInversion
 
 __all__ = [
     "QFloatParams",
@@ -58,8 +72,15 @@ __all__ = [
     "PackedQFloat",
     "track_overflow",
     "set_division_impl",
+    "qfloat_matrix_inverse",
+    "qfloat_pivot",
+    "qfloat_lu_L",
+    "qfloat_lu_U",
+    "float_matrix_to_qfloat_arrays",
+    "qfloat_and_signs_arrays_to_float_matrix",
     "qfloat_matrix_inverse_packed_io",
     "qfloat_matrix_inverse_with_overflow",
+    "EncryptedMatrixInversion",
     "BatchedMatrixInversion",
     "utils",
 ]

@@ -26,7 +26,7 @@ class QFloatParams:
                      precomputed reciprocal.
       backend:       "packed" (int64 magnitudes) or "auto" (packed when the
                      encoding fits).  The digit-array "limb" backend is
-                     ROADMAP queue 1, item 7.
+                     ROADMAP queue 1, item 7b.
       lowering:      "fused" runs the whole inversion as one CUDA kernel
                      (ops/fused_inverse.py, n <= 12); "unroll", "vec" and
                      "scan" run the op-by-op path (the circuit as eager
@@ -52,7 +52,7 @@ class QFloatParams:
             raise ValueError("qfloat_ints must be in [0, qfloat_len]")
         if self.backend == "limb":
             raise ValueError(
-                "backend='limb' is not ported yet (ROADMAP queue 1, item 7)"
+                "backend='limb' is not ported yet (ROADMAP queue 1, item 7b)"
             )
         if self.backend not in ("auto", "packed"):
             raise ValueError("backend must be auto|packed")
@@ -85,12 +85,19 @@ class QFloatParams:
             raise ValueError(
                 f"packed backend cannot represent base={self.qfloat_base} "
                 f"len={self.qfloat_len} (needs base**(~3*len) < 2**62); the "
-                "limb backend is ROADMAP queue 1, item 7"
+                "limb backend is ROADMAP queue 1, item 7b"
             )
         return "packed"
 
     def replace(self, **kw) -> "QFloatParams":
         return dataclasses.replace(self, **kw)
+
+    def as_list(self):
+        """Positional params list, for reference-shaped call sites
+        (``matrix_inversion_tpu/config.py:106-115``); the sixth entry, the
+        reference's ``tensorize``, is always False here."""
+        return [self.n, self.qfloat_len, self.qfloat_ints, self.qfloat_base,
+                self.true_division, False]
 
 
 def from_jax_params(p) -> QFloatParams:

@@ -1,22 +1,36 @@
-"""Packed-I/O circuit entry points, untracked and overflow-tracked.
+"""Circuit entry points: the full inverse with digit or packed I/O, with or
+without overflow flags, and the partial pivot/L/U circuits.
 
-Port of ``matrix_inversion_tpu/models/inverse.py:161-325``.  Two paths
-with bit-identical results: "fused" runs the whole inversion as one CUDA
-kernel (ops/fused_inverse.py, n <= 12); the op-by-op path
-(``models.qfloat_lu.qfloat_matrix_inverse_op_by_op``) runs the circuit as
-eager PyTorch ops on int64 tensors, at any n, its divisions on the card
-through the division kernels K2/K3 and its untracked base-2 multiplies
-through K4 (ops/long_division.py).  The JAX
-lowerings "unroll", "vec" and "scan" all map to the op-by-op path: "vec"
-and "scan" exist in the JAX package only to cap XLA compile time, and
-give the same bits as "unroll" there.  The digit-I/O entry point and the
-partial circuits are ROADMAP queue 1, items 7 and 8.
+Port of ``matrix_inversion_tpu/models/inverse.py:32-126,161-365`` on the
+packed backend.  Two paths with bit-identical results: "fused" runs the
+whole inversion as one CUDA kernel (ops/fused_inverse.py, n <= 12); the
+op-by-op path (``models.qfloat_lu.qfloat_matrix_inverse_op_by_op``) runs
+the circuit as eager PyTorch ops on int64 tensors, at any n, its divisions
+on the card through the division kernels K2/K3 and its untracked base-2
+multiplies through K4 (ops/long_division.py).  The JAX lowerings "unroll",
+"vec" and "scan" all map to the op-by-op path: "vec" and "scan" exist in
+the JAX package only to cap XLA compile time, and give the same bits as
+"unroll" there.  Digit I/O packs the digits into magnitudes on the
+device, runs the packed-I/O circuit and unpacks.  The digit-array "limb"
+backend is ROADMAP queue 1, item 7b.
 """
 
 from __future__ import annotations
 
+import torch
+
 from ..ops.fused_inverse import FUSED_MAX_N, fused_matrix_inverse
-from .qfloat_lu import qfloat_matrix_inverse_op_by_op
+from ..ops.packed import digit_bits, digits_to_mags, mags_to_digits
+from .marshal import (
+    qfloat_arrays_to_qfloat_matrix,
+    qfloat_matrix_to_arrays_and_signs,
+    require_packed,
+)
+from .qfloat_lu import (
+    qfloat_lu_decomposition,
+    qfloat_matrix_inverse_op_by_op,
+    qfloat_pivot_matrix,
+)
 
 
 def _resolve_lowering(lowering, n, device):
@@ -62,3 +76,102 @@ def qfloat_matrix_inverse_with_overflow(mags, signs, n, qfloat_len, qfloat_ints,
     fn = fused_matrix_inverse if style == "fused" else qfloat_matrix_inverse_op_by_op
     return fn(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base, true_division,
               track=True)
+
+
+def _digit_inputs(qfloat_arrays, qfloat_signs, n, qfloat_len, backend):
+    """The digit and sign tensors of a digit-I/O entry point, checked:
+    ``(..., n*n, len)`` digits and ``(..., n*n)`` signs, torch tensors on
+    one device, which is where the circuit runs; the signs come back
+    int64.  Host arrays are refused rather than run on the CPU."""
+    require_packed(backend)
+    digits, signs = qfloat_arrays, qfloat_signs
+    if not (isinstance(digits, torch.Tensor) and isinstance(signs, torch.Tensor)):
+        raise TypeError(
+            f"digits and signs must be torch tensors on the device to run on, got "
+            f"{type(digits).__name__} and {type(signs).__name__}: move host arrays there "
+            "first (torch.from_numpy(a).to('cuda'))"
+        )
+    if digits.device != signs.device:
+        raise ValueError(f"digits on {digits.device} and signs on {signs.device}: "
+                         "put both on one device")
+    signs = signs.to(torch.int64)
+    if digits.shape[-2:] != (n * n, qfloat_len) or signs.shape != digits.shape[:-1]:
+        raise ValueError(
+            f"expected (..., {n * n}, {qfloat_len}) digits and (..., {n * n}) signs, "
+            f"got {tuple(digits.shape)} and {tuple(signs.shape)}"
+        )
+    return digits, signs
+
+
+def qfloat_matrix_inverse(qfloat_arrays, qfloat_signs, n, qfloat_len, qfloat_ints,
+                          qfloat_base, true_division, tensorize=False, backend="limb",
+                          lowering=None):
+    """Full inverse with digit I/O (reference qfloat_matrix_inversion.py:672-720):
+    ``(..., n*n, len)`` digits and ``(..., n*n)`` signs in, ``(..., n*n,
+    len+1)`` int32 digits with the sign appended out.
+
+    ``backend`` must be "packed": the digits are packed into int64
+    magnitudes on their device, the packed-I/O circuit runs
+    (:func:`qfloat_matrix_inverse_packed_io`, which takes ``lowering``: K1
+    for CUDA tensors with n <= 12 under "auto"), and the output is unpacked
+    into a preallocated int32 tensor.  Every output cell of the inverse is
+    a QFloat, so this gives the bits of the JAX package's object path too.
+    ``tensorize`` only regroups limb-backend ops and changes nothing here.
+    """
+    digits, signs = _digit_inputs(qfloat_arrays, qfloat_signs, n, qfloat_len, backend)
+    mags, out_signs = qfloat_matrix_inverse_packed_io(
+        digits_to_mags(digits, digit_bits(qfloat_base)), signs, n, qfloat_len, qfloat_ints,
+        qfloat_base, true_division, lowering=lowering,
+    )
+    return digit_output(mags, out_signs, qfloat_len, qfloat_base)
+
+
+def digit_output(mags, signs, qfloat_len, qfloat_base):
+    """``(..., n*n)`` magnitudes and signs -> ``(..., n*n, len+1)`` int32
+    digits with the sign appended, as the packed path of
+    ``matrix_inversion_tpu/models/inverse.py:98-106`` gives them: one shift,
+    then the mask and the cast into a preallocated output, and the sign
+    column."""
+    out = torch.empty(mags.shape + (qfloat_len + 1,), dtype=torch.int32, device=mags.device)
+    mags_to_digits(mags, qfloat_len, digit_bits(qfloat_base), out=out[..., :qfloat_len])
+    out[..., qfloat_len] = signs
+    return out
+
+
+def _digit_matrix(qfloat_arrays, qfloat_signs, params, backend):
+    """The QFloat cells of a partial circuit's checked digit input, and its
+    signs."""
+    n, qfloat_len, qfloat_ints, qfloat_base, *_ = params
+    digits, signs = _digit_inputs(qfloat_arrays, qfloat_signs, n, qfloat_len, backend)
+    return qfloat_arrays_to_qfloat_matrix(digits, signs, qfloat_ints, qfloat_base, backend), signs
+
+
+def qfloat_pivot(qfloat_arrays, qfloat_signs, params, backend="limb"):
+    """Pivot-only partial circuit (reference qfloat_matrix_inversion.py:592-609):
+    the ``(..., n, n)`` int32 permutation.  ``params`` is
+    ``QFloatParams.as_list()``'s list; comparisons only, no kernel."""
+    return qfloat_pivot_matrix(_digit_matrix(qfloat_arrays, qfloat_signs, params, backend)[0])
+
+
+def _lu_factor(qfloat_arrays, qfloat_signs, params, backend, which):
+    n, qfloat_len, qfloat_ints, qfloat_base, true_division, *_ = params
+    M, signs = _digit_matrix(qfloat_arrays, qfloat_signs, params, backend)
+    factor = qfloat_lu_decomposition(M, qfloat_len, qfloat_ints, true_division)[which]
+    # L at n=1 is one SignedBinary cell: the batch shape comes from the input
+    return qfloat_matrix_to_arrays_and_signs(factor, qfloat_len, qfloat_ints, qfloat_base,
+                                             batch_shape=signs.shape[:-1], device=signs.device)
+
+
+def qfloat_lu_L(qfloat_arrays, qfloat_signs, params, backend="limb"):
+    """PLU partial circuit returning L as ``(..., n*n, len+1)`` int32 digits
+    (reference qfloat_matrix_inversion.py:612-639), op by op on the inputs'
+    device: its divisions and multiplies go where ``ops.packed`` routes them
+    (K2 and K4 on the card).  The diagonal's ``SignedBinary(1)`` and the
+    upper ``Zero`` cells keep the reference's encoding."""
+    return _lu_factor(qfloat_arrays, qfloat_signs, params, backend, 1)
+
+
+def qfloat_lu_U(qfloat_arrays, qfloat_signs, params, backend="limb"):
+    """PLU partial circuit returning U (reference
+    qfloat_matrix_inversion.py:642-669), as :func:`qfloat_lu_L`."""
+    return _lu_factor(qfloat_arrays, qfloat_signs, params, backend, 2)

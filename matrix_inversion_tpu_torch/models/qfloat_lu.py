@@ -1,6 +1,6 @@
 """QFloat pivoting, LU decomposition, LU inverse and the 2x2 closed form.
 
-Port of ``matrix_inversion_tpu/models/qfloat_lu.py:134-146,188-358``.
+Port of ``matrix_inversion_tpu/models/qfloat_lu.py:42-45,134-358``.
 Matrices are n x n Python lists whose cells are ``Zero``, ``SignedBinary``
 or a QFloat type; the n-loops unroll while the circuit is built.  The
 pivot and argmax arithmetic uses operators only (no dtype casts, no
@@ -14,7 +14,9 @@ from __future__ import annotations
 
 from contextlib import nullcontext
 
-from ..core.qfloat import SignedBinary, Zero, qf_from_mul
+import torch
+
+from ..core.qfloat import QFloatBase, SignedBinary, Zero, qf_from_mul
 from ..ops.packed import track_overflow
 from .marshal import mags_and_signs_to_qfloat_matrix, qfloat_matrix_to_mags_and_signs
 
@@ -25,6 +27,12 @@ def matrix_column(M, j):
 
 def transpose_2D_list(list2D):
     return [list(row) for row in zip(*list2D)]
+
+
+def binary_list_matrix(M):
+    """Wrap a (..., n, n) 0/1 integer tensor as SignedBinary cells."""
+    n = M.shape[-1]
+    return [[SignedBinary(M[..., i, j]) for j in range(n)] for i in range(n)]
 
 
 def zero_list_matrix(n):
@@ -93,6 +101,31 @@ def qfloat_pivot_cells(M):
             for c in range(n):
                 P[jj][c] = (1 - e) * temp[jj][c] + e * temp[j][c]
     return P
+
+
+def qfloat_pivot_matrix(M):
+    """Pivot permutation as a (..., n, n) int32 tensor (reference
+    qfloat_matrix_inversion.py:331-369, batched): the cells of
+    :func:`qfloat_pivot_cells` stacked."""
+    like = next(c.mag for row in M for c in row if isinstance(c, QFloatBase))
+    rows = [
+        torch.stack([torch.broadcast_to(torch.as_tensor(c, device=like.device), like.shape)
+                     for c in row], dim=-1)
+        for row in qfloat_pivot_cells(M)
+    ]
+    return torch.stack(rows, dim=-2).to(torch.int32)
+
+
+def qfloat_pivot_binary(M):
+    """The pivot permutation as an n x n list of ``SignedBinary`` cells, the
+    form :func:`lu_from_pivot` takes."""
+    return [[SignedBinary(c) for c in row] for row in qfloat_pivot_cells(M)]
+
+
+def qfloat_lu_decomposition(M, qfloat_len, qfloat_ints, true_division=False):
+    """PM = LU on a QFloat 2D-list matrix; returns ``(P^T, L, U)`` with
+    M = PLU (``matrix_inversion_tpu/models/qfloat_lu.py:228-231``)."""
+    return lu_from_pivot(qfloat_pivot_binary(M), M, qfloat_len, qfloat_ints, true_division)
 
 
 def lu_from_pivot(P, M, qfloat_len, qfloat_ints, true_division=False):
@@ -209,8 +242,8 @@ def qfloat_matrix_inverse_cells(M, qfloat_len, qfloat_ints, true_division):
     n = len(M)
     if n == 2:
         return qfloat_inverse_2x2(M, qfloat_len, qfloat_ints)
-    P = [[SignedBinary(c) for c in row] for row in qfloat_pivot_cells(M)]
-    Pb, Lm, Um = lu_from_pivot(P, M, qfloat_len, qfloat_ints, true_division)
+    Pb, Lm, Um = lu_from_pivot(qfloat_pivot_binary(M), M, qfloat_len, qfloat_ints,
+                               true_division)
     return qfloat_lu_inverse(Pb, Lm, Um, qfloat_len, qfloat_ints, true_division)
 
 

@@ -38,6 +38,7 @@ import contextlib
 import functools
 import threading
 
+import numpy as np
 import torch
 
 from ..core.qfloat import QFloatBase, SignedBinary, Zero, check_invert_sign
@@ -151,6 +152,31 @@ def digit_bits(base: int) -> int:
     return base.bit_length() - 1
 
 
+def _digit_shifts(length, bits, device):
+    """``bits * (L-1-j)`` for j = 0..L-1: the place of digit j, most
+    significant first."""
+    return torch.arange(bits * (length - 1), -1, -bits, dtype=MAG_DTYPE, device=device)
+
+
+def digits_to_mags(digits, bits):
+    """``(..., L)`` digits -> ``(...)`` int64 magnitudes
+    ``sum_j digit_j * 2**(bits*(L-1-j))``: one shift and one sum."""
+    digits = torch.as_tensor(digits).to(MAG_DTYPE)
+    return (digits << _digit_shifts(digits.shape[-1], bits, digits.device)).sum(-1)
+
+
+def mags_to_digits(mags, length, bits, out=None):
+    """``(...)`` int64 magnitudes -> ``(..., length)`` int32 digits
+    ``(mag >> bits*(L-1-j)) & (2**bits - 1)``: one shift, then the mask
+    and the cast in one pass into ``out`` (allocated if None; it may be a
+    view, such as the digit columns of a wider output).  Magnitudes are
+    below 2**62, so int64 shifts equal the reference's uint64 ones."""
+    if out is None:
+        out = torch.empty(mags.shape + (length,), dtype=torch.int32, device=mags.device)
+    wide = mags.unsqueeze(-1) >> _digit_shifts(length, bits, mags.device)
+    return torch.bitwise_and(wide, (1 << bits) - 1, out=out)
+
+
 @functools.lru_cache(maxsize=None)
 def _constant_word(value, device):
     """A 0-dim int64 tensor holding ``value``, filled on ``device`` once and
@@ -197,6 +223,25 @@ class PackedQFloat(QFloatBase):
     def _mask(self, ndigits=None):
         n = self._length if ndigits is None else ndigits
         return (1 << (self._bits * n)) - 1
+
+    # ---- conversions (matrix_inversion_tpu/ops/packed.py:219-249) ---------
+    @classmethod
+    def from_digits(cls, digits, ints=None, base=2, sign=1):
+        """Pack a digit tensor ``[..., L]`` into magnitudes."""
+        return cls(digits_to_mags(digits, digit_bits(base)), digits.shape[-1], ints, base, sign)
+
+    def to_digits(self):
+        """Unpack the magnitudes into an int32 digit tensor ``[..., L]``."""
+        return mags_to_digits(self._mag, self._length, self._bits)
+
+    def to_array(self):
+        return self.to_digits()
+
+    def to_float(self):
+        """The value as float64 numpy, on the host."""
+        scale = float(self._base) ** (-(self._length - self._ints))
+        sign = self._sign.cpu() if isinstance(self._sign, torch.Tensor) else self._sign
+        return self._mag.cpu().numpy().astype(np.float64) * scale * np.asarray(sign, np.float64)
 
     def copy(self):
         return PackedQFloat(self._mag, self._length, self._ints, self._base, self._sign)

@@ -1,19 +1,194 @@
-"""User-facing batched API.
+"""User-facing API: one matrix through the reference's lifecycle, and batches.
 
-Port of ``matrix_inversion_tpu/runtime/api.py:287-441``, packed I/O only:
-``BatchedMatrixInversion`` inverts (B, n, n) float batches in one device
-program.  PyTorch runs eagerly, so there is no compile step.  The device
-defaults to the card: the CPU runs only for a caller who names it.
+Port of ``matrix_inversion_tpu/runtime/api.py:143-441`` on the packed
+backend.  ``EncryptedMatrixInversion`` keeps the reference's lifecycle
+(reference main.py:17-116) for one matrix; ``BatchedMatrixInversion``
+inverts (B, n, n) float batches in one device program.  Both take digit
+I/O (``io="digits"``, the reference's default: ``(..., n*n, len)`` digits
+in, ``(..., n*n, len+1)`` out) or packed I/O (``io="packed"``: one int64
+magnitude and one sign a cell).  PyTorch runs eagerly, so there is no
+compile step.  The device defaults to the card: the CPU runs only for a
+caller who names it.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..config import QFloatParams
-from ..models.inverse import qfloat_matrix_inverse_packed_io, qfloat_matrix_inverse_with_overflow
-from ..models.marshal import float_matrix_to_mags_and_signs, mags_and_signs_to_float_matrix
+from ..models.inverse import (
+    qfloat_matrix_inverse,
+    qfloat_matrix_inverse_packed_io,
+    qfloat_matrix_inverse_with_overflow,
+)
+from ..models.marshal import (
+    float_matrix_to_mags_and_signs,
+    float_matrix_to_qfloat_arrays,
+    mags_and_signs_to_float_matrix,
+    qfloat_and_signs_arrays_to_float_matrix,
+)
+
+
+def _check_io(io, track_overflow):
+    """The reference's ``ValueError``s for ``io`` and ``track_overflow``."""
+    if io not in ("digits", "packed"):
+        raise ValueError("io must be digits|packed")
+    if track_overflow and io != "packed":
+        raise ValueError("track_overflow requires io='packed'")
+
+
+def _target(device, who):
+    """``torch.device(device)``; raises for a CUDA device when there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who} targets a CUDA device and none is available; "
+            'pass device="cpu" to run the plain PyTorch path'
+        )
+    return device
+
+
+def _circuit(params: QFloatParams, io: str, track: bool, lowering=None):
+    """The circuit body of one configuration: device tensors in, device
+    tensors out; ``lowering`` overrides the params' own."""
+    p = params
+    args = dict(n=p.n, qfloat_len=p.qfloat_len, qfloat_ints=p.qfloat_ints,
+                qfloat_base=p.qfloat_base, true_division=p.true_division,
+                lowering=lowering or p.lowering)
+    if io == "digits":
+        return functools.partial(qfloat_matrix_inverse, backend="packed", **args)
+    fn = qfloat_matrix_inverse_with_overflow if track else qfloat_matrix_inverse_packed_io
+    return functools.partial(fn, **args)
+
+
+def _quantize(params: QFloatParams, io: str, matrices):
+    """Host float64 (..., n, n) -> the circuit's numpy inputs: digits
+    ``(..., n*n, len)`` and signs for digit I/O, magnitudes and signs
+    ``(..., n*n)`` for packed I/O."""
+    p = params
+    fn = float_matrix_to_qfloat_arrays if io == "digits" else float_matrix_to_mags_and_signs
+    return fn(matrices, p.qfloat_len, p.qfloat_ints, p.qfloat_base)
+
+
+def _dequantize(params: QFloatParams, io: str, out):
+    """Host numpy circuit outputs -> float64 (..., n, n)."""
+    p = params
+    if io == "digits":
+        return qfloat_and_signs_arrays_to_float_matrix(out, p.qfloat_ints, p.qfloat_base)
+    return mags_and_signs_to_float_matrix(out[0], out[1], p.qfloat_len, p.qfloat_ints,
+                                          p.qfloat_base)
+
+
+class EncryptedMatrixInversion:
+    """Single-matrix inversion with the reference's lifecycle (reference
+    main.py:17-116), on ``device`` (default ``"cuda"``; without a CUDA
+    device the constructor raises, and the CPU is used only when asked for
+    by name).
+
+    ``keygen`` is a no-op, ``quantize`` gives host numpy arrays,
+    ``encrypt`` puts them on the device as int64 tensors, ``evaluate`` runs
+    the circuit there (on CUDA, K1 for n <= 12 and the op-by-op path
+    beyond), ``decrypt`` brings the result back as numpy (a tuple for packed
+    io) and ``dequantize`` gives the float64 (n, n) inverse; ``run`` chains
+    them.  ``run(M, simulate=True)`` runs the same circuit op by op
+    (``lowering="unroll"``) on the same device: the port's counterpart of the
+    reference's uncompiled eager body, which on the card holds K1 against
+    the op-by-op kernels K2 and K4.
+    """
+
+    def __init__(
+        self,
+        n,
+        sampler: Optional[Callable] = None,
+        qfloat_base=2,
+        qfloat_len=32,
+        qfloat_ints=16,
+        true_division=False,
+        tensorize=False,
+        backend="auto",
+        io="digits",
+        track_overflow=False,
+        *,
+        device="cuda",
+    ):
+        """The arguments up to ``track_overflow`` are the reference's, in its
+        order (``matrix_inversion_tpu/runtime/api.py:146-158``).
+        ``tensorize`` only regroups limb-backend ops and changes nothing
+        here.  ``track_overflow=True`` (packed io only): ``run`` returns
+        ``(inverse, overflowed)`` with a scalar int overflow flag."""
+        self.shape = (n, n)
+        self.params = QFloatParams(
+            n=n,
+            qfloat_len=qfloat_len,
+            qfloat_ints=qfloat_ints,
+            qfloat_base=qfloat_base,
+            true_division=true_division,
+            backend=backend,
+        )
+        self.backend = self.params.resolve_backend()
+        _check_io(io, track_overflow)
+        self.io = io
+        self.track_overflow = bool(track_overflow)
+        if sampler is not None:
+            # the reference's input-set validation (reference main.py:41-46)
+            for _ in range(3):
+                sample = sampler()
+                assert isinstance(sample, np.ndarray)
+                assert np.issubdtype(sample.dtype, np.floating)
+                assert sample.shape == self.shape
+        self.device = _target(device, "EncryptedMatrixInversion")
+        self.circuit = _circuit(self.params, io, self.track_overflow)
+        self._simulate = _circuit(self.params, io, self.track_overflow, lowering="unroll")
+
+    # ---- lifecycle steps (reference main.py:68-91) ------------------------
+    def keygen(self):
+        """FHE key generation has no counterpart; kept for API parity."""
+        return None
+
+    def quantize(self, matrix: np.ndarray):
+        """(n, n) float64 -> host numpy (digits (n*n, len) or magnitudes
+        (n*n,), and signs (n*n,))."""
+        return _quantize(self.params, self.io, matrix)
+
+    def encrypt(self, quantized_matrix, qfloat_signs):
+        """Commit the quantized matrix to the device as int64 tensors."""
+        return (
+            torch.as_tensor(quantized_matrix, dtype=torch.int64).to(self.device),
+            torch.as_tensor(qfloat_signs, dtype=torch.int64).to(self.device),
+        )
+
+    def evaluate(self, encrypted):
+        return self.circuit(*encrypted)
+
+    def decrypt(self, encrypted_result):
+        """Device result -> numpy on the host (a tuple for packed io)."""
+        if isinstance(encrypted_result, tuple):
+            return tuple(o.cpu().numpy() for o in encrypted_result)
+        return encrypted_result.cpu().numpy()
+
+    def dequantize(self, quantized_inverted_matrix):
+        """Host numpy result -> (n, n) float64, and with tracking the int flag."""
+        matrix = _dequantize(self.params, self.io, quantized_inverted_matrix)
+        if self.track_overflow:
+            return matrix, int(quantized_inverted_matrix[2])
+        return matrix
+
+    def run(self, matrix: np.ndarray, simulate=False):
+        """Invert one matrix.  Returns the (n, n) inverse, or
+        ``(inverse, overflowed)`` when ``track_overflow`` is set."""
+        assert np.issubdtype(matrix.dtype, np.floating)
+        assert matrix.shape == self.shape
+        encrypted = self.encrypt(*self.quantize(matrix))
+        circuit = self._simulate if simulate else self.circuit
+        out = self.dequantize(self.decrypt(circuit(*encrypted)))
+        inverted = out[0] if self.track_overflow else out
+        assert np.issubdtype(inverted.dtype, np.floating)
+        assert inverted.shape == self.shape
+        return out
 
 
 class BatchedMatrixInversion:
@@ -21,16 +196,19 @@ class BatchedMatrixInversion:
     (default ``"cuda"``; without a CUDA device the constructor raises, and
     the CPU is used only when asked for by name).
 
-    The stages are ``quantize`` (host float64 -> int64 magnitudes and signs
-    on the device), ``run_raw`` (device tensors in, device tensors out,
-    asynchronous on CUDA) and ``dequantize`` (device -> host float64);
-    ``run`` chains the three.  On a CUDA device ``lowering="auto"`` runs
-    the fused kernel (ops/fused_inverse.py) for n <= 12 and the op-by-op
-    path beyond, whose divisions go through the K2/K3 kernels and whose
-    untracked base-2 multiplies go through K4 (ops/long_division.py); "unroll", "vec" and "scan" run the op-by-op
-    path at any n.
+    The stages are ``quantize`` (host float64 -> int64 tensors on the
+    device: digits ``(B, n*n, len)`` and signs ``(B, n*n)`` for
+    ``io="digits"``, magnitudes and signs ``(B, n*n)`` for ``io="packed"``),
+    ``run_raw`` (device tensors in, device tensors out, asynchronous on
+    CUDA) and ``dequantize`` (device -> host float64); ``run`` chains the
+    three.  On a CUDA device ``lowering="auto"`` runs the fused kernel
+    (ops/fused_inverse.py) for n <= 12 and the op-by-op path beyond, whose
+    divisions go through the K2/K3 kernels and whose untracked base-2
+    multiplies go through K4 (ops/long_division.py); "unroll", "vec" and
+    "scan" run the op-by-op path at any n.  Digit I/O packs and unpacks
+    around the same circuit on the device.
 
-    ``track_overflow=True`` runs the tracked circuit
+    ``track_overflow=True`` (packed io only) runs the tracked circuit
     (``qfloat_matrix_inverse_with_overflow``, on CUDA the tracked kernel):
     ``run_raw`` then returns ``(mags, signs, flags)`` and ``dequantize`` and
     ``run`` return ``(inverses, flags)``, ``flags`` a numpy int32 ``(B,)``
@@ -42,7 +220,7 @@ class BatchedMatrixInversion:
         params: QFloatParams,
         batch_size: int,
         backend: str = "auto",
-        io: str = "packed",
+        io: str = "digits",
         in_shardings=None,
         out_shardings=None,
         donate: bool = False,
@@ -52,21 +230,14 @@ class BatchedMatrixInversion:
         device="cuda",
     ):
         """The arguments up to ``track_overflow`` are the reference's, in
-        its order (``matrix_inversion_tpu/runtime/api.py:297-308``), so a
-        positional call means the same in both.  ``io`` defaults to
-        ``"packed"``, the one form ported (the reference's default is
-        ``"digits"``).  ``donate`` is accepted and does nothing: eager
-        PyTorch has no buffers to donate.  ``data_parallel=None`` (auto)
-        and ``False`` both mean one device; ``True`` and the shardings
-        raise until multi-device batching is ported."""
-        if io not in ("digits", "packed"):
-            raise ValueError("io must be digits|packed")
-        if track_overflow and io != "packed":
-            raise ValueError("track_overflow requires io='packed'")
-        if io == "digits":
-            raise NotImplementedError(
-                "io='digits' is not ported yet (ROADMAP queue 1, item 7)"
-            )
+        its order and with its defaults
+        (``matrix_inversion_tpu/runtime/api.py:297-308``), so a positional
+        call means the same in both.  ``donate`` is accepted and does
+        nothing: eager PyTorch has no buffers to donate.
+        ``data_parallel=None`` (auto) and ``False`` both mean one device;
+        ``True`` and the shardings raise until multi-device batching is
+        ported."""
+        _check_io(io, track_overflow)
         if data_parallel or in_shardings is not None or out_shardings is not None:
             raise NotImplementedError(
                 "multi-device batching is not ported yet (ROADMAP queue 1, item 10)"
@@ -75,56 +246,41 @@ class BatchedMatrixInversion:
             params = params.replace(backend=backend)
         params.resolve_backend()
         self.params = params
+        self.io = io
         self.batch_size = int(batch_size)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "BatchedMatrixInversion targets a CUDA device and none is available; "
-                'pass device="cpu" to run the plain PyTorch path'
-            )
+        self.device = _target(device, "BatchedMatrixInversion")
         self.track_overflow = bool(track_overflow)
+        self._circuit = _circuit(params, io, self.track_overflow)
 
     def quantize(self, matrices: np.ndarray):
-        """(B, n, n) float64 -> ((B, n*n) int64 magnitudes, signs) on the device."""
-        p = self.params
-        mags, signs = float_matrix_to_mags_and_signs(
-            matrices, p.qfloat_len, p.qfloat_ints, p.qfloat_base
-        )
-        return (
-            torch.from_numpy(mags).to(self.device),
-            torch.from_numpy(signs).to(self.device),
-        )
+        """(B, n, n) float64 -> the circuit's two int64 input tensors on the device."""
+        return tuple(torch.from_numpy(a).to(self.device)
+                     for a in _quantize(self.params, self.io, matrices))
 
     def dequantize(self, out):
-        """(magnitudes, signs) device tensors -> (B, n, n) float64 on the
-        host; with tracking, (magnitudes, signs, flags) -> (inverses,
-        int32 flags)."""
-        p = self.params
-        matrices = mags_and_signs_to_float_matrix(
-            out[0].cpu().numpy(), out[1].cpu().numpy(),
-            p.qfloat_len, p.qfloat_ints, p.qfloat_base,
-        )
+        """Device output -> (B, n, n) float64 on the host; with tracking,
+        (magnitudes, signs, flags) -> (inverses, int32 flags)."""
+        if self.io == "digits":
+            return _dequantize(self.params, self.io, out.cpu().numpy())
+        matrices = _dequantize(self.params, self.io, [o.cpu().numpy() for o in out[:2]])
         if self.track_overflow:
             return matrices, out[2].cpu().numpy()
         return matrices
 
-    def run_raw(self, mags, signs):
-        """Device input tensors -> device output tensors."""
+    def run_raw(self, a, signs):
+        """Device input tensors (digits or magnitudes, and signs) -> device
+        output tensors."""
         p = self.params
         shape = (self.batch_size, p.n * p.n)
-        if mags.shape != shape or signs.shape != shape:
-            raise ValueError(f"expected mags and signs of shape {shape}")
-        for t in (mags, signs):
+        a_shape = shape + ((p.qfloat_len,) if self.io == "digits" else ())
+        if a.shape != a_shape or signs.shape != shape:
+            raise ValueError(f"expected inputs of shapes {a_shape} and {shape}")
+        for t in (a, signs):
             if t.device.type != self.device.type or self.device.index not in (
                 None, t.device.index
             ):
                 raise ValueError(f"expected tensors on {self.device}, got {t.device}")
-        fn = (qfloat_matrix_inverse_with_overflow if self.track_overflow
-              else qfloat_matrix_inverse_packed_io)
-        return fn(
-            mags, signs, p.n, p.qfloat_len, p.qfloat_ints, p.qfloat_base,
-            p.true_division, lowering=p.lowering,
-        )
+        return self._circuit(a, signs)
 
     def run(self, matrices: np.ndarray):
         """Invert a (B, n, n) float batch; returns the (B, n, n) inverses,

@@ -36,7 +36,8 @@ def measure(package, shapes=SHAPES, device="cuda"):
     rows = []
     for label, n, batch, track, samples in shapes:
         p = package.HIGH.replace(n=n)
-        inv = package.BatchedMatrixInversion(p, batch, device=device, track_overflow=track)
+        inv = package.BatchedMatrixInversion(p, batch, io="packed", device=device,
+                                             track_overflow=track)
         mags, signs = inv.quantize(np.random.RandomState(0).randn(batch, n, n) * 100)
         inv.run_raw(mags, signs)
         torch.cuda.synchronize()

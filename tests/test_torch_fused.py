@@ -141,7 +141,7 @@ def test_batched_api_matches_jax_end_to_end():
     p = mt.HIGH.replace(n=3)
     B = 16
     M = np.random.RandomState(5).randn(B, 3, 3) * 100
-    port = mt.BatchedMatrixInversion(p, B, device="cpu", backend="packed")
+    port = mt.BatchedMatrixInversion(p, B, device="cpu", backend="packed", io="packed")
     ref = JaxBatched(mi.HIGH.replace(n=3), B, backend="packed", io="packed")
     got = port.run(M)
     np.testing.assert_array_equal(got, ref.run(M))
@@ -155,7 +155,7 @@ def test_batched_api_matches_jax_end_to_end():
 @pytest.mark.parametrize(
     "kw,match",
     [
-        ({"io": "digits"}, "item 7"),
+        ({"out_shardings": object()}, "item 10"),
         ({"data_parallel": True}, "item 10"),
         ({"in_shardings": object()}, "item 10"),
     ],
@@ -204,17 +204,18 @@ def test_batched_api_track_overflow():
     p = mt.HIGH.replace(n=4)
     M = np.random.RandomState(8).randn(8, 4, 4) * 100
     M[3] = 0.0  # singular: the divisions by zero saturate and flag
-    tracked = mt.BatchedMatrixInversion(p, 8, device="cpu", track_overflow=True)
+    tracked = mt.BatchedMatrixInversion(p, 8, io="packed", device="cpu", track_overflow=True)
     inv, flags = tracked.run(M)
     assert flags.dtype == np.int32 and flags.shape == (8,)
     assert flags[3] == 1 and flags.sum() < 8
-    np.testing.assert_array_equal(inv, mt.BatchedMatrixInversion(p, 8, device="cpu").run(M))
+    np.testing.assert_array_equal(
+        inv, mt.BatchedMatrixInversion(p, 8, io="packed", device="cpu").run(M))
     ok = flags == 0
     assert np.max(np.abs(inv[ok] - np.linalg.inv(M[ok]))) < 1e-3
 
 
 def test_batched_api_checks_inputs():
-    inv = mt.BatchedMatrixInversion(mt.LOW.replace(n=2), 4, device="cpu")
+    inv = mt.BatchedMatrixInversion(mt.LOW.replace(n=2), 4, io="packed", device="cpu")
     with pytest.raises(ValueError, match="shape"):
         inv.run(np.zeros((3, 2, 2)))
     with pytest.raises(ValueError, match="shape"):

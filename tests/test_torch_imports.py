@@ -25,7 +25,8 @@ def test_port_sources_found():
     assert {"__init__.py", "ops/fused_inverse.py", "ops/emit.py", "ops/long_division.py",
             "ops/cuda_build.py", "runtime/api.py", "utils/__init__.py", "utils/samplers.py",
             "utils/timing.py", "utils/profiling.py", "utils/ubench.py",
-            "utils/roofline.py"} <= names
+            "utils/roofline.py", "ops/radix.py", "models/lu_float.py", "models/marshal.py",
+            "models/inverse.py"} <= names
 
 
 @pytest.mark.parametrize(

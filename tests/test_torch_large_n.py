@@ -104,13 +104,13 @@ def test_batched_api_scan_matches_jax():
     there the JAX package's small-batch quantize route leaves magnitudes
     untidy (ROADMAP queue 3), and the port follows its native route."""
     M = _matrices(out_of_range=False)
-    port = mt.BatchedMatrixInversion(P.replace(lowering="scan"), B, device="cpu")
+    port = mt.BatchedMatrixInversion(P.replace(lowering="scan"), B, io="packed", device="cpu")
     ref = JaxBatched(mi.LOW.replace(n=N, lowering="scan"), B, backend="packed", io="packed")
     got = port.run(M)
     np.testing.assert_array_equal(got, ref.run(M))
     assert np.isfinite(got).all()
     assert np.max(np.abs(got[4:] - np.linalg.inv(M[4:]))) < 1e-2
-    tracked = mt.BatchedMatrixInversion(P.replace(lowering="scan"), B, device="cpu",
+    tracked = mt.BatchedMatrixInversion(P.replace(lowering="scan"), B, io="packed", device="cpu",
                                         track_overflow=True)
     got_t, flags = tracked.run(M)
     np.testing.assert_array_equal(got_t, got)

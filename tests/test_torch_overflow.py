@@ -380,7 +380,7 @@ def test_tracking_leaves_values_unchanged():
 def test_batched_api_matches_jax():
     p = mt.HIGH.replace(n=3)
     M = overflowy_batch(3, seed=12)
-    port = mt.BatchedMatrixInversion(p, 12, device="cpu", track_overflow=True)
+    port = mt.BatchedMatrixInversion(p, 12, io="packed", device="cpu", track_overflow=True)
     ref = JaxBatched(mi.HIGH.replace(n=3), 12, backend="packed", io="packed", track_overflow=True)
     got_inv, got_flags = port.run(M)
     ref_inv, ref_flags = ref.run(M)
