@@ -53,6 +53,21 @@ HIGH n = 2..5, untracked and tracked.  A kernel's bound is the least work
 known for its function (bytes, or instructions by the cheapest exact way
 known) and must stay under every time measured for that function; what the
 kernel's own code issues is printed beside it, for K2, K3 and K4 too.
+Then the serving pipeline and the user's tools: the native marshaller
+(``csrc/qmarshal.cc``, built with g++ in the same parallel step) against
+the numpy route bit for bit on the main path's batch (packed) and at the
+digit path's (digits); ``StreamingInverter`` at HIGH n=4 over 1,048,576
+matrices a batch, packed (6 batches; 3 tracked) and digit I/O (3 batches of
+262,144), every batch equal to ``inv.run`` and K1 launched once a batch; a
+producer failure in the third batch raised after two results; the e2e
+benchmark (``utils/run_benchmarks.py::e2e``: the device alone, and the native
+and numpy routes, serial and streamed; its dict on one line); the CLI
+(``python -m matrix_inversion_tpu_torch --sizes 2,3,5 --preset low``,
+plain, ``--simulate`` and ``--batch 4``, in subprocesses); the reference's
+10,000-inversion error sweep at LOW n=3, whose first batch equals the
+CPU's; and ``run_qfloat_inverse``, ``compare_plu`` and ``debug_inverse`` on
+one HIGH n=4 matrix against the CPU.
+
 Any failure raises.  The last line is one JSON object naming
 the device.  Imports nothing of JAX.
 """
@@ -60,6 +75,7 @@ the device.  Imports nothing of JAX.
 import concurrent.futures
 import functools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -85,9 +101,24 @@ from matrix_inversion_tpu_torch import (
     set_division_impl,
 )
 from matrix_inversion_tpu_torch.models.inverse import digit_output
-from matrix_inversion_tpu_torch.models.marshal import float_matrix_to_mags_and_signs
-from matrix_inversion_tpu_torch.ops import fused_inverse, long_division, packed
-from matrix_inversion_tpu_torch.utils import division_steps, fused_steps, roofline, sass, ubench
+from matrix_inversion_tpu_torch.models.marshal import (
+    float_matrix_to_mags_and_signs,
+    mags_and_signs_to_float_matrix,
+    qfloat_and_signs_arrays_to_float_matrix,
+)
+from matrix_inversion_tpu_torch.ops import cuda_build, fused_inverse, long_division, packed
+from matrix_inversion_tpu_torch.runtime import native
+from matrix_inversion_tpu_torch.runtime.stream import StreamingInverter
+from matrix_inversion_tpu_torch.utils import (
+    debug,
+    division_steps,
+    fused_steps,
+    precision,
+    roofline,
+    run_benchmarks,
+    sass,
+    ubench,
+)
 from matrix_inversion_tpu_torch.utils.profiling import device_trace
 from matrix_inversion_tpu_torch.utils.timing import card_name_and_limit, card_state, timed_chain
 
@@ -111,6 +142,26 @@ K2_LAUNCHES = {4: 22, 16: 376}
 # K2's and K4's launches in each of qfloat_lu_L and qfloat_lu_U at HIGH,
 # by n: the LU half of the circuit
 LU_LAUNCHES = {4: {"long_division_float": 6, "mul_window": 14}}
+
+# The serving phase: the stream at the main path's batch (6 batches, 3
+# tracked) and at the digit path's (3), the e2e benchmark at the main path's
+# batch in 4 batches of 2 passes a leg (the JAX benchmark's defaults are 8 and
+# 3: cut to keep the phase near a minute), the reference's 10,000-inversion
+# sweep, whose first batch is held to the CPU, and the CLI at sizes 2, 3, 5:
+# its default 2,3,5,10 would build K1 at LOW n=10, which takes nvcc minutes
+# and was never checked against its plain version (ROADMAP R5).
+SERVE_BATCHES = 6
+SERVE_TRACKED_BATCHES = 3
+SERVE_DIGIT_BATCHES = 3
+E2E_BATCHES = 4
+E2E_REPEATS = 2
+STEADY_BATCHES = 16  # the stream once more, after a warm run, on the same batch
+STAGE_PASSES = 3
+PRECISION_N = 10_000
+PRECISION_CHECK = 2048  # precision_benchmark's batch: its first call
+CLI_SIZES = (2, 3, 5)
+CLI_RUNS = ((), ("--simulate",), ("--batch", "4"))
+CLI_TIMEOUT_S = 600
 
 # The probes: rows of 128 elements, chains per element, the three K values
 # whose two differences must agree (a cell primitive is hundreds of
@@ -829,6 +880,235 @@ def digit_paths(dev, card, batch=DIGIT_BATCH, check_batch=CHECK_BATCH, large_n=L
               "bit for bit")
 
 
+def both_routes(fn):
+    """``(native result, numpy result, native s, numpy s)`` of ``fn()``, run
+    once through the native marshaller and once with it switched off."""
+    t0 = time.perf_counter()
+    a = fn()
+    native_s = time.perf_counter() - t0
+    saved, native._LIB = native._LIB, False
+    try:
+        t0 = time.perf_counter()
+        b = fn()
+        numpy_s = time.perf_counter() - t0
+    finally:
+        native._LIB = saved
+    return a, b, native_s, numpy_s
+
+
+def same_arrays(a, b):
+    a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def streamed(label, inv, batches, expected, card):
+    """Drive ``StreamingInverter(inv)`` over ``batches`` with the launch
+    counts set to 0 just before and read just after; raise unless every
+    yielded batch equals ``inv.run`` of it bit for bit and the kernel named
+    in ``expected`` ran once per batch.  Returns the results."""
+    reset_counts()
+    t0 = time.perf_counter()
+    results = list(StreamingInverter(inv, depth=2, finish_workers=2).run(batches))
+    if inv.device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = counts()
+    expect_launches(f"stream {label}", got, **{expected: len(batches)})
+    assert len(results) == len(batches)
+    for k, (M, r) in enumerate(zip(batches, results)):
+        assert same_arrays(r, inv.run(M)), f"stream {label}: batch {k} != inv.run"
+    matrices = len(batches) * inv.batch_size
+    print(f"stream {label}: {len(batches)} batches of {inv.batch_size}, depth 2, 2 finish "
+          f"workers: launches {got}; every batch == inv.run bit for bit; host clock "
+          f"{seconds:.3f} s = {matrices / seconds:.4e} inversions/s, first batch's pinned "
+          f"allocations included ({card})")
+    return results
+
+
+def stream_stages(card, inv, M, passes=STAGE_PASSES, steady=STEADY_BATCHES):
+    """Host-clock seconds of each stage of one streamed packed batch, alone
+    (median of ``passes``): quantize into pinned buffers and into new
+    arrays, the pinned H2D copy, ``run_raw``, the D2H copy into pinned
+    memory, dequantize; then the stream over ``steady`` copies of ``M``
+    after a warm run (its pinned buffers come from the caching allocator)."""
+    dev = inv.device
+
+    def seconds(fn):
+        samples = []
+        for _ in range(passes):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples.append(time.perf_counter() - t0)
+        return statistics.median(samples)
+
+    t0 = time.perf_counter()
+    ring = tuple(torch.empty(s, dtype=torch.int64, pin_memory=True) for s in inv.input_shapes())
+    alloc_s = time.perf_counter() - t0
+    ring_np = tuple(h.numpy() for h in ring)
+    stages = {"quantize into pinned": lambda: inv._host_quantize(M, out=ring_np),
+              "quantize into new arrays": lambda: inv._host_quantize(M)}
+    args = tuple(h.to(dev) for h in ring)
+    stages["H2D, pinned"] = lambda: [h.to(dev, non_blocking=True) for h in ring]
+    out = inv.run_raw(*args)
+    stages["run_raw"] = lambda: inv.run_raw(*args)
+    pinned_out = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in out)
+    stages["D2H, into pinned"] = lambda: [h.copy_(o, non_blocking=True)
+                                          for h, o in zip(pinned_out, out)]
+    host_out = tuple(h.numpy() for h in pinned_out)
+    stages["dequantize"] = lambda: inv._host_dequantize(host_out)
+    timed = {label: seconds(fn) for label, fn in stages.items()}
+    list(StreamingInverter(inv).run([M] * 2))  # warm: the pinned pool holds the ring
+    t0 = time.perf_counter()
+    count = sum(r.shape[0] for r in StreamingInverter(inv).run([M] * steady))
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    assert count == steady * inv.batch_size
+    print(f"stream stages, HIGH n=4 packed, B={inv.batch_size}, host clock, median of {passes} "
+          f"(s): pinned allocation of one input slot {alloc_s:.4f} (first use); "
+          + ", ".join(f"{label} {s:.4f}" for label, s in timed.items())
+          + f"; the stream over {steady} batches after a warm run: {stream_s:.3f} s = "
+          f"{stream_s / steady:.4f} s a batch = {count / stream_s:.4e} inversions/s "
+          f"({os.cpu_count()} host cores; {card})")
+
+
+def run_cli(flags):
+    """``python -m matrix_inversion_tpu_torch`` at CLI_SIZES, LOW preset, on
+    the card: started, and a function that waits for it (killing it past
+    the time limit) and returns its standard output."""
+    cmd = [sys.executable, "-m", "matrix_inversion_tpu_torch", "--sizes",
+           ",".join(map(str, CLI_SIZES)), "--preset", "low", *flags]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def wait():
+        try:
+            out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        assert proc.returncode == 0, f"{' '.join(cmd)} exited {proc.returncode}:\n{err}"
+        lines = [line for line in out.splitlines() if "Error:" in line]
+        assert sum(line.startswith("Average Error:") for line in lines) == 2 * len(CLI_SIZES), \
+            f"{' '.join(cmd)}: {out}"
+        return " ".join(flags) or "(no flags)", lines
+
+    return wait
+
+
+def serving_paths(dev, card, M, out, batch=MAIN_BATCH, digit_batch=DIGIT_BATCH,
+                  batches=SERVE_BATCHES, tracked_batches=SERVE_TRACKED_BATCHES,
+                  digit_batches=SERVE_DIGIT_BATCHES, e2e_batches=E2E_BATCHES,
+                  e2e_repeats=E2E_REPEATS, precision_n=PRECISION_N, check=PRECISION_CHECK):
+    """The serving pipeline and the user's tools on the card: the native
+    marshaller against the numpy route bit for bit (packed on the main
+    path's matrices ``M`` and output ``out``, digits at ``digit_batch``);
+    ``StreamingInverter`` at HIGH n=4, packed (untracked and tracked) and
+    digit I/O, each batch == ``inv.run`` and K1 once per batch, and a
+    producer failure raised after two results; the e2e benchmark; the CLI in
+    three subprocesses; the reference's error sweep, its first batch == the
+    CPU's; and the debug tools on one matrix == the CPU.  Returns the e2e
+    dict."""
+    p = HIGH.replace(n=4)
+    fmt = (p.qfloat_len, p.qfloat_ints, p.qfloat_base)
+    clis = [run_cli(flags) for flags in CLI_RUNS]  # they run while the rest does
+
+    # -- the native marshaller against the numpy route, bit for bit
+    host_out = tuple(o.cpu().numpy() for o in out)
+    DM = M[:digit_batch]
+    dinv = BatchedMatrixInversion(p, digit_batch, io="digits", device=dev)
+    digit_out = dinv.run_raw(*dinv.quantize(DM)).cpu().numpy()
+    for label, fn, size in (
+        ("packed quantize", lambda: float_matrix_to_mags_and_signs(M, *fmt), M.shape[0]),
+        ("packed dequantize", lambda: mags_and_signs_to_float_matrix(*host_out, *fmt), M.shape[0]),
+        ("digit quantize", lambda: float_matrix_to_qfloat_arrays(DM, *fmt), digit_batch),
+        ("digit dequantize",
+         lambda: qfloat_and_signs_arrays_to_float_matrix(digit_out, *fmt[1:]), digit_batch),
+    ):
+        a, b, native_s, numpy_s = both_routes(fn)
+        assert same_arrays(a, b), f"{label}: the native route != the numpy route"
+        print(f"marshal {label} HIGH n=4 B={size}: native == numpy bit for bit (dtypes and "
+              f"shapes too); host clock native {native_s:.4f} s, numpy {numpy_s:.4f} s, "
+              f"{numpy_s / native_s:.2f}x ({os.cpu_count()} host cores; {card})")
+
+    # -- StreamingInverter: packed, tracked, digits; then a producer failure
+    inv = BatchedMatrixInversion(p, batch, io="packed", device=dev)
+    rng = np.random.RandomState(90)
+    Ms = [rng.randn(batch, 4, 4) * 100 for _ in range(batches)]
+    results = streamed("HIGH n=4 packed", inv, Ms, "fused_inverse", card)
+    tinv = BatchedMatrixInversion(p, batch, io="packed", track_overflow=True, device=dev)
+    TMs = [overflowy(rng, batch, 4, 1024) for _ in range(tracked_batches)]
+    tracked = streamed("HIGH n=4 packed tracked", tinv, TMs, "fused_inverse_tracked", card)
+    assert all(r[1][:2048].all() for r in tracked), "stream: overflowy rows not flagged"
+    streamed("HIGH n=4 digits", dinv, [rng.randn(digit_batch, 4, 4) * 100
+                                       for _ in range(digit_batches)], "fused_inverse", card)
+    got = []
+    try:
+        for r in StreamingInverter(inv, depth=2, finish_workers=2).run(
+                [Ms[0], Ms[1], "not a matrix"]):
+            got.append(r)
+    except RuntimeError as exc:
+        assert "producer failed" in str(exc) and isinstance(exc.__cause__, ValueError), exc
+    else:
+        raise AssertionError("stream: a producer failure in the third batch was not raised")
+    assert len(got) == 2 and all(np.array_equal(g, r) for g, r in zip(got, results)), \
+        "stream: the two batches before the failure were not delivered"
+    print("stream: a producer failure in the third batch raised RuntimeError ('producer "
+          "failed', from the ValueError) after two results, both == the stream's own")
+
+    # -- the CLI, started at the top of the phase: done before the stage
+    # timings' and the e2e benchmark's host clocks start
+    for wait in clis:
+        flags, lines = wait()
+        print(f"CLI python -m matrix_inversion_tpu_torch --sizes "
+              f"{','.join(map(str, CLI_SIZES))} --preset low {flags}: exit 0; "
+              + "; ".join(line.strip() for line in lines if line.startswith("Average")))
+    if dev.type == "cuda":
+        stream_stages(card, inv, Ms[0])
+    del Ms, results, TMs, tracked, got
+
+    # -- the e2e benchmark: the device alone, then each marshalling route serial
+    # and streamed
+    t0 = time.perf_counter()
+    e2e = run_benchmarks.e2e("high", 4, batch, e2e_batches, 2, e2e_repeats, 2, device=dev)
+    print(f"e2e: host clock {time.perf_counter() - t0:.1f} s; {e2e_batches} batches a pass, "
+          f"{e2e_repeats} passes a leg (the JAX benchmark's defaults: 8 and 3) ({card})")
+
+    # -- the reference's error sweep: its first batch == the CPU's
+    lp = LOW.replace(n=3)
+    stats, got_counts = launches_of(
+        lambda: precision.precision_benchmark(lp, N=precision_n, batch_size=check, device=dev))
+    expect_launches("precision_benchmark", got_counts, fused_inverse=-(-precision_n // check))
+    card_errors = precision.precision_errors(lp, N=check, batch_size=check, device=dev)
+    cpu_errors = precision.precision_errors(lp, N=check, batch_size=check, device="cpu")
+    assert np.array_equal(card_errors, cpu_errors), "precision sweep: the card != the CPU"
+    print(f"precision_benchmark LOW n=3 N={precision_n}: {stats}; launches {got_counts}; the "
+          f"first {check} per-matrix errors == the CPU run's bit for bit")
+
+    # -- the debug tools on one HIGH n=4 matrix, against the CPU
+    A = np.random.RandomState(91).randn(4, 4) * 100
+    for fn, want in ((debug.run_qfloat_inverse, {"fused_inverse": 1}),
+                     (debug.compare_plu, LU_LAUNCHES[4]),
+                     (debug.debug_inverse, {"long_division_float": K2_LAUNCHES[4],
+                                            "mul_window": K4_LAUNCHES[4]})):
+        kw = {} if fn is debug.run_qfloat_inverse else {"verbose": False}
+        card_out, got_counts = launches_of(lambda: fn(A, p, device=dev, **kw))
+        expect_launches(fn.__name__, got_counts, **want)
+        cpu_out = fn(A, p, device="cpu", **kw)
+        if isinstance(card_out, dict):
+            assert card_out.keys() == cpu_out.keys()
+            for key, pair in card_out.items():
+                assert pair == cpu_out[key] if key == "max_dev" else all(
+                    np.array_equal(x, y) for x, y in zip(pair, cpu_out[key])), \
+                    f"{fn.__name__} {key}: the card != the CPU"
+        else:
+            assert np.array_equal(card_out, cpu_out), f"{fn.__name__}: the card != the CPU"
+        print(f"{fn.__name__} HIGH n=4, one matrix: launches {got_counts}; == the CPU run")
+    return e2e
+
+
 def time_op_kernels(dev, card, elems=KERNEL_ELEMS, launches=KERNEL_LAUNCHES,
                     call_elems=LARGE_BATCH):
     """K2, K3 and K4 alone and their plain versions at the High divide
@@ -1232,22 +1512,30 @@ def main():
     # one nvcc per library, all started together
     t0 = time.perf_counter()
     tracked_configs = [config_of(p) + (True,) for _, p in TRACKED_CHECKS]
-    with concurrent.futures.ThreadPoolExecutor(max_workers=5) as pool:
+    # K1 at the CLI's LOW sizes too, which its subprocesses then load
+    cli_configs = [config_of(LOW.replace(n=n)) for n in CLI_SIZES]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=6) as pool:
         fused_build = pool.submit(
-            timed_s, fused_inverse.build, [config_of(p) for _, p, _ in CHECKS] + tracked_configs)
+            timed_s, fused_inverse.build,
+            [config_of(p) for _, p, _ in CHECKS] + tracked_configs + cli_configs)
         op_build = pool.submit(timed_s, long_division.build)
         ubench_build = pool.submit(timed_s, ubench.build)
         steps_build = pool.submit(timed_s, division_steps.build)
         k1_steps_build = pool.submit(timed_s, fused_steps.build)
+        native_build = pool.submit(timed_s, native.build)
         fused_s, op_s, ubench_s = fused_build.result(), op_build.result(), ubench_build.result()
         steps_s, k1_steps_s = steps_build.result(), k1_steps_build.result()
-    print(f"build: {len(CHECKS)} fused_inverse + {len(TRACKED_CHECKS)} tracked kernels "
+        native_s = native_build.result()
+    print(f"build: {len(CHECKS)} fused_inverse + {len(TRACKED_CHECKS)} tracked kernels + "
+          f"{len(cli_configs)} at the CLI's sizes (LOW n in {CLI_SIZES}) "
           f"from {fused_inverse.CSRC} with nvcc {' '.join(fused_inverse.NVCC_FLAGS)} "
           f"in {fused_s:.1f} s; long_division + mul_window libraries in {op_s:.1f} s; "
           f"the ubench library ({len(ubench.MIXES)} mixes x C in {ubench.CHAIN_COUNTS}) in "
           f"{ubench_s:.1f} s; the division design-steps library in {steps_s:.1f} s; the "
           f"{len({(t, d) for _, t, d, _ in fused_steps.STEPS})} builds of K1's design steps in "
-          f"{k1_steps_s:.1f} s; all in {time.perf_counter() - t0:.1f} s")
+          f"{k1_steps_s:.1f} s; the native marshaller ({native.SOURCE}) with g++ "
+          f"{' '.join(cuda_build.HOST_FLAGS)} in {native_s:.1f} s; all in "
+          f"{time.perf_counter() - t0:.1f} s")
     main_config = config_of(HIGH.replace(n=4))
     for label, c in (("fused_inverse", main_config), ("fused_inverse_tracked", main_config + (True,))):
         print(f"ptxas {label} HIGH n=4: {ptxas_info(fused_inverse.build_dir(c))}")
@@ -1387,6 +1675,13 @@ def main():
     digit_paths(dev, card)
     print(f"host clock: the digit-I/O paths, checks and timings, {time.perf_counter() - t0:.1f} s")
 
+    # -- the serving pipeline and the user's tools: the native marshaller,
+    # StreamingInverter, the e2e benchmark, the CLI, the error sweep, the debug
+    # tools
+    t0 = time.perf_counter()
+    e2e = serving_paths(dev, card, M, out)
+    print(f"host clock: the serving paths and the user's tools, {time.perf_counter() - t0:.1f} s")
+
     # -- timings (CUDA events, median of REPS after a warm-up)
     t0 = time.perf_counter()
     op_times, reciprocal_times = time_op_kernels(dev, card)
@@ -1489,6 +1784,7 @@ def main():
         12 * ubench_elems, ubench_elems * UBENCH_KS[2] * UBENCH_C * UBENCH_KERNELMIX_INSTR,
         kernelmix_ms, ubench_plain_ms)
 
+    print(f"e2e ({card}): {json.dumps(e2e)}")
     source = "matrix_inversion_tpu_torch/csrc/fused_inverse.cu"
     print(json.dumps({"kernels": [{
         "name": "fused_inverse",

@@ -2,11 +2,14 @@
 QFloat matrices.
 
 Port of ``matrix_inversion_tpu/models/marshal.py`` (``:23-227``) on the
-packed backend.  Every converter takes leading batch dimensions.  Packed
-quantization is the closed form of the native marshaller
+packed backend.  Every converter takes leading batch dimensions.  The host
+converters take the native marshaller (``runtime/native.py``) at 4,096
+values or more, as the JAX package's do, and numpy below that: packed
+quantization is then the closed form of the native marshaller
 (``ops/radix.py::float_to_mags_and_sign``, ``native/qmarshal.cc:119-141``),
-vectorised in numpy, and digit quantization peels the same magnitudes into
-digits (``ops/radix.py::float_to_digits_and_sign``).  The digit-array
+vectorised, and digit quantization peels the same magnitudes into digits
+(``ops/radix.py::float_to_digits_and_sign``).  The quantizers take ``out``,
+arrays to write into (the stream's pinned host buffers).  The digit-array
 "limb" backend is ROADMAP queue 1, item 7b: the converters that build
 QFloat cells take ``backend="packed"`` only.
 """
@@ -19,6 +22,7 @@ import torch
 from ..core.qfloat import QFloatBase, SignedBinary, Zero
 from ..ops import radix
 from ..ops.packed import PackedQFloat, digit_bits
+from ..runtime import native
 
 
 def require_packed(backend):
@@ -30,16 +34,17 @@ def require_packed(backend):
         )
 
 
-def float_matrix_to_qfloat_arrays(M, qfloat_len, qfloat_ints, qfloat_base):
+def float_matrix_to_qfloat_arrays(M, qfloat_len, qfloat_ints, qfloat_base, out=None):
     """Float matrix (..., n, n) -> ((..., n*n, len) int64 digits, (..., n*n)
-    int64 signs), on the host (reference qfloat_matrix_inversion.py:222-236).
+    int64 signs), on the host (reference qfloat_matrix_inversion.py:222-236),
+    written into ``out`` when it is given.
 
     An integer part wider than ``ints`` digits keeps its low digits, and
     the sign of 0.0 is +1.
     """
     M = np.asarray(M, dtype=np.float64)
     flat = M.reshape(M.shape[:-2] + (-1,))
-    return radix.float_to_digits_and_sign(flat, qfloat_len, qfloat_ints, qfloat_base)
+    return radix.float_to_digits_and_sign(flat, qfloat_len, qfloat_ints, qfloat_base, out=out)
 
 
 def qfloat_arrays_to_qfloat_matrix(qfloat_arrays, qfloat_signs, qfloat_ints, qfloat_base,
@@ -99,12 +104,18 @@ def qfloat_and_signs_arrays_to_float_matrix(qfloat_arrays, qfloat_ints, qfloat_b
     host (reference qfloat_matrix_inversion.py:265-283)."""
     arr = np.asarray(qfloat_arrays)
     n = int(np.sqrt(arr.shape[-2]))
-    values = radix.digits_and_sign_to_float(arr[..., :-1], arr[..., -1], qfloat_ints, qfloat_base)
+    if native.routed(arr.size // arr.shape[-1]):
+        # the device's (..., n*n, len+1) int32 layout is the library's own
+        values = native.dequantize_digits(arr, arr.shape[-1] - 1, qfloat_ints, qfloat_base)
+    else:
+        values = radix.digits_and_sign_to_float(arr[..., :-1], arr[..., -1], qfloat_ints,
+                                                qfloat_base)
     return values.reshape(values.shape[:-1] + (n, n))
 
 
-def float_matrix_to_mags_and_signs(M, qfloat_len, qfloat_ints, qfloat_base):
-    """Float matrix (..., n, n) -> ((..., n*n) int64 magnitudes, int64 signs).
+def float_matrix_to_mags_and_signs(M, qfloat_len, qfloat_ints, qfloat_base, out=None):
+    """Float matrix (..., n, n) -> ((..., n*n) int64 magnitudes, int64 signs),
+    written into ``out`` when it is given.
 
     An integer part wider than ``ints`` digits keeps its low digits, and
     the sign of 0.0 is +1.
@@ -112,7 +123,9 @@ def float_matrix_to_mags_and_signs(M, qfloat_len, qfloat_ints, qfloat_base):
     bits = digit_bits(qfloat_base)
     M = np.asarray(M, dtype=np.float64)
     flat = M.reshape(M.shape[:-2] + (-1,))
-    return radix.float_to_mags_and_sign(flat, qfloat_len, qfloat_ints, bits)
+    if native.routed(flat.size):
+        return native.quantize_packed(flat, qfloat_len, qfloat_ints, qfloat_base, *(out or ()))
+    return radix.into(out, radix.float_to_mags_and_sign(flat, qfloat_len, qfloat_ints, bits))
 
 
 def mags_and_signs_to_float_matrix(mags, signs, qfloat_len, qfloat_ints, qfloat_base):
@@ -120,12 +133,15 @@ def mags_and_signs_to_float_matrix(mags, signs, qfloat_len, qfloat_ints, qfloat_
     mags = np.asarray(mags)
     signs = np.asarray(signs)
     n = int(np.sqrt(mags.shape[-1]))
-    frac = qfloat_len - qfloat_ints
-    values = (
-        mags.astype(np.float64)
-        * float(qfloat_base) ** (-frac)
-        * signs.astype(np.float64)
-    )
+    if native.routed(mags.size):
+        values = native.dequantize_packed(mags, signs, qfloat_len, qfloat_ints, qfloat_base)
+    else:
+        frac = qfloat_len - qfloat_ints
+        values = (
+            mags.astype(np.float64)
+            * float(qfloat_base) ** (-frac)
+            * signs.astype(np.float64)
+        )
     return values.reshape(values.shape[:-1] + (n, n))
 
 

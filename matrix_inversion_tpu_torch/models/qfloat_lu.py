@@ -29,6 +29,10 @@ def transpose_2D_list(list2D):
     return [list(row) for row in zip(*list2D)]
 
 
+def map_2D_list(list2D, function):
+    return [[function(x) for x in row] for row in list2D]
+
+
 def binary_list_matrix(M):
     """Wrap a (..., n, n) 0/1 integer tensor as SignedBinary cells."""
     n = M.shape[-1]
@@ -177,9 +181,11 @@ def lu_from_pivot(P, M, qfloat_len, qfloat_ints, true_division=False):
     return P, L, U
 
 
-def qfloat_lu_inverse(P, L, U, qfloat_len, qfloat_ints, true_division=False):
+def qfloat_lu_inverse(P, L, U, qfloat_len, qfloat_ints, true_division=False, debug=False):
     """Inverse from the P, L, U decomposition (reference
-    qfloat_matrix_inversion.py:461-518)."""
+    qfloat_matrix_inversion.py:461-518); with ``debug=True`` returns
+    ``(Minv, Y, X)``, the substitutions' cell matrices beside it, as
+    ``matrix_inversion_tpu/models/qfloat_lu.py:294-335`` does."""
     n = len(L)
 
     # Forward substitution: L * Y = P
@@ -211,6 +217,8 @@ def qfloat_lu_inverse(P, L, U, qfloat_len, qfloat_ints, true_division=False):
             else:
                 X[i][j] = qf_from_mul(temp, Ujj_inv[j], qfloat_len, qfloat_ints)
 
+    if debug:
+        return transpose_2D_list(X), Y, X
     return transpose_2D_list(X)
 
 

@@ -1,10 +1,11 @@
-"""nvcc builds of the port's CUDA sources, shared by every kernel family.
+"""Builds of the port's native sources: nvcc for the CUDA kernels of every
+kernel family, g++ for the host marshaller (``runtime/native.py``).
 
 A library is built at first use from ``csrc/`` into ``_build/<hash>/``
 beside this package, where the hash covers the texts its caller names
 (sources, generated files, flags).  A library already built from the same
-texts is reused.  ``nvcc.log`` beside each library holds ptxas's registers
-and spills.
+texts is reused.  ``nvcc.log`` beside each CUDA library holds ptxas's
+registers and spills (``g++.log`` the host compiler's output).
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# host C++: no contraction of a multiply and an add into an FMA, so that the
+# float64 sums round as numpy's do on every host
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread", "-ffp-contract=off")
 
 
 def _nvcc():
@@ -32,12 +36,13 @@ def _nvcc():
     return path
 
 
-def build_library(source, lib_name, hashed, files=None, what="", flags=()):
+def build_library(source, lib_name, hashed, files=None, what="", flags=(), host=False):
     """Compile ``csrc/<source>`` into ``_build/<hash>/<lib_name>`` and return
     its path.  ``hashed`` is the sequence of texts that keys the build;
     ``files`` maps names to texts written into the build directory first
-    (found there by ``#include``); ``flags`` follow ``NVCC_FLAGS`` (the
-    caller hashes them)."""
+    (found there by ``#include``); ``flags`` follow ``NVCC_FLAGS``, or
+    ``HOST_FLAGS`` for a host library (``host=True``, built with g++); the
+    caller hashes them.  A failed build raises with the compiler's output."""
     digest = hashlib.sha256()
     for text in hashed:
         digest.update(text.encode())
@@ -51,15 +56,17 @@ def build_library(source, lib_name, hashed, files=None, what="", flags=()):
         (out_dir / name).write_text(text)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
+    compiler = ("g++", *HOST_FLAGS) if host else (_nvcc(), *NVCC_FLAGS)
+    name = Path(compiler[0]).name
     cmd = [
-        _nvcc(), *NVCC_FLAGS, *flags, "-I", str(CSRC), "-I", str(out_dir),
+        *compiler, *flags, "-I", str(CSRC), "-I", str(out_dir),
         "-o", tmp, str(CSRC / source),
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {source} {what}:\n{proc.stdout}\n{proc.stderr}")
-    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
+        raise RuntimeError(f"{name} failed for {source} {what}:\n{proc.stdout}\n{proc.stderr}")
+    (out_dir / f"{name}.log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
 

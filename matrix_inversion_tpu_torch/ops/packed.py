@@ -180,8 +180,12 @@ def mags_to_digits(mags, length, bits, out=None):
 @functools.lru_cache(maxsize=None)
 def _constant_word(value, device):
     """A 0-dim int64 tensor holding ``value``, filled on ``device`` once and
-    kept: a reciprocal's dividend, which no caller writes."""
-    return torch.full((), value, dtype=MAG_DTYPE, device=device)
+    kept: a reciprocal's dividend, which no caller writes.  On a card the
+    fill is waited for, so that kernels on any stream may read it."""
+    word = torch.full((), value, dtype=MAG_DTYPE, device=device)
+    if word.is_cuda:
+        torch.cuda.current_stream(word.device).synchronize()
+    return word
 
 
 def _sign_tensor(sign, like):

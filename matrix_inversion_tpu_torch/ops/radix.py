@@ -1,24 +1,31 @@
-"""Host-side radix conversion: floats/ints <-> base-p digit arrays, in numpy.
+"""Host-side radix conversion: floats/ints <-> base-p digit arrays.
 
 Port of ``matrix_inversion_tpu/ops/radix.py:17-151`` (reference
 base_p_arrays.py:11-81), vectorized over a leading batch shape, with the
 same summation orders.  Digit arrays are most-significant-digit first
 (digit j of an ``n``-digit array has place value ``p**(n-1-j)``).
 
-Quantization (:func:`float_to_digits_and_sign`) follows the JAX package's
-native route (``native/qmarshal.cc:60-107``) at every size, as the port's
-packed quantize does: an integer part wider than ``ints`` digits keeps its
-low ``ints`` digits (it is taken mod ``base**ints``), where the JAX radix
-route would return a top digit >= base.  For a power-of-two base with
+The digit quantize and dequantize take the same two routes as the JAX
+package's: at 4,096 values or more the native marshaller
+(``runtime/native.py`` on ``csrc/qmarshal.cc``, multithreaded C++), below
+that numpy, the plain version.  Quantization (:func:`float_to_digits_and_sign`)
+follows the native route's semantics (``native/qmarshal.cc:60-107``) at every
+size: an integer part wider than ``ints`` digits keeps its low ``ints``
+digits (it is taken mod ``base**ints``), where the JAX radix route would
+return a top digit >= base.  In numpy, for a power-of-two base with
 ``bits * len <= 62`` it is the closed form :func:`float_to_mags_and_sign`
 (one scale and truncate, digits peeled by shifts); otherwise the
 reference's float64 multiply-truncate loop, step for step.  On values whose
-integer part fits, both routes of the JAX package and this one agree.
+integer part fits, both routes of the JAX package and this one agree.  The
+dequantize routes sum in different orders and may differ in the last bit at
+bases that are not powers of two, at the same sizes as in the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..runtime import native
 
 
 def int_to_base_p(integers, n: int, p: int) -> np.ndarray:
@@ -97,20 +104,34 @@ def float_to_mags_and_sign(f, length: int, ints: int, bits: int):
     return (int_mag << fp_bits) | frac_mag, signs
 
 
-def float_to_digits_and_sign(f, length: int, ints: int, p: int):
+def into(out, arrays):
+    """``arrays`` as int64: written into ``out`` (a sequence of int64 arrays
+    of their shapes) when it is given, else cast copies where not int64."""
+    if out is None:
+        return tuple(a.astype(np.int64, copy=False) for a in arrays)
+    for o, a in zip(out, arrays):
+        np.copyto(o, a)
+    return tuple(out)
+
+
+def float_to_digits_and_sign(f, length: int, ints: int, p: int, out=None):
     """Quantize (batched) floats to (|digits|, sign) in the QFloat layout:
     ``ints`` integer digits, then ``length - ints`` fraction digits, both
-    int64; the sign of 0.0 is +1 (reference qfloat.py:375-397).
+    int64; the sign of 0.0 is +1 (reference qfloat.py:375-397).  ``out``:
+    int64 digit and sign arrays to write into.
 
     The JAX package's native route at every size (module docstring): an
-    integer part wider than ``ints`` digits keeps its low digits.
+    integer part wider than ``ints`` digits keeps its low digits.  At
+    4,096 values or more the native library computes it (int32, cast).
     """
     f = np.asarray(f, dtype=np.float64)
+    if native.routed(f.size):
+        return into(out, native.quantize_digits(f, length, ints, p))
     bits = p.bit_length() - 1
     if p & (p - 1) == 0 and bits * length <= 62:
         mags, sign = float_to_mags_and_sign(f, length, ints, bits)
         shifts = bits * np.arange(length - 1, -1, -1, dtype=np.int64)
-        return (mags[..., None] >> shifts) & (p - 1), sign
+        return into(out, ((mags[..., None] >> shifts) & (p - 1), sign))
     integer_part = f.astype(np.int64)  # trunc toward zero, like int(f)
     float_part = f - integer_part
     # the low `ints` digits of |integer part|, peeled as the native loop does
@@ -121,13 +142,19 @@ def float_to_digits_and_sign(f, length: int, ints: int, p: int):
         mag = mag // p
     frac_digits = np.abs(float_to_base_p(float_part, length - ints, p))
     sign = np.where(f < 0, -1, 1).astype(np.int64)
-    return np.concatenate([int_digits, frac_digits], axis=-1), sign
+    return into(out, (np.concatenate([int_digits, frac_digits], axis=-1), sign))
 
 
 def digits_and_sign_to_float(digits, sign, ints: int, p: int):
     """Inverse of :func:`float_to_digits_and_sign` (reference
-    qfloat.py:399-410)."""
+    qfloat.py:399-410); at 4,096 values or more through the native library,
+    whose sum may differ in the last bit at bases that are not powers of two,
+    as in the JAX package."""
     digits = np.asarray(digits)
+    if native.routed(digits.size // max(1, digits.shape[-1])):
+        arr = np.concatenate([digits.astype(np.int32), np.asarray(sign, np.int32)[..., None]],
+                             axis=-1)
+        return native.dequantize_digits(arr, digits.shape[-1], ints, p)
     integer_part = base_p_to_int(digits[..., :ints], p).astype(np.float64)
     float_part = base_p_to_float(digits[..., ints:], p)
     return (integer_part + float_part) * np.asarray(sign, dtype=np.float64)

@@ -65,13 +65,14 @@ def _circuit(params: QFloatParams, io: str, track: bool, lowering=None):
     return functools.partial(fn, **args)
 
 
-def _quantize(params: QFloatParams, io: str, matrices):
+def _quantize(params: QFloatParams, io: str, matrices, out=None):
     """Host float64 (..., n, n) -> the circuit's numpy inputs: digits
     ``(..., n*n, len)`` and signs for digit I/O, magnitudes and signs
-    ``(..., n*n)`` for packed I/O."""
+    ``(..., n*n)`` for packed I/O, all int64; written into ``out`` when it
+    is given."""
     p = params
     fn = float_matrix_to_qfloat_arrays if io == "digits" else float_matrix_to_mags_and_signs
-    return fn(matrices, p.qfloat_len, p.qfloat_ints, p.qfloat_base)
+    return fn(matrices, p.qfloat_len, p.qfloat_ints, p.qfloat_base, out=out)
 
 
 def _dequantize(params: QFloatParams, io: str, out):
@@ -201,7 +202,8 @@ class BatchedMatrixInversion:
     ``io="digits"``, magnitudes and signs ``(B, n*n)`` for ``io="packed"``),
     ``run_raw`` (device tensors in, device tensors out, asynchronous on
     CUDA) and ``dequantize`` (device -> host float64); ``run`` chains the
-    three.  On a CUDA device ``lowering="auto"`` runs the fused kernel
+    three.  ``runtime/stream.py::StreamingInverter`` pipelines the same
+    stages over a stream of batches.  On a CUDA device ``lowering="auto"`` runs the fused kernel
     (ops/fused_inverse.py) for n <= 12 and the op-by-op path beyond, whose
     divisions go through the K2/K3 kernels and whose untracked base-2
     multiplies go through K4 (ops/long_division.py); "unroll", "vec" and
@@ -252,27 +254,43 @@ class BatchedMatrixInversion:
         self.track_overflow = bool(track_overflow)
         self._circuit = _circuit(params, io, self.track_overflow)
 
+    def input_shapes(self):
+        """The shapes of ``run_raw``'s two int64 inputs: digits
+        ``(B, n*n, len)`` or magnitudes ``(B, n*n)``, and signs ``(B, n*n)``."""
+        p = self.params
+        shape = (self.batch_size, p.n * p.n)
+        return shape + ((p.qfloat_len,) if self.io == "digits" else ()), shape
+
+    def _host_quantize(self, matrices, out=None):
+        """The host half of ``quantize``: (B, n, n) float64 -> the circuit's
+        int64 inputs as numpy arrays, written into ``out`` when it is given."""
+        return _quantize(self.params, self.io, matrices, out=out)
+
+    def _host_dequantize(self, host):
+        """The host half of ``dequantize``: the circuit's outputs as numpy
+        arrays -> (B, n, n) float64, and with tracking a copy of the flags."""
+        if self.io == "digits":
+            return _dequantize(self.params, self.io, host)
+        matrices = _dequantize(self.params, self.io, host[:2])
+        if self.track_overflow:
+            return matrices, np.array(host[2])
+        return matrices
+
     def quantize(self, matrices: np.ndarray):
         """(B, n, n) float64 -> the circuit's two int64 input tensors on the device."""
-        return tuple(torch.from_numpy(a).to(self.device)
-                     for a in _quantize(self.params, self.io, matrices))
+        return tuple(torch.from_numpy(a).to(self.device) for a in self._host_quantize(matrices))
 
     def dequantize(self, out):
         """Device output -> (B, n, n) float64 on the host; with tracking,
         (magnitudes, signs, flags) -> (inverses, int32 flags)."""
         if self.io == "digits":
-            return _dequantize(self.params, self.io, out.cpu().numpy())
-        matrices = _dequantize(self.params, self.io, [o.cpu().numpy() for o in out[:2]])
-        if self.track_overflow:
-            return matrices, out[2].cpu().numpy()
-        return matrices
+            return self._host_dequantize(out.cpu().numpy())
+        return self._host_dequantize([o.cpu().numpy() for o in out])
 
     def run_raw(self, a, signs):
         """Device input tensors (digits or magnitudes, and signs) -> device
         output tensors."""
-        p = self.params
-        shape = (self.batch_size, p.n * p.n)
-        a_shape = shape + ((p.qfloat_len,) if self.io == "digits" else ())
+        a_shape, shape = self.input_shapes()
         if a.shape != a_shape or signs.shape != shape:
             raise ValueError(f"expected inputs of shapes {a_shape} and {shape}")
         for t in (a, signs):

@@ -26,7 +26,9 @@ def test_port_sources_found():
             "ops/cuda_build.py", "runtime/api.py", "utils/__init__.py", "utils/samplers.py",
             "utils/timing.py", "utils/profiling.py", "utils/ubench.py",
             "utils/roofline.py", "ops/radix.py", "models/lu_float.py", "models/marshal.py",
-            "models/inverse.py"} <= names
+            "models/inverse.py", "runtime/stream.py", "runtime/native.py", "utils/debug.py",
+            "utils/precision.py", "utils/run_benchmarks.py", "__main__.py"} <= names
+    assert (PORT / "csrc" / "qmarshal.cc").is_file()
 
 
 @pytest.mark.parametrize(

@@ -5,9 +5,12 @@ same numpy inputs, at bases 2, 3, 10 and 16.  Quantization of values whose
 integer part needs more than ``ints`` digits follows the JAX package's
 native route (``native/qmarshal.cc``), not its radix loop, which returns a
 top digit >= base there: those values are held to the native library,
-built with g++ into a temporary directory when no build is loaded, and,
-independently of any build, to the radix output with the integer part
-taken mod base**ints.
+built with g++ into a temporary directory, and, independently of any
+build, to the radix output with the integer part taken mod base**ints.
+Dequantization takes the JAX package's route at each size, its radix sum
+below 4,096 values and its native library at 4,096 or more (whose sum may
+differ from the radix one in the last bit at bases 3 and 10): it is held to
+JAX's own function with that library loaded.
 """
 
 import os
@@ -29,17 +32,6 @@ BASES = [2, 3, 10, 16]
 # bits * len <= 62, the multiply-truncate loop at the others and at base 2
 # with 70 digits
 FORMATS = [(2, 40, 20), (2, 70, 30), (3, 20, 8), (10, 12, 5), (16, 12, 6)]
-
-
-def jax_dequantize_radix_route(digits, signs, ints, p):
-    """JAX's ``digits_and_sign_to_float`` on its radix route, the
-    reference's summation order: in chunks of fewer than 4,096 values,
-    below which it never takes its native route.  (At bases 3 and 10 the
-    native route's sum differs from it by an ulp on some values.)"""
-    digits, signs = digits.reshape(-1, digits.shape[-1]), signs.reshape(-1)
-    out = [jax_radix.digits_and_sign_to_float(digits[i:i + 4000], signs[i:i + 4000], ints, p)
-           for i in range(0, len(signs), 4000)]
-    return np.concatenate(out)
 
 
 def in_range(rng, base, ints, size):
@@ -86,7 +78,7 @@ def test_fraction_digits_match_jax(p):
 
 @pytest.mark.parametrize("p,length,ints", FORMATS)
 @pytest.mark.parametrize("size", [300, 5000])  # JAX: radix loop; native route where built
-def test_quantize_in_range_matches_jax(p, length, ints, size):
+def test_quantize_in_range_matches_jax(native_lib, p, length, ints, size):
     f = in_range(np.random.RandomState(size + p), p, ints, size).reshape(-1, 4)
     digits, signs = radix.float_to_digits_and_sign(f, length, ints, p)
     ref_d, ref_s = jax_radix.float_to_digits_and_sign(f, length, ints, p)
@@ -96,19 +88,17 @@ def test_quantize_in_range_matches_jax(p, length, ints, size):
     np.testing.assert_array_equal(signs, ref_s)
     assert signs.flat[0] == 1 and signs.flat[1] == 1  # 0.0 and -0.0 have sign +1
     back = radix.digits_and_sign_to_float(digits, signs, ints, p)
-    np.testing.assert_array_equal(back.reshape(-1),
-                                  jax_dequantize_radix_route(digits, signs, ints, p))
+    np.testing.assert_array_equal(back, jax_radix.digits_and_sign_to_float(digits, signs, ints, p))
 
 
 @pytest.mark.parametrize("p", BASES)
-def test_dequantize_matches_jax(p):
+def test_dequantize_matches_jax(native_lib, p):
     rng = np.random.RandomState(p)
     digits = rng.randint(0, p, size=(600, 9, 14))
     signs = rng.choice([-1, 0, 1], size=(600, 9))
     got = radix.digits_and_sign_to_float(digits, signs, 6, p)
     assert got.shape == (600, 9)
-    np.testing.assert_array_equal(got.reshape(-1),
-                                  jax_dequantize_radix_route(digits, signs, 6, p))
+    np.testing.assert_array_equal(got, jax_radix.digits_and_sign_to_float(digits, signs, 6, p))
 
 
 @pytest.mark.parametrize("p,length", [(2, 35), (3, 30), (10, 15), (16, 12)])
