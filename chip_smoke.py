@@ -68,6 +68,21 @@ plain, ``--simulate`` and ``--batch 4``, in subprocesses); the reference's
 CPU's; and ``run_qfloat_inverse``, ``compare_plu`` and ``debug_inverse`` on
 one HIGH n=4 matrix against the CPU.
 
+Then the limb backend (digit arrays, any base; ``limb_paths``): HIGH n=4
+over 262,144 matrices on ``backend="limb"`` at base 2, equal bit for bit to
+the packed backend's digit path (K1), with and without ``tensorize``, to its
+plain version on the card (first 16,384) and to the CPU (first 256); one
+``run_raw`` under the profiler (K6 22 times, K7 160, no K1); HIGH's
+precision in base 10 (12 digits, 6 integer; "auto" resolves to limb) against
+the CPU and its plain version, its error against np.linalg.inv;
+``EncryptedMatrixInversion(..., backend="limb")``, whose ``run`` and
+``run(simulate=True)`` equal the packed backend's; and the long division K6
+and the carry chain K7 alone against their plain versions at 1,048,576
+numbers, at HIGH's widths at bases 2, 3 and 10 with zero divisors and
+divisors with leading zero digits.  The limb ``run_raw`` is timed in turns
+with the packed one and with its plain version, the base-10 one with the
+base-2 one, and K6 and K7 beside their bounds.
+
 Any failure raises.  The last line is one JSON object naming
 the device.  Imports nothing of JAX.
 """
@@ -106,7 +121,14 @@ from matrix_inversion_tpu_torch.models.marshal import (
     mags_and_signs_to_float_matrix,
     qfloat_and_signs_arrays_to_float_matrix,
 )
-from matrix_inversion_tpu_torch.ops import cuda_build, fused_inverse, long_division, packed
+from matrix_inversion_tpu_torch.ops import (
+    cuda_build,
+    fused_inverse,
+    limb_kernels,
+    limbs,
+    long_division,
+    packed,
+)
 from matrix_inversion_tpu_torch.runtime import native
 from matrix_inversion_tpu_torch.runtime.stream import StreamingInverter
 from matrix_inversion_tpu_torch.utils import (
@@ -116,6 +138,7 @@ from matrix_inversion_tpu_torch.utils import (
     precision,
     roofline,
     run_benchmarks,
+    samplers,
     sass,
     ubench,
 )
@@ -142,6 +165,27 @@ K2_LAUNCHES = {4: 22, 16: 376}
 # K2's and K4's launches in each of qfloat_lu_L and qfloat_lu_U at HIGH,
 # by n: the LU half of the circuit
 LU_LAUNCHES = {4: {"long_division_float": 6, "mul_window": 14}}
+
+# The limb phase: HIGH n=4 on the limb backend at the digit path's batch, its
+# plain version on the card on the first LIMB_PLAIN_BATCH matrices (seconds
+# of host time a run) and the CPU on the first LIMB_CPU_BATCH; K6 and K7 alone
+# at LIMB_KERNEL_NUMBERS numbers.  K6's launches in one HIGH n=4 run_raw are
+# its divisions; K7's one a multiply and one an add (the constructor's
+# deferred tidy, and the add's tidy and sign in one launch).
+LIMB_PLAIN_BATCH = 16_384
+LIMB_CPU_BATCH = 256
+LIMB_KERNEL_NUMBERS = 1_048_576
+LIMB_REPS = 2  # rounds in turns; the checked run is each one's warm-up
+K6_LAUNCHES = {4: 22}
+K7_LAUNCHES = {4: 160}
+K7_TENSORIZE_LAUNCHES = {4: 139}  # tensorize=True groups some tidies
+# HIGH's precision in base 10: 12 digits, 6 of them integer (1e6 > 2**20, 1e-6
+# ~ 2**-20); no power of two, so "auto" resolves to the limb backend
+HIGH_BASE10 = HIGH.replace(n=4, qfloat_base=10, qfloat_len=12, qfloat_ints=6)
+# a digit step of K6 (subtract with borrow, the borrow, the add-back, the
+# select) and of K7 (carry in, divide, remainder, borrow; twice with sign)
+K6_INSTR_PER_STEP = 4
+K7_INSTR_PER_DIGIT = 8
 
 # The serving phase: the stream at the main path's batch (6 batches, 3
 # tracked) and at the digit path's (3), the e2e benchmark at the main path's
@@ -320,14 +364,15 @@ def replay_of(launch, count):
 
 def reset_counts():
     fused_inverse.LAUNCHES = fused_inverse.TRACKED_LAUNCHES = 0
-    for name in long_division.LAUNCHES:
-        long_division.LAUNCHES[name] = 0
+    for launches in (long_division.LAUNCHES, limb_kernels.LAUNCHES):
+        for name in launches:
+            launches[name] = 0
 
 
 def counts():
     return {"fused_inverse": fused_inverse.LAUNCHES,
             "fused_inverse_tracked": fused_inverse.TRACKED_LAUNCHES,
-            **long_division.LAUNCHES}
+            **long_division.LAUNCHES, **limb_kernels.LAUNCHES}
 
 
 def timed_s(fn, *args):
@@ -336,12 +381,13 @@ def timed_s(fn, *args):
     return time.perf_counter() - t0
 
 
-def timed_in_turns(fns, dev, rounds=REPS, launches=1):
+def timed_in_turns(fns, dev, rounds=REPS, launches=1, warm_up=True):
     """``{label: median ms of one call}`` of the functions ``fns``, each
     timed once per round (``launches`` calls between two events), ``rounds``
-    rounds, after one warm-up call each: two versions timed so see the same
+    rounds, after one warm-up call each (none with ``warm_up=False``, for
+    functions that have run before): two versions timed so see the same
     clocks."""
-    for fn in fns.values():
+    for fn in fns.values() if warm_up else ():
         fn()
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -878,6 +924,280 @@ def digit_paths(dev, card, batch=DIGIT_BATCH, check_batch=CHECK_BATCH, large_n=L
             f"{fn.__name__} on the card differs from the CPU"
         print(f"{fn.__name__} HIGH n=4 B={check_batch}: launches {got_counts}; == the CPU run "
               "bit for bit")
+
+
+def limb_kernel_names(ran):
+    """``(K6 launches, K7 launches, K1 launches, other device work)`` in one
+    step of a ``kernels_by_step`` trace."""
+    k6 = sum(c for name, c in ran.items() if "limbdiv" in name)
+    k7 = sum(c for name, c in ran.items() if "limbtidy" in name)
+    k1 = sum(c for name, c in ran.items() if "fused_inverse" in name)
+    return k6, k7, k1, sum(ran.values()) - k6 - k7 - k1
+
+
+def well_conditioned(rng, B, n):
+    """Normal(0, 1) matrices plus n on the diagonal: inverses of order 1/n,
+    condition numbers ~2.6 at the median and ~11 at the 99th percentile for
+    n = 4 (a few thousand)."""
+    return rng.standard_normal((B, n, n)) + n * np.eye(n)
+
+
+def smallest_pivot(A):
+    """The smallest magnitude of the pivots of A's LU decomposition without
+    row exchanges (the circuit's, on A with its rows permuted as
+    ``qfloat_pivot`` says): the ratios of its leading minors."""
+    minors = [1.0] + [np.linalg.det(A[:k, :k]) for k in range(1, len(A) + 1)]
+    return min(abs(minors[k + 1] / minors[k]) for k in range(len(A)))
+
+
+def k6_inputs(rng, N, d_len, v_len, p, dev, one_row=False):
+    """N tidy dividends (or one constant row: a reciprocal's) and divisors
+    at base p; a sixteenth of the divisors zero and a sixteenth with their
+    top half of digits zero."""
+    if one_row:
+        v = torch.zeros(d_len, dtype=torch.int32, device=dev)
+        v[0] = 1
+    else:
+        v = torch.from_numpy(rng.randint(0, p, size=(N, d_len)).astype(np.int32)).to(dev)
+    d = torch.from_numpy(rng.randint(0, p, size=(N, v_len)).astype(np.int32)).to(dev)
+    d[: N // 16] = 0
+    d[N // 16: N // 8, : v_len // 2] = 0
+    return v, d
+
+
+def k6_steps(q, v_len, p):
+    """Digit steps K6 needs for quotients ``q`` (N, d_len): quotient digit
+    i takes min(q_i + 1, p - 1) rounds over JAX's window of min(i + 1,
+    v_len + 1) digits."""
+    rounds = torch.clamp(q.long() + 1, max=p - 1)
+    widths = torch.clamp(torch.arange(1, q.shape[-1] + 1, device=q.device), max=v_len + 1)
+    return int((rounds * widths).sum())
+
+
+def limb_paths(dev, card, batch=DIGIT_BATCH, plain_batch=LIMB_PLAIN_BATCH,
+               cpu_batch=LIMB_CPU_BATCH, numbers=LIMB_KERNEL_NUMBERS, reps=LIMB_REPS):
+    """The limb backend on the card: HIGH n=4 at base 2 on limb against the
+    packed backend (K1) bit for bit, with and without ``tensorize``, against
+    its plain version on the card and the CPU, under the profiler (K6 and
+    K7, no K1), timed in turns; HIGH's precision in base 10 ("auto" is
+    limb) against the CPU and np.linalg.inv; K6 and K7 alone against their
+    plain versions at HIGH's widths at bases 2, 3 and 10, timed; and
+    ``EncryptedMatrixInversion`` on limb.  Returns the kernels' rows of the
+    ``kernels`` line: ``{name: (launches, max_abs_err, ms, plain_ms,
+    instructions, bytes)}``."""
+    p2 = HIGH.replace(n=4)
+    config = config_of(p2)
+    sampler = samplers.normal_sampler(4, rng=np.random.RandomState(50))
+    M = sampler((batch,))
+    inv = BatchedMatrixInversion(p2.replace(backend="limb"), batch, io="digits", device=dev)
+    assert inv.backend == "limb"
+    d, s = inv.quantize(M)
+    out, got = launches_of(lambda: inv.run_raw(d, s))
+    expect_launches("limb path HIGH n=4", got, limb_division=K6_LAUNCHES[4],
+                    limb_tidy=K7_LAUNCHES[4])
+    pinv = BatchedMatrixInversion(p2, batch, backend="packed", io="digits", device=dev)
+    pout, pgot = launches_of(lambda: pinv.run_raw(d, s))
+    expect_launches("packed digit path HIGH n=4", pgot, fused_inverse=1)
+    assert torch.equal(out, pout), "limb path != packed path (K1) at base 2"
+    tinv = BatchedMatrixInversion(p2.replace(backend="limb", tensorize=True), batch,
+                                  io="digits", device=dev)
+    tout, tgot = launches_of(lambda: tinv.run_raw(d, s))
+    expect_launches("limb path HIGH n=4 tensorize=True", tgot, limb_division=K6_LAUNCHES[4],
+                    limb_tidy=K7_TENSORIZE_LAUNCHES[4])
+    assert torch.equal(tout, out), "tensorize=True != tensorize=False on limb"
+    sub = BatchedMatrixInversion(p2.replace(backend="limb"), plain_batch, io="digits",
+                                 device=dev)
+    ds, ss = d[:plain_batch], s[:plain_batch]
+
+    def plain_run():
+        with packed.plain_arithmetic():
+            return sub.run_raw(ds, ss)
+
+    plain, plain_counts = launches_of(plain_run)
+    expect_launches("limb plain version", plain_counts)
+    assert torch.equal(plain, out[:plain_batch]), "limb path != its plain version on the card"
+    cpu = qfloat_matrix_inverse(d[:cpu_batch].cpu(), s[:cpu_batch].cpu(), *config,
+                                backend="limb")
+    assert torch.equal(out[:cpu_batch].cpu(), cpu), "limb path != the CPU"
+    res = inv.dequantize(out)
+    mae = float(np.mean(np.abs(res[:64] - np.linalg.inv(M[:64]))))
+    assert np.isfinite(res).all() and mae < 1e-3, f"limb path: mean abs error {mae}"
+    ran = kernels_by_step(dev, {"limb run_raw": lambda: inv.run_raw(d, s)})["limb run_raw"]
+    k6, k7, k1, other = limb_kernel_names(ran)
+    assert dev.type != "cuda" or (k6 == K6_LAUNCHES[4] and k7 == K7_LAUNCHES[4] and k1 == 0), \
+        f"the profiler saw K6 {k6}, K7 {k7}, K1 {k1} in a limb run_raw"
+    print(f"limb path: HIGH n=4 base 2 B={batch} backend=\"limb\": launches {got} "
+          f"(tensorize=True: {tgot}); == the packed path (K1) bit for bit (all), tensorize=True "
+          f"== tensorize=False (all), == its plain version on the card (first {plain_batch}, no "
+          f"kernel launched), == the CPU (first {cpu_batch}); mean abs error vs np.linalg.inv on "
+          f"64 matrices {mae:.3e}; under the profiler one run_raw: K6 {k6}, K7 {k7}, K1 {k1}, "
+          f"other device work {other} launches")
+    turns = timed_in_turns({"limb run_raw": lambda: inv.run_raw(d, s),
+                            "packed digit run_raw": lambda: pinv.run_raw(d, s)}, dev, reps,
+                           warm_up=False)
+    small = timed_in_turns({"limb run_raw": lambda: sub.run_raw(ds, ss),
+                            "plain version": plain_run}, dev, reps, warm_up=False)
+    for B, t in ((batch, turns), (plain_batch, small)):
+        for label, ms in t.items():
+            print(f"time limb path {label}, B={B}: {ms:.3f} ms, median of {reps} rounds in "
+                  f"turns (HIGH n=4 base 2; {card})")
+    del tinv, tout, plain, pout
+
+    # HIGH's precision in base 10: "auto" resolves to limb
+    assert HIGH_BASE10.resolve_backend() == "limb" and not HIGH_BASE10.packed_ok()
+    inv10 = BatchedMatrixInversion(HIGH_BASE10, batch, io="digits", device=dev)
+    M10 = well_conditioned(np.random.RandomState(51), batch, 4)
+    d10, s10 = inv10.quantize(M10)
+    out10, got10 = launches_of(lambda: inv10.run_raw(d10, s10))
+    expect_launches("limb path HIGH base 10", got10, limb_division=K6_LAUNCHES[4],
+                    limb_tidy=K7_LAUNCHES[4])
+    cpu10 = qfloat_matrix_inverse(d10[:cpu_batch].cpu(), s10[:cpu_batch].cpu(),
+                                  *config_of(HIGH_BASE10))
+    assert torch.equal(out10[:cpu_batch].cpu(), cpu10), "base-10 limb path != the CPU"
+    res10 = inv10.dequantize(out10)
+    err = np.abs(res10 - np.linalg.inv(M10)).reshape(batch, -1)
+    # a few of these matrices are near singular (condition numbers up to
+    # ~1e4); the error grows with the condition number, as at base 2
+    well = np.linalg.cond(M10) <= 10
+    big = err.mean(-1) > 1  # precision_benchmark's big-error rate
+    # the same matrices at base 2 (HIGH, packed: K1): a tail of large errors
+    # on well-conditioned matrices that base 2 shares is the circuit's
+    # fixed-point arithmetic, not the limb port's
+    d2, s2 = pinv.quantize(M10)
+    err2 = np.abs(pinv.dequantize(pinv.run_raw(d2, s2)) - np.linalg.inv(M10)).reshape(batch, -1)
+    worst = int(np.flatnonzero(well)[np.argmax(err[well].max(-1))])
+    P = qfloat_pivot(d10[worst:worst + 1].cpu(), s10[worst:worst + 1].cpu(),
+                     HIGH_BASE10.as_list()).numpy()[0]
+    mae10 = float(err[well][:64].mean())
+    assert np.isfinite(res10).all() and mae10 < 1e-3, \
+        f"base 10: mean abs error {mae10} on 64 matrices of condition <= 10"
+    sub10 = BatchedMatrixInversion(HIGH_BASE10, plain_batch, io="digits", device=dev)
+    d10s, s10s = d10[:plain_batch], s10[:plain_batch]
+
+    def plain10():
+        with packed.plain_arithmetic():
+            return sub10.run_raw(d10s, s10s)
+
+    plain10_out = plain10()
+    assert torch.equal(plain10_out, out10[:plain_batch]), "base-10 limb != its plain version"
+    print(f"limb path: HIGH's precision in base 10 (len 12, ints 6) n=4 B={batch}, backend "
+          f"\"auto\" -> limb: launches {got10}; == the CPU (first {cpu_batch}) and its plain "
+          f"version on the card (first {plain_batch}); error vs np.linalg.inv: mean abs on the "
+          f"first 64 of condition <= 10 {mae10:.3e}; on all {int(well.sum())} of {batch} "
+          f"matrices of condition <= 10: max {err[well].max():.3e}, "
+          f"largest per-matrix mean {err[well].mean(-1).max():.3e}; on all: mean {err.mean():.3e}, "
+          f"max {err.max():.3e} (condition up to {np.linalg.cond(M10).max():.0f}), big-error rate "
+          f"(per-matrix mean > 1) {big.mean():.4%}")
+    print(f"the same {batch} matrices at base 2 (HIGH n=4, packed digit path, K1): on the "
+          f"{int(well.sum())} of condition <= 10: max {err2[well].max():.3e}, largest "
+          f"per-matrix mean {err2[well].mean(-1).max():.3e}, mean {err2[well].mean():.3e} (base "
+          f"10: mean {err[well].mean():.3e}); on all: max {err2.max():.3e}, big-error rate "
+          f"{(err2.mean(-1) > 1).mean():.4%}; base 10's worst matrix of condition <= 10 is "
+          f"matrix {worst} of seed 51 (condition {np.linalg.cond(M10[worst]):.2f}, smallest "
+          f"pivot of the circuit's LU {smallest_pivot(P @ M10[worst]):.3e}): max error "
+          f"base 10 {err[worst].max():.3e}, base 2 {err2[worst].max():.3e}")
+    turns10 = timed_in_turns({"base 10 run_raw": lambda: inv10.run_raw(d10, s10),
+                              "base 2 run_raw": lambda: inv.run_raw(d, s)}, dev, reps,
+                             warm_up=False)
+    small10 = timed_in_turns({"base 10 run_raw": lambda: sub10.run_raw(d10s, s10s),
+                              "base 10 plain version": plain10}, dev, reps, warm_up=False)
+    for B, t in ((batch, turns10), (plain_batch, small10)):
+        for label, ms in t.items():
+            print(f"time limb path {label}, B={B}: {ms:.3f} ms, median of {reps} rounds in "
+                  f"turns (HIGH n=4; {card})")
+    print(f"base 10 / base 2 limb run_raw at B={batch}: "
+          f"{turns10['base 10 run_raw'] / turns10['base 2 run_raw']:.2f}x ({card})")
+    del inv, d, s, out, pinv, sub, inv10, d10, s10, out10, sub10, d2, s2
+
+    # EncryptedMatrixInversion on limb at HIGH's format
+    rng = np.random.RandomState(52)
+    enc = EncryptedMatrixInversion(4, samplers.normal_sampler(4, rng=rng), 2, 40, 20, True,
+                                   backend="limb", device=dev)
+    enc_packed = EncryptedMatrixInversion(4, None, 2, 40, 20, True, backend="packed",
+                                          device=dev)
+    assert enc.backend == "limb"
+    for i in range(3):
+        A = rng.standard_normal((4, 4)) * 100
+        run, run_counts = launches_of(lambda: enc.run(A))
+        sim, sim_counts = launches_of(lambda: enc.run(A, simulate=True))
+        for label, c in (("run", run_counts), ("simulate", sim_counts)):
+            expect_launches(f"EncryptedMatrixInversion limb {label}", c,
+                            limb_division=K6_LAUNCHES[4], limb_tidy=K7_LAUNCHES[4])
+        assert np.array_equal(run, sim) and np.array_equal(run, enc_packed.run(A)), \
+            f"EncryptedMatrixInversion limb matrix {i}: run, simulate and packed disagree"
+    print(f"EncryptedMatrixInversion(4, sampler, 2, 40, 20, True, backend=\"limb\"): run "
+          f"launches {run_counts}; run == run(simulate=True) == the packed backend's run on 3 "
+          "matrices")
+
+    # K6 and K7 alone at HIGH's widths, bases 2, 3, 10, against their plain
+    # versions; the main path's shapes timed
+    krng = np.random.RandomState(53)
+    err6 = err7 = 0
+    for p in (2, 3, 10):
+        for d_len, v_len, one_row in ((60, 40, False), (61, 40, True)):
+            v, dv = k6_inputs(krng, numbers, d_len, v_len, p, dev, one_row)
+            q = limb_kernels.limb_division(v, dv, p)
+            with packed.plain_arithmetic():
+                ref = limbs.base_p_division(v, dv, p)
+            err6 = max(err6, max_abs_diff([q], [ref]))
+            assert torch.equal(q, ref), f"K6 != plain base {p} ({d_len}, {v_len})"
+        for L in (40, 43):
+            a = torch.from_numpy(krng.randint(-2 * L * p * p, 2 * L * p * p, size=(numbers, L))
+                                 .astype(np.int32)).to(dev)
+            for signed in (False, True):
+                got_t = limb_kernels.limb_tidy(a, p, signed=signed)
+                with packed.plain_arithmetic():
+                    ref_t = limbs.tidy_to_sign_mag(a, p) if signed else limbs.base_tidy(a, p)
+                got_t, ref_t = (got_t, ref_t) if signed else ((got_t,), (ref_t,))
+                err7 = max(err7, max_abs_diff(got_t, ref_t))
+                assert all(torch.equal(x, y) for x, y in zip(got_t, ref_t)), \
+                    f"K7 != plain base {p} L={L} signed={signed}"
+    print(f"K6 == plain at {numbers} numbers, bases 2, 3, 10, (60, 40) digits with a full "
+          "dividend and (61, 40) with a reciprocal's, a sixteenth of the divisors zero and a "
+          f"sixteenth with their top half zero; K7 == plain at {numbers} numbers, L 40 and 43, "
+          f"both modes (tolerance 0; max abs difference K6 {err6}, K7 {err7})")
+    v, dv = k6_inputs(krng, numbers, 60, 40, 2, dev)
+    q = limb_kernels.limb_division(v, dv, 2)
+    ms6 = timed_ms(lambda: limb_kernels.limb_division(v, dv, 2), dev, launches=5)
+    with packed.plain_arithmetic():
+        plain6 = timed_ms(lambda: limbs.base_p_division(v, dv, 2), dev, passes=1)
+    steps = k6_steps(q, 40, 2)
+    k6_work = (steps * K6_INSTR_PER_STEP, numbers * (60 + 40 + 60) * 4)
+    a = torch.from_numpy(krng.randint(0, 41, size=(numbers, 40)).astype(np.int32)).to(dev)
+    ms7 = timed_ms(lambda: limb_kernels.limb_tidy(a, 2, signed=True), dev, launches=5)
+    ms7_tidy = timed_ms(lambda: limb_kernels.limb_tidy(a, 2), dev, launches=5)
+    with packed.plain_arithmetic():
+        plain7 = timed_ms(lambda: limbs.tidy_to_sign_mag(a, 2), dev, passes=1)
+    k7_work = (numbers * 40 * K7_INSTR_PER_DIGIT, numbers * (40 * 8 + 4))
+    for p, d_len, v_len, one_row in ((3, 61, 40, True), (10, 61, 40, True), (10, 19, 12, False)):
+        v, dv = k6_inputs(krng, numbers, d_len, v_len, p, dev, one_row)
+        qp = limb_kernels.limb_division(v, dv, p)
+        ms = timed_ms(lambda: limb_kernels.limb_division(v, dv, p), dev, launches=5)
+        print(f"time K6 base {p} ({d_len}, {v_len}){' reciprocal' if one_row else ''} at "
+              f"{numbers} numbers: {ms:.3f} ms, {k6_steps(qp, v_len, p) / numbers:.0f} digit "
+              f"steps a number ({card})")
+    print(f"time K6 base 2 (60, 40) at {numbers} numbers: {ms6:.3f} ms, plain version "
+          f"{plain6:.3f} ms; {steps / numbers:.0f} digit steps a number; K7 base 2 L=40 tidy + "
+          f"sign {ms7:.3f} ms, tidy {ms7_tidy:.3f} ms, plain version (tidy then sign) "
+          f"{plain7:.3f} ms ({card})")
+    # K6's compile-time window (48 digits at HIGH's 40-digit divisor, 16 at
+    # base 10's 12) against its run-time window on the same inputs, in turns
+    runtime = limb_kernels.RUNTIME_WINDOW
+    for p, d_len, v_len in ((2, 60, 40), (10, 19, 12)):
+        v, dv = k6_inputs(krng, numbers, d_len, v_len, p, dev)
+        q = limb_kernels.limb_division(v, dv, p)
+        assert torch.equal(limb_kernels.limb_division(v, dv, p, flags=runtime), q), \
+            f"K6's run-time window != its compile-time window, base {p} ({d_len}, {v_len})"
+        t = timed_in_turns(
+            {"compile-time window": lambda: limb_kernels.limb_division(v, dv, p),
+             "run-time window": lambda: limb_kernels.limb_division(v, dv, p, flags=runtime)},
+            dev, launches=5)
+        print(f"time K6 base {p} ({d_len}, {v_len}) at {numbers} numbers, in turns: "
+              f"compile-time window {t['compile-time window']:.3f} ms, run-time window "
+              f"{t['run-time window']:.3f} ms (equal quotients; {card})")
+    del v, dv, q, a
+    return {"limb_division": (got["limb_division"], err6, ms6, plain6, *k6_work),
+            "limb_tidy": (got["limb_tidy"], err7, ms7, plain7, *k7_work)}
 
 
 def both_routes(fn):
@@ -1523,9 +1843,10 @@ def main():
         steps_build = pool.submit(timed_s, division_steps.build)
         k1_steps_build = pool.submit(timed_s, fused_steps.build)
         native_build = pool.submit(timed_s, native.build)
+        limb_build = pool.submit(timed_s, limb_kernels.build)
         fused_s, op_s, ubench_s = fused_build.result(), op_build.result(), ubench_build.result()
         steps_s, k1_steps_s = steps_build.result(), k1_steps_build.result()
-        native_s = native_build.result()
+        native_s, limb_s = native_build.result(), limb_build.result()
     print(f"build: {len(CHECKS)} fused_inverse + {len(TRACKED_CHECKS)} tracked kernels + "
           f"{len(cli_configs)} at the CLI's sizes (LOW n in {CLI_SIZES}) "
           f"from {fused_inverse.CSRC} with nvcc {' '.join(fused_inverse.NVCC_FLAGS)} "
@@ -1534,16 +1855,21 @@ def main():
           f"{ubench_s:.1f} s; the division design-steps library in {steps_s:.1f} s; the "
           f"{len({(t, d) for _, t, d, _ in fused_steps.STEPS})} builds of K1's design steps in "
           f"{k1_steps_s:.1f} s; the native marshaller ({native.SOURCE}) with g++ "
-          f"{' '.join(cuda_build.HOST_FLAGS)} in {native_s:.1f} s; all in "
+          f"{' '.join(cuda_build.HOST_FLAGS)} in {native_s:.1f} s; limb_division + limb_tidy "
+          f"libraries and K6's run-time-window build in {limb_s:.1f} s; all in "
           f"{time.perf_counter() - t0:.1f} s")
     main_config = config_of(HIGH.replace(n=4))
     for label, c in (("fused_inverse", main_config), ("fused_inverse_tracked", main_config + (True,))):
         print(f"ptxas {label} HIGH n=4: {ptxas_info(fused_inverse.build_dir(c))}")
-    for name in ("long_division", "mul_window"):
-        log = (long_division.build_dir(name) / "nvcc.log").read_text()
+    for name in ("long_division", "mul_window", "limb_division", "limb_tidy"):
+        module = long_division if name in ("long_division", "mul_window") else limb_kernels
+        log = (module.build_dir(name) / "nvcc.log").read_text()
         regs = {re.sub(r"^_ZN6sframe|EEvPKm.*$", "", entry): r
                 for entry, r in sass.ptxas_registers(log).items()}
         print(f"ptxas {name}, registers: {regs}; spills: {sass.ptxas_spill_lines(log) or 'none'}")
+    log = (limb_kernels.build_dir("limb_division", limb_kernels.RUNTIME_WINDOW) / "nvcc.log").read_text()
+    print(f"ptxas limb_division with {' '.join(limb_kernels.RUNTIME_WINDOW)}, registers: "
+          f"{sass.ptxas_registers(log)}; spills: {sass.ptxas_spill_lines(log) or 'none'}")
     ubench_regs = ubench.ptxas_registers()
     print(f"ptxas ubench, registers of the C={UBENCH_C} kernels: "
           f"{ {name: ubench_regs[(name, UBENCH_C)] for name in ubench.MIXES} }; spills: "
@@ -1675,6 +2001,12 @@ def main():
     digit_paths(dev, card)
     print(f"host clock: the digit-I/O paths, checks and timings, {time.perf_counter() - t0:.1f} s")
 
+    # -- the limb backend: HIGH n=4 at base 2 against K1, base 10, K6 and K7
+    # alone, EncryptedMatrixInversion on limb
+    t0 = time.perf_counter()
+    limb_rows = limb_paths(dev, card)
+    print(f"host clock: the limb paths, checks and timings, {time.perf_counter() - t0:.1f} s")
+
     # -- the serving pipeline and the user's tools: the native marshaller,
     # StreamingInverter, the e2e benchmark, the CLI, the error sweep, the debug
     # tools
@@ -1784,6 +2116,16 @@ def main():
         12 * ubench_elems, ubench_elems * UBENCH_KS[2] * UBENCH_C * UBENCH_KERNELMIX_INSTR,
         kernelmix_ms, ubench_plain_ms)
 
+    limb_bounds = {}
+    for name, (_, _, ms, plain, instructions, bytes_moved) in limb_rows.items():
+        limb_bounds[name] = published_bound(bytes_moved, instructions, ms, plain)
+        at_k5 = max(instructions / rates["u32_kernelmix"], bytes_moved / HBM_BYTES_PER_S) * 1e3
+        print(f"bound {name} at {LIMB_KERNEL_NUMBERS} numbers: {limb_bounds[name][0]:.3f} ms by "
+              f"{limb_bounds[name][1]} ({instructions / LIMB_KERNEL_NUMBERS:.0f} instructions and "
+              f"{bytes_moved / LIMB_KERNEL_NUMBERS:.0f} bytes a number; {at_k5:.3f} ms over "
+              f"u32_kernelmix's measured rate {rates['u32_kernelmix']:.4e}); measured {ms:.3f} ms "
+              f"= {ms / limb_bounds[name][0]:.2f}x the bound ({card})")
+
     print(f"e2e ({card}): {json.dumps(e2e)}")
     source = "matrix_inversion_tpu_torch/csrc/fused_inverse.cu"
     print(json.dumps({"kernels": [{
@@ -1838,7 +2180,19 @@ def main():
         "bound_ms": ubench_bound,
         "bound_by": ubench_by,
         "library_ms": None,
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"matrix_inversion_tpu_torch/csrc/{name}.cu",
+        "replaces": f"matrix_inversion_tpu/ops/limbs.py:{line}",
+        "launches": limb_rows[name][0],
+        "max_abs_err": limb_rows[name][1],
+        "ms": limb_rows[name][2],
+        "plain_ms": limb_rows[name][3],
+        "bound_ms": limb_bounds[name][0],
+        "bound_by": limb_bounds[name][1],
+        "library_ms": None,
+    } for name, line in (("limb_division", 195), ("limb_tidy", 231))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -2,16 +2,21 @@
 
 Exact batched matrix inversion in QFloat fixed-point arithmetic, with the
 same semantics, bit for bit, as the JAX package ``matrix_inversion_tpu``
-(the reference, kept beside it).  Ported so far, on the packed backend
-(int64 magnitudes, power-of-two bases): the inverse at any n with digit
-I/O and packed I/O, untracked and with per-matrix overflow flags, the
-single-matrix lifecycle ``EncryptedMatrixInversion``, the partial
-pivot/L/U circuits with the float oracle, and the roofline path with the
-issue-rate probes.  Not yet: ``QFloat``, the digit-array "limb" backend
-for any base (ROADMAP queue 1, item 7b), streaming, multi-device batching.
+(the reference, kept beside it).  Ported so far: on the packed backend
+(int64 magnitudes, power-of-two bases) the inverse at any n with digit
+I/O and packed I/O, untracked and with per-matrix overflow flags; on the
+limb backend (``QFloat`` digit arrays, any base) the inverse with digit
+I/O; the single-matrix lifecycle ``EncryptedMatrixInversion``, the
+partial pivot/L/U circuits with the float oracle, streaming, the CLI and
+the user's tools, and the roofline path with the issue-rate probes.  Not
+yet: multi-device batching.
 
 * ``config``        -- QFloatParams and the Low/Medium/Medium+/High presets;
-* ``core.qfloat``   -- the Zero / SignedBinary / QFloatBase dispatch layer;
+* ``core.qfloat``   -- the Zero / SignedBinary / QFloatBase dispatch layer
+  and QFloat, the limb backend's number type;
+* ``ops.limbs`` + ``ops.limb_kernels`` + ``csrc/`` -- digit-array arithmetic
+  of any base, its long division (K6) and carry chains (K7) as kernels for
+  sm_90a;
 * ``ops.radix``     -- host radix conversion (numpy);
 * ``ops.packed``    -- PackedQFloat on int64 tensors (eager path, and the
   semantic spec of the kernels), the ``track_overflow`` scope, and the
@@ -45,7 +50,7 @@ The package imports torch and numpy, never jax.
 """
 
 from .config import HIGH, LOW, MEDIUM, MEDIUM_PLUS, PRESETS, QFloatParams
-from .core.qfloat import QFloatBase, SignedBinary, Zero
+from .core.qfloat import QFloat, QFloatBase, SignedBinary, Zero
 from .models.inverse import (
     qfloat_lu_L,
     qfloat_lu_U,
@@ -67,6 +72,7 @@ __all__ = [
     "MEDIUM_PLUS",
     "HIGH",
     "QFloatBase",
+    "QFloat",
     "SignedBinary",
     "Zero",
     "PackedQFloat",

@@ -1,8 +1,8 @@
 """QFloat encoding and algorithm configuration for the PyTorch/CUDA port.
 
-Same fields, presets and validation as ``matrix_inversion_tpu/config.py``
-minus what the port does not carry: the module-global performance knobs
-and their cache keys, and the limb-only ``tensorize`` grouping flag.
+Same fields, presets, validation and backend choice as
+``matrix_inversion_tpu/config.py`` minus what the port does not carry: the
+module-global performance knobs and their cache keys.
 """
 
 from __future__ import annotations
@@ -21,12 +21,16 @@ class QFloatParams:
       n:             matrix dimension (n x n).
       qfloat_len:    total number of base-p digits per QFloat.
       qfloat_ints:   number of digits before the dot.
-      qfloat_base:   digit base p (a power of two in this port).
+      qfloat_base:   digit base p (2 = binary).
       true_division: true long divisions in LU instead of multiplying by a
                      precomputed reciprocal.
-      backend:       "packed" (int64 magnitudes) or "auto" (packed when the
-                     encoding fits).  The digit-array "limb" backend is
-                     ROADMAP queue 1, item 7b.
+      tensorize:     group independent QFloat multiplies and reciprocals
+                     into one wide op (reference qfloat.py:1023-1181); it
+                     changes only the limb backend's grouping, never a
+                     result.
+      backend:       "packed" (int64 magnitudes, power-of-two bases),
+                     "limb" (digit arrays, any base) or "auto" (packed
+                     whenever the encoding fits in int64, else limb).
       lowering:      "fused" runs the whole inversion as one CUDA kernel
                      (ops/fused_inverse.py, n <= 12); "unroll", "vec" and
                      "scan" run the op-by-op path (the circuit as eager
@@ -42,6 +46,7 @@ class QFloatParams:
     qfloat_ints: int = 9
     qfloat_base: int = 2
     true_division: bool = False
+    tensorize: bool = False
     backend: str = "auto"
     lowering: str = "auto"
 
@@ -50,12 +55,8 @@ class QFloatParams:
             raise ValueError("qfloat_base must be >= 2")
         if not (0 <= self.qfloat_ints <= self.qfloat_len):
             raise ValueError("qfloat_ints must be in [0, qfloat_len]")
-        if self.backend == "limb":
-            raise ValueError(
-                "backend='limb' is not ported yet (ROADMAP queue 1, item 7b)"
-            )
-        if self.backend not in ("auto", "packed"):
-            raise ValueError("backend must be auto|packed")
+        if self.backend not in ("auto", "packed", "limb"):
+            raise ValueError("backend must be auto|packed|limb")
         if self.lowering not in LOWERINGS:
             raise ValueError("lowering must be auto|unroll|vec|scan|fused")
 
@@ -81,29 +82,31 @@ class QFloatParams:
         return (1 + self.frac + self.qfloat_len) * bits <= 62
 
     def resolve_backend(self) -> str:
-        if not self.packed_ok():
+        """"packed" or "limb": ``auto`` takes packed whenever
+        :meth:`packed_ok`, else limb; an explicit "packed" that does not fit
+        raises."""
+        if self.backend == "auto":
+            return "packed" if self.packed_ok() else "limb"
+        if self.backend == "packed" and not self.packed_ok():
             raise ValueError(
                 f"packed backend cannot represent base={self.qfloat_base} "
-                f"len={self.qfloat_len} (needs base**(~3*len) < 2**62); the "
-                "limb backend is ROADMAP queue 1, item 7b"
+                f"len={self.qfloat_len} (needs base**(~3*len) < 2**62)"
             )
-        return "packed"
+        return self.backend
 
     def replace(self, **kw) -> "QFloatParams":
         return dataclasses.replace(self, **kw)
 
     def as_list(self):
         """Positional params list, for reference-shaped call sites
-        (``matrix_inversion_tpu/config.py:106-115``); the sixth entry, the
-        reference's ``tensorize``, is always False here."""
+        (``matrix_inversion_tpu/config.py:106-115``)."""
         return [self.n, self.qfloat_len, self.qfloat_ints, self.qfloat_base,
-                self.true_division, False]
+                self.true_division, self.tensorize]
 
 
 def from_jax_params(p) -> QFloatParams:
     """Copy a JAX ``QFloatParams`` (any object with the same attributes)
-    into the port's.  ``tensorize`` only regroups limb-backend ops and has
-    no counterpart here."""
+    into the port's."""
     return QFloatParams(
         **{f.name: getattr(p, f.name) for f in dataclasses.fields(QFloatParams)}
     )

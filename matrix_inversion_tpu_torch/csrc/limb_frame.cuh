@@ -1,0 +1,69 @@
+// limb_frame.cuh -- the frame of the limb backend's kernels, K6 and K7.
+//
+// Both kernels walk the digits of one number in one thread, as the JAX
+// package's lax.scan chains walk the digit axis with the batch in the lanes
+// (matrix_inversion_tpu/ops/limbs.py:37-45).  A number is a row of int32
+// digits, most significant first, in a batch-major (N, L) array.  An
+// element function is an object with `void operator()(int64_t i) const`
+// that does all the work of number i; this frame runs it for i < n: on the
+// card one thread a number, kThreads a block, on the stream given; without
+// __CUDACC__ as one loop, which is how the CPU tests run the same element
+// functions.  K6 runs in it, and K7 for rows too wide for its staged
+// kernel.
+#pragma once
+
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define LIMB_FN __device__ __forceinline__
+#else
+#define LIMB_FN inline
+#endif
+
+namespace limbframe {
+
+#ifdef __CUDACC__
+
+constexpr int kThreads = 128;
+
+template <class Op>
+__global__ void __launch_bounds__(kThreads) per_number(int64_t n, Op op) {
+  const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < n) op(i);
+}
+
+#endif  // __CUDACC__
+
+// op(i) for every i < n: one launch on `stream` of the card, returning its
+// cudaError_t, or a loop on the host, returning 0.
+template <class Op>
+int run(int64_t n, Op op, void* stream) {
+  if (n <= 0) return 0;
+#ifdef __CUDACC__
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  per_number<<<unsigned(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(n, op);
+  return int(cudaGetLastError());
+#else
+  (void)stream;
+  for (int64_t i = 0; i < n; ++i) op(i);
+  return 0;
+#endif
+}
+
+}  // namespace limbframe
+
+// The C entry points: name_launch(..., stream) on the card, name_host(...)
+// in the host build.
+#ifdef __CUDACC__
+#define LIMB_ENTRY(name) name##_launch
+#define LIMB_STREAM_PARAM , void* stream
+#define LIMB_STREAM stream
+#else
+#define LIMB_ENTRY(name) name##_host
+#define LIMB_STREAM_PARAM
+#define LIMB_STREAM nullptr
+#endif
+
+// What an entry point returns for arguments it does not take
+// (cudaErrorInvalidValue); the wrappers check them first.
+constexpr int kLimbInvalidValue = 1;

@@ -1,8 +1,8 @@
 """Circuit entry points: the full inverse with digit or packed I/O, with or
 without overflow flags, and the partial pivot/L/U circuits.
 
-Port of ``matrix_inversion_tpu/models/inverse.py:32-126,161-365`` on the
-packed backend.  Two paths with bit-identical results: "fused" runs the
+Port of ``matrix_inversion_tpu/models/inverse.py:32-126,161-365``.  On the
+packed backend two paths give bit-identical results: "fused" runs the
 whole inversion as one CUDA kernel (ops/fused_inverse.py, n <= 12); the
 op-by-op path (``models.qfloat_lu.qfloat_matrix_inverse_op_by_op``) runs
 the circuit as eager PyTorch ops on int64 tensors, at any n, its divisions
@@ -10,9 +10,12 @@ on the card through the division kernels K2/K3 and its untracked base-2
 multiplies through K4 (ops/long_division.py).  The JAX lowerings "unroll",
 "vec" and "scan" all map to the op-by-op path: "vec" and "scan" exist in
 the JAX package only to cap XLA compile time, and give the same bits as
-"unroll" there.  Digit I/O packs the digits into magnitudes on the
-device, runs the packed-I/O circuit and unpacks.  The digit-array "limb"
-backend is ROADMAP queue 1, item 7b.
+"unroll" there.  Digit I/O on the packed backend packs the digits into
+magnitudes on the device, runs the packed-I/O circuit and unpacks.  Any
+other backend is the limb backend, any base: the circuit runs op by op on
+:class:`~..core.qfloat.QFloat` digit arrays (the JAX package's object
+path), its long divisions in K6 and its carry chains in K7 on the card
+(ops/limb_kernels.py).
 """
 
 from __future__ import annotations
@@ -21,13 +24,10 @@ import torch
 
 from ..ops.fused_inverse import FUSED_MAX_N, fused_matrix_inverse
 from ..ops.packed import digit_bits, digits_to_mags, mags_to_digits
-from .marshal import (
-    qfloat_arrays_to_qfloat_matrix,
-    qfloat_matrix_to_arrays_and_signs,
-    require_packed,
-)
+from .marshal import qfloat_arrays_to_qfloat_matrix, qfloat_matrix_to_arrays_and_signs
 from .qfloat_lu import (
     qfloat_lu_decomposition,
+    qfloat_matrix_inverse_cells,
     qfloat_matrix_inverse_op_by_op,
     qfloat_pivot_matrix,
 )
@@ -78,12 +78,11 @@ def qfloat_matrix_inverse_with_overflow(mags, signs, n, qfloat_len, qfloat_ints,
               track=True)
 
 
-def _digit_inputs(qfloat_arrays, qfloat_signs, n, qfloat_len, backend):
+def _digit_inputs(qfloat_arrays, qfloat_signs, n, qfloat_len):
     """The digit and sign tensors of a digit-I/O entry point, checked:
     ``(..., n*n, len)`` digits and ``(..., n*n)`` signs, torch tensors on
     one device, which is where the circuit runs; the signs come back
     int64.  Host arrays are refused rather than run on the CPU."""
-    require_packed(backend)
     digits, signs = qfloat_arrays, qfloat_signs
     if not (isinstance(digits, torch.Tensor) and isinstance(signs, torch.Tensor)):
         raise TypeError(
@@ -103,6 +102,17 @@ def _digit_inputs(qfloat_arrays, qfloat_signs, n, qfloat_len, backend):
     return digits, signs
 
 
+def check_lowering(backend, lowering):
+    """Raise the JAX package's ``ValueError`` for a lowering that only the
+    packed backend has (``matrix_inversion_tpu/models/inverse.py:51-60``)."""
+    if backend != "packed" and lowering in ("scan", "vec", "fused"):
+        raise ValueError(
+            f"lowering='{lowering}' requires the packed backend (base=2^k "
+            f"encoding that fits int64); backend='{backend}' only supports "
+            "the 'unroll' lowering. See README 'Lowerings and bases'."
+        )
+
+
 def qfloat_matrix_inverse(qfloat_arrays, qfloat_signs, n, qfloat_len, qfloat_ints,
                           qfloat_base, true_division, tensorize=False, backend="limb",
                           lowering=None):
@@ -110,15 +120,24 @@ def qfloat_matrix_inverse(qfloat_arrays, qfloat_signs, n, qfloat_len, qfloat_int
     ``(..., n*n, len)`` digits and ``(..., n*n)`` signs in, ``(..., n*n,
     len+1)`` int32 digits with the sign appended out.
 
-    ``backend`` must be "packed": the digits are packed into int64
-    magnitudes on their device, the packed-I/O circuit runs
+    ``backend="packed"``: the digits are packed into int64 magnitudes on
+    their device, the packed-I/O circuit runs
     (:func:`qfloat_matrix_inverse_packed_io`, which takes ``lowering``: K1
     for CUDA tensors with n <= 12 under "auto"), and the output is unpacked
     into a preallocated int32 tensor.  Every output cell of the inverse is
     a QFloat, so this gives the bits of the JAX package's object path too.
-    ``tensorize`` only regroups limb-backend ops and changes nothing here.
+    Any other ``backend`` runs that object path on limb cells, any base:
+    the circuit op by op on :class:`~..core.qfloat.QFloat` digit arrays,
+    with ``tensorize`` grouping its multiplies and reciprocals; it has only
+    the "unroll" lowering, and "scan", "vec" or "fused" raise as in the JAX
+    package.
     """
-    digits, signs = _digit_inputs(qfloat_arrays, qfloat_signs, n, qfloat_len, backend)
+    check_lowering(backend, lowering)
+    digits, signs = _digit_inputs(qfloat_arrays, qfloat_signs, n, qfloat_len)
+    if backend != "packed":
+        M = qfloat_arrays_to_qfloat_matrix(digits, signs, qfloat_ints, qfloat_base, backend)
+        Minv = qfloat_matrix_inverse_cells(M, qfloat_len, qfloat_ints, true_division, tensorize)
+        return qfloat_matrix_to_arrays_and_signs(Minv, qfloat_len, qfloat_ints, qfloat_base)
     mags, out_signs = qfloat_matrix_inverse_packed_io(
         digits_to_mags(digits, digit_bits(qfloat_base)), signs, n, qfloat_len, qfloat_ints,
         qfloat_base, true_division, lowering=lowering,
@@ -142,7 +161,7 @@ def _digit_matrix(qfloat_arrays, qfloat_signs, params, backend):
     """The QFloat cells of a partial circuit's checked digit input, and its
     signs."""
     n, qfloat_len, qfloat_ints, qfloat_base, *_ = params
-    digits, signs = _digit_inputs(qfloat_arrays, qfloat_signs, n, qfloat_len, backend)
+    digits, signs = _digit_inputs(qfloat_arrays, qfloat_signs, n, qfloat_len)
     return qfloat_arrays_to_qfloat_matrix(digits, signs, qfloat_ints, qfloat_base, backend), signs
 
 
@@ -165,8 +184,9 @@ def _lu_factor(qfloat_arrays, qfloat_signs, params, backend, which):
 def qfloat_lu_L(qfloat_arrays, qfloat_signs, params, backend="limb"):
     """PLU partial circuit returning L as ``(..., n*n, len+1)`` int32 digits
     (reference qfloat_matrix_inversion.py:612-639), op by op on the inputs'
-    device: its divisions and multiplies go where ``ops.packed`` routes them
-    (K2 and K4 on the card).  The diagonal's ``SignedBinary(1)`` and the
+    device: on the packed backend its divisions and multiplies go where
+    ``ops.packed`` routes them (K2 and K4 on the card), on the limb backend
+    its divisions and carry chains where ``ops.limbs`` does (K6 and K7).  The diagonal's ``SignedBinary(1)`` and the
     upper ``Zero`` cells keep the reference's encoding."""
     return _lu_factor(qfloat_arrays, qfloat_signs, params, backend, 1)
 

@@ -1,17 +1,18 @@
 """Marshalling between float matrices, digit-array I/O, packed I/O and
 QFloat matrices.
 
-Port of ``matrix_inversion_tpu/models/marshal.py`` (``:23-227``) on the
-packed backend.  Every converter takes leading batch dimensions.  The host
+Port of ``matrix_inversion_tpu/models/marshal.py`` (``:23-227``).  Every
+converter takes leading batch dimensions.  The host
 converters take the native marshaller (``runtime/native.py``) at 4,096
 values or more, as the JAX package's do, and numpy below that: packed
 quantization is then the closed form of the native marshaller
 (``ops/radix.py::float_to_mags_and_sign``, ``native/qmarshal.cc:119-141``),
 vectorised, and digit quantization peels the same magnitudes into digits
 (``ops/radix.py::float_to_digits_and_sign``).  The quantizers take ``out``,
-arrays to write into (the stream's pinned host buffers).  The digit-array
-"limb" backend is ROADMAP queue 1, item 7b: the converters that build
-QFloat cells take ``backend="packed"`` only.
+arrays to write into (the stream's pinned host buffers).  The converter
+that builds QFloat cells from digits takes either backend: "limb" digit
+arrays (:class:`~..core.qfloat.QFloat`, any base) or "packed" int64
+magnitudes.
 """
 
 from __future__ import annotations
@@ -19,19 +20,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.qfloat import QFloatBase, SignedBinary, Zero
+from ..core.qfloat import QFloat, QFloatBase, SignedBinary, Zero
 from ..ops import radix
 from ..ops.packed import PackedQFloat, digit_bits
 from ..runtime import native
-
-
-def require_packed(backend):
-    """Raise unless ``backend`` is "packed", the one QFloat backend ported."""
-    if backend != "packed":
-        raise NotImplementedError(
-            f"backend={backend!r}: the digit-array limb backend is not ported yet "
-            "(ROADMAP queue 1, item 7b); pass backend='packed'"
-        )
 
 
 def float_matrix_to_qfloat_arrays(M, qfloat_len, qfloat_ints, qfloat_base, out=None):
@@ -50,20 +42,18 @@ def float_matrix_to_qfloat_arrays(M, qfloat_len, qfloat_ints, qfloat_base, out=N
 def qfloat_arrays_to_qfloat_matrix(qfloat_arrays, qfloat_signs, qfloat_ints, qfloat_base,
                                    backend="limb"):
     """(..., n*n, len) digit and (..., n*n) sign tensors -> n x n 2D list of
-    :class:`PackedQFloat` cells, each packed by ``from_digits`` (reference
-    qfloat_matrix_inversion.py:239-262).  ``backend`` must be "packed"."""
-    require_packed(backend)
+    QFloat cells (reference qfloat_matrix_inversion.py:239-262): a
+    :class:`QFloat` of the digits for ``backend="limb"``, a
+    :class:`PackedQFloat` packed by ``from_digits`` for "packed"."""
     n = int(np.sqrt(qfloat_arrays.shape[-2]))
-    return [
-        [
-            PackedQFloat.from_digits(
-                qfloat_arrays[..., i * n + j, :], qfloat_ints, qfloat_base,
-                qfloat_signs[..., i * n + j],
-            )
-            for j in range(n)
-        ]
-        for i in range(n)
-    ]
+
+    def cell(index):
+        digits, sign = qfloat_arrays[..., index, :], qfloat_signs[..., index]
+        if backend == "packed":
+            return PackedQFloat.from_digits(digits, qfloat_ints, qfloat_base, sign)
+        return QFloat(digits, qfloat_ints, qfloat_base, True, sign)
+
+    return [[cell(i * n + j) for j in range(n)] for i in range(n)]
 
 
 def qfloat_matrix_to_arrays_and_signs(M, qfloat_len, qfloat_ints, qfloat_base,
@@ -77,10 +67,10 @@ def qfloat_matrix_to_arrays_and_signs(M, qfloat_len, qfloat_ints, qfloat_base,
     of the first QFloat cell; a matrix without one (L at n=1) needs them.
     """
     if batch_shape is None:
-        like = next((c.mag for row in M for c in row if isinstance(c, QFloatBase)), None)
+        like = next((c for row in M for c in row if isinstance(c, QFloatBase)), None)
         if like is None:
             raise ValueError("the matrix has no QFloat cell: pass batch_shape and device")
-        batch_shape, device = like.shape, like.device
+        batch_shape, device = like.bshape, like.device
     cells = []
     for row in M:
         for cell in row:

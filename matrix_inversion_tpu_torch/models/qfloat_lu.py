@@ -1,13 +1,18 @@
 """QFloat pivoting, LU decomposition, LU inverse and the 2x2 closed form.
 
-Port of ``matrix_inversion_tpu/models/qfloat_lu.py:42-45,134-358``.
-Matrices are n x n Python lists whose cells are ``Zero``, ``SignedBinary``
-or a QFloat type; the n-loops unroll while the circuit is built.  The
-pivot and argmax arithmetic uses operators only (no dtype casts, no
-indexed updates), so the same code runs eagerly on int64 tensors
+Port of ``matrix_inversion_tpu/models/qfloat_lu.py:42-375``.  Matrices
+are n x n Python lists whose cells are ``Zero``, ``SignedBinary`` or a
+QFloat type; the n-loops unroll while the circuit is built.  The pivot and
+argmax arithmetic uses operators only (no dtype casts, no indexed
+updates), so the same code runs eagerly on digit arrays
+(``core.qfloat.QFloat``, the limb backend), on int64 magnitudes
 (``ops.packed.PackedQFloat``; :func:`qfloat_matrix_inverse_op_by_op`, the
 op-by-op path) and on the integer symbols of the CUDA kernel emitter
-(``ops.emit``).
+(``ops.emit``).  ``tensorize=True`` groups the independent multiplies of a
+dot product, and the reciprocals of U's diagonal, into one op each on the
+limb backend, as the JAX package does; the packed cells multiply one by
+one under it (the JAX package's grouped packed dot products give the same
+values).
 """
 
 from __future__ import annotations
@@ -16,7 +21,14 @@ from contextlib import nullcontext
 
 import torch
 
-from ..core.qfloat import QFloatBase, SignedBinary, Zero, qf_from_mul
+from ..core.qfloat import (
+    QFloatBase,
+    SignedBinary,
+    Zero,
+    qf_from_mul,
+    qf_multi_from_mul,
+    qf_multi_invert,
+)
 from ..ops.packed import track_overflow
 from .marshal import mags_and_signs_to_qfloat_matrix, qfloat_matrix_to_mags_and_signs
 
@@ -43,10 +55,17 @@ def zero_list_matrix(n):
     return [[Zero() for _ in range(n)] for _ in range(n)]
 
 
-def qfloat_list_dot_product(list1, list2):
-    """Sequential multiply-accumulate (reference qfloat_matrix_inversion.py:183-205)."""
+def qfloat_list_dot_product(list1, list2, tensorize=False):
+    """Sequential multiply-accumulate (reference qfloat_matrix_inversion.py:183-205);
+    with ``tensorize`` the multiplies first, grouped, then the adds in order."""
     if len(list1) != len(list2):
         raise ValueError("Lists should have the same length.")
+    if tensorize:
+        multiplications = qf_multi_from_mul(list1, list2, None, None)
+        result = multiplications[0]
+        for m in multiplications[1:]:
+            result += m
+        return result
     result = list1[0] * list2[0]
     for i in range(1, len(list1)):
         result += list1[i] * list2[i]
@@ -111,9 +130,9 @@ def qfloat_pivot_matrix(M):
     """Pivot permutation as a (..., n, n) int32 tensor (reference
     qfloat_matrix_inversion.py:331-369, batched): the cells of
     :func:`qfloat_pivot_cells` stacked."""
-    like = next(c.mag for row in M for c in row if isinstance(c, QFloatBase))
+    like = next(c for row in M for c in row if isinstance(c, QFloatBase))
     rows = [
-        torch.stack([torch.broadcast_to(torch.as_tensor(c, device=like.device), like.shape)
+        torch.stack([torch.broadcast_to(torch.as_tensor(c, device=like.device), like.bshape)
                      for c in row], dim=-1)
         for row in qfloat_pivot_cells(M)
     ]
@@ -126,13 +145,14 @@ def qfloat_pivot_binary(M):
     return [[SignedBinary(c) for c in row] for row in qfloat_pivot_cells(M)]
 
 
-def qfloat_lu_decomposition(M, qfloat_len, qfloat_ints, true_division=False):
+def qfloat_lu_decomposition(M, qfloat_len, qfloat_ints, true_division=False, tensorize=False):
     """PM = LU on a QFloat 2D-list matrix; returns ``(P^T, L, U)`` with
     M = PLU (``matrix_inversion_tpu/models/qfloat_lu.py:228-231``)."""
-    return lu_from_pivot(qfloat_pivot_binary(M), M, qfloat_len, qfloat_ints, true_division)
+    return lu_from_pivot(qfloat_pivot_binary(M), M, qfloat_len, qfloat_ints, true_division,
+                         tensorize)
 
 
-def lu_from_pivot(P, M, qfloat_len, qfloat_ints, true_division=False):
+def lu_from_pivot(P, M, qfloat_len, qfloat_ints, true_division=False, tensorize=False):
     """Doolittle LU given a SignedBinary pivot matrix ``P``; returns
     ``(P^T, L, U)`` (reference qfloat_matrix_inversion.py:377-453)."""
     assert len(M) == len(M[0])
@@ -151,6 +171,7 @@ def lu_from_pivot(P, M, qfloat_len, qfloat_ints, true_division=False):
                 s1 = qfloat_list_dot_product(
                     [U[k][j] for k in range(0, i)],
                     [L[i][k] for k in range(0, i)],
+                    tensorize,
                 )
                 U[i][j] = PM[i][j] + s1.neg()
             else:
@@ -164,6 +185,7 @@ def lu_from_pivot(P, M, qfloat_len, qfloat_ints, true_division=False):
                 s2 = qfloat_list_dot_product(
                     [U[k][j] for k in range(0, j)],
                     [L[i][k] for k in range(0, j)],
+                    tensorize,
                 )
                 if true_division:
                     L[i][j] = (PM[i][j] + s2.neg()) / U[j][j]
@@ -181,7 +203,8 @@ def lu_from_pivot(P, M, qfloat_len, qfloat_ints, true_division=False):
     return P, L, U
 
 
-def qfloat_lu_inverse(P, L, U, qfloat_len, qfloat_ints, true_division=False, debug=False):
+def qfloat_lu_inverse(P, L, U, qfloat_len, qfloat_ints, true_division=False, tensorize=False,
+                      debug=False):
     """Inverse from the P, L, U decomposition (reference
     qfloat_matrix_inversion.py:461-518); with ``debug=True`` returns
     ``(Minv, Y, X)``, the substitutions' cell matrices beside it, as
@@ -195,13 +218,16 @@ def qfloat_lu_inverse(P, L, U, qfloat_len, qfloat_ints, true_division=False, deb
         Y[i][0] = P[i][0].copy()
         for j in range(1, n):
             Y[i][j] = P[i][j] - qfloat_list_dot_product(
-                [L[j][k] for k in range(j)], [Y[i][k] for k in range(j)]
+                [L[j][k] for k in range(j)], [Y[i][k] for k in range(j)], tensorize
             )
 
     # Backward substitution: U * X = Y
     X = zero_list_matrix(n)
     if not true_division:
-        Ujj_inv = [U[j][j].invert(1, qfloat_len, 0) for j in range(n)]
+        if tensorize:
+            Ujj_inv = qf_multi_invert([U[j][j] for j in range(n)], 1, qfloat_len, 0)
+        else:
+            Ujj_inv = [U[j][j].invert(1, qfloat_len, 0) for j in range(n)]
     for i in range(n - 1, -1, -1):
         if true_division:
             X[i][-1] = Y[i][-1] / U[-1][-1]
@@ -211,6 +237,7 @@ def qfloat_lu_inverse(P, L, U, qfloat_len, qfloat_ints, true_division=False, deb
             temp = Y[i][j] - qfloat_list_dot_product(
                 [U[j][k] for k in range(j + 1, n)],
                 [X[i][k] for k in range(j + 1, n)],
+                tensorize,
             )
             if true_division:
                 X[i][j] = temp / U[j][j]
@@ -241,18 +268,39 @@ def qfloat_inverse_2x2(qfloat_M, qfloat_len, qfloat_ints):
     ]
 
 
-def qfloat_matrix_inverse_cells(M, qfloat_len, qfloat_ints, true_division):
+def qfloat_inverse_2x2_multi(qfloat_M, qfloat_len, qfloat_ints):
+    """The closed form with its multiplies grouped (reference
+    qfloat_matrix_inversion.py:558-584)."""
+    [a, b] = qfloat_M[0]
+    [c, d] = qfloat_M[1]
+
+    [ad, bc] = qf_multi_from_mul([a, b], [d, c], 2 * qfloat_ints + 3, 2 * qfloat_ints)
+    det = ad + bc.neg()
+    det_inv = det.invert(1, qfloat_len, 0)
+    [mula, mulb, mulc, muld] = qf_multi_from_mul(
+        [a, b, c, d], [det_inv] * 4, qfloat_len, qfloat_ints
+    )
+    return [
+        [muld, mulb.neg()],
+        [mulc.neg(), mula],
+    ]
+
+
+def qfloat_matrix_inverse_cells(M, qfloat_len, qfloat_ints, true_division, tensorize=False):
     """The whole inverse circuit on an n x n list of QFloat cells.
 
-    The op sequence of ``matrix_inversion_tpu/ops/fused_inverse.py:114-125``:
-    the closed form for n = 2; otherwise pivot cells, LU and substitution.
+    The op sequence of ``matrix_inversion_tpu/ops/fused_inverse.py:114-125``
+    (of ``models/inverse.py:108-122`` with ``tensorize``): the closed form
+    for n = 2; otherwise pivot cells, LU and substitution.
     """
     n = len(M)
     if n == 2:
+        if tensorize:
+            return qfloat_inverse_2x2_multi(M, qfloat_len, qfloat_ints)
         return qfloat_inverse_2x2(M, qfloat_len, qfloat_ints)
     Pb, Lm, Um = lu_from_pivot(qfloat_pivot_binary(M), M, qfloat_len, qfloat_ints,
-                               true_division)
-    return qfloat_lu_inverse(Pb, Lm, Um, qfloat_len, qfloat_ints, true_division)
+                               true_division, tensorize)
+    return qfloat_lu_inverse(Pb, Lm, Um, qfloat_len, qfloat_ints, true_division, tensorize)
 
 
 def qfloat_matrix_inverse_op_by_op(mags, signs, n, qfloat_len, qfloat_ints,

@@ -1,0 +1,160 @@
+"""The limb backend's kernels: K6, the long division of digit arrays, and K7,
+their carry chain with its sign and magnitude.
+
+They have no Pallas counterpart: they replace the ``lax.scan`` chains of
+``matrix_inversion_tpu/ops/limbs.py`` (``base_p_division``, ``:195``;
+``base_tidy`` and ``tidy_to_sign_mag``, ``:231``), which JAX compiles into
+one program and eager PyTorch would run as a few launches a digit.  The
+CUDA sources are ``csrc/limb_division.cu`` and ``csrc/limb_tidy.cu`` in the
+frame of ``csrc/limb_frame.cuh``: one thread a number, walking its int32
+digits (most significant first, batch-major ``(N, L)``) from the least
+significant up.  ``PERF.md`` has their times and bounds.
+
+Each wrapper takes int32 digit tensors on one CUDA device, with leading
+batch axes, broadcasts their batches, launches the kernel on the current
+stream and gives the result in the broadcast batch shape; it raises if the
+launch fails, and on tensors anywhere else: ``ops/limbs.py`` alone decides
+which tensors take the kernels and which the plain versions.  The base and
+the widths are runtime arguments, so one library of each serves every
+encoding; K6's divisor is capped at :data:`MAX_DIVISOR_DIGITS` digits.
+Both libraries are built with ``nvcc`` at first use (:mod:`.cuda_build`),
+keyed by a hash of their sources and the flags.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .cuda_build import CSRC, NVCC_FLAGS, build_library, run_parallel
+
+# Launches of each kernel, for checks that a run went through them.
+LAUNCHES = {"limb_division": 0, "limb_tidy": 0}
+
+# The widest divisor K6 takes (csrc/limb_division.cu, kMaxDivisorDigits).
+MAX_DIVISOR_DIGITS = 256
+
+# K6 built with every width on its run-time window (local memory), to time
+# against the compile-time windows the library uses up to 64 digits
+RUNTIME_WINDOW = ("-DLIMB_RUNTIME_WINDOW",)
+
+_ARGTYPES = {
+    # (v, v_stride, d, q, n, d_len, v_len, base, stream)
+    "limb_division": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p],
+    # (in, out, sign or NULL, n, len, base, stream)
+    "limb_tidy": [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_void_p],
+}
+
+
+def _build_one(name, flags=()):
+    source = f"{name}.cu"
+    return build_library(
+        source, f"lib{name}.so",
+        tuple((CSRC / f).read_text() for f in ("limb_frame.cuh", source))
+        + (" ".join(NVCC_FLAGS + flags),),
+        flags=flags,
+    )
+
+
+def build_dir(name, flags=()):
+    """The build directory of ``"limb_division"`` or ``"limb_tidy"`` (with
+    ``-D`` switches ``flags``): the library and ``nvcc.log`` with ptxas's
+    registers and spills.  Builds first if needed."""
+    return _build_one(name, flags).parent
+
+
+def build():
+    """Build both libraries and K6's :data:`RUNTIME_WINDOW` form (in
+    parallel, one nvcc each) and load them."""
+    jobs = [("limb_division", ()), ("limb_tidy", ()), ("limb_division", RUNTIME_WINDOW)]
+    run_parallel([functools.partial(_build_one, *job) for job in jobs])
+    for job in jobs:
+        _library(*job)
+
+
+@functools.lru_cache(maxsize=None)
+def _library(name, flags=()):
+    fn = getattr(ctypes.CDLL(str(_build_one(name, flags))), f"{name}_launch")
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_digits(base, *tensors):
+    for t in tensors:
+        if t.dtype != torch.int32:
+            raise TypeError(f"expected int32 digit tensors, got {t.dtype}")
+        if t.dim() < 1 or t.shape[-1] < 1:
+            raise ValueError(f"expected digit tensors with a digit axis, got {tuple(t.shape)}")
+    if base < 2:
+        raise ValueError(f"base must be >= 2, got {base}")
+
+
+def _check_device(*tensors):
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"operands on two devices: {sorted(map(str, devices))}")
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"expected CUDA tensors, got {tensors[0].device}: the plain "
+                         "versions are in ops/limbs.py")
+
+
+def _launch(name, *args, device, flags=()):
+    fn = _library(name, flags)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def limb_division(dividend, divisor, base, flags=()):
+    """K6: the restoring long division of tidy digit arrays (each digit in
+    ``[0, base)``): ``(..., d_len)`` dividends by ``(..., v_len)`` divisors,
+    ``(..., d_len)`` int32 quotient digits, all ``base - 1`` where the
+    divisor is zero.  A dividend broadcast over the batch (a reciprocal's
+    constant) is read from one row.  ``flags``: the build to launch
+    (:data:`RUNTIME_WINDOW` for the run-time window at every width)."""
+    _check_digits(base, dividend, divisor)
+    d_len, v_len = dividend.shape[-1], divisor.shape[-1]
+    if v_len > MAX_DIVISOR_DIGITS:
+        raise ValueError(f"the divisor has {v_len} digits: K6 takes at most "
+                         f"{MAX_DIVISOR_DIGITS} (MAX_DIVISOR_DIGITS)")
+    _check_device(dividend, divisor)
+    batch = torch.broadcast_shapes(dividend.shape[:-1], divisor.shape[:-1])
+    q = torch.empty(batch + (d_len,), dtype=torch.int32, device=divisor.device)
+    if q.numel() == 0:
+        return q
+    d = divisor.expand(batch + (v_len,)).contiguous()
+    lead = dividend.shape[:-1]
+    if all(size == 1 or stride == 0 for size, stride in zip(lead, dividend.stride()[:-1])):
+        v, v_stride = dividend[(0,) * len(lead)].contiguous(), 0
+    else:
+        v, v_stride = dividend.expand(batch + (d_len,)).contiguous(), d_len
+    _launch("limb_division", v.data_ptr(), v_stride, d.data_ptr(), q.data_ptr(),
+            q.numel() // d_len, d_len, v_len, base, device=d.device, flags=flags)
+    return q
+
+
+def limb_tidy(arr, base, signed=False):
+    """K7: the signed carry chain of ``(..., L)`` int32 digit arrays, digits
+    into ``]-base, base[`` and the carry past the top dropped; with
+    ``signed=True`` then the magnitude and the sign of the tidied value
+    (``tidy_to_sign_mag``): ``(digits, int32 sign)``, sign +1 for a value
+    >= 0."""
+    _check_digits(base, arr)
+    _check_device(arr)
+    a = arr.contiguous()
+    length = a.shape[-1]
+    out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    sign = torch.empty(a.shape[:-1], dtype=torch.int32, device=a.device) if signed else None
+    if out.numel():
+        _launch("limb_tidy", a.data_ptr(), out.data_ptr(),
+                sign.data_ptr() if signed else None, out.numel() // length, length, base,
+                device=a.device)
+    return (out, sign) if signed else out

@@ -221,6 +221,10 @@ class PackedQFloat(QFloatBase):
         return self._mag.shape
 
     @property
+    def device(self):
+        return self._mag.device
+
+    @property
     def mag(self):
         return self._mag
 

@@ -1,13 +1,15 @@
 """User-facing API: one matrix through the reference's lifecycle, and batches.
 
-Port of ``matrix_inversion_tpu/runtime/api.py:143-441`` on the packed
-backend.  ``EncryptedMatrixInversion`` keeps the reference's lifecycle
+Port of ``matrix_inversion_tpu/runtime/api.py:143-441``.
+``EncryptedMatrixInversion`` keeps the reference's lifecycle
 (reference main.py:17-116) for one matrix; ``BatchedMatrixInversion``
 inverts (B, n, n) float batches in one device program.  Both take digit
 I/O (``io="digits"``, the reference's default: ``(..., n*n, len)`` digits
 in, ``(..., n*n, len+1)`` out) or packed I/O (``io="packed"``: one int64
-magnitude and one sign a cell).  PyTorch runs eagerly, so there is no
-compile step.  The device defaults to the card: the CPU runs only for a
+magnitude and one sign a cell; the packed backend only).  The backend is
+``params.resolve_backend()``: packed where the encoding fits in int64, else
+the limb backend (digit arrays, any base), on digit I/O only.  PyTorch runs
+eagerly, so there is no compile step.  The device defaults to the card: the CPU runs only for a
 caller who names it.
 """
 
@@ -21,6 +23,7 @@ import torch
 
 from ..config import QFloatParams
 from ..models.inverse import (
+    check_lowering,
     qfloat_matrix_inverse,
     qfloat_matrix_inverse_packed_io,
     qfloat_matrix_inverse_with_overflow,
@@ -33,10 +36,13 @@ from ..models.marshal import (
 )
 
 
-def _check_io(io, track_overflow):
-    """The reference's ``ValueError``s for ``io`` and ``track_overflow``."""
+def _check_io(io, track_overflow, backend, packed_io_message):
+    """The reference's ``ValueError``s for ``io`` and ``track_overflow``
+    on ``backend``, in its order."""
     if io not in ("digits", "packed"):
         raise ValueError("io must be digits|packed")
+    if io == "packed" and backend != "packed":
+        raise ValueError(packed_io_message)
     if track_overflow and io != "packed":
         raise ValueError("track_overflow requires io='packed'")
 
@@ -52,15 +58,18 @@ def _target(device, who):
     return device
 
 
-def _circuit(params: QFloatParams, io: str, track: bool, lowering=None):
+def _circuit(params: QFloatParams, backend: str, io: str, track: bool, lowering=None):
     """The circuit body of one configuration: device tensors in, device
-    tensors out; ``lowering`` overrides the params' own."""
+    tensors out; ``lowering`` overrides the params' own.  A lowering that
+    ``backend`` does not have raises here."""
     p = params
     args = dict(n=p.n, qfloat_len=p.qfloat_len, qfloat_ints=p.qfloat_ints,
                 qfloat_base=p.qfloat_base, true_division=p.true_division,
                 lowering=lowering or p.lowering)
     if io == "digits":
-        return functools.partial(qfloat_matrix_inverse, backend="packed", **args)
+        check_lowering(backend, args["lowering"])
+        return functools.partial(qfloat_matrix_inverse, tensorize=p.tensorize, backend=backend,
+                                 **args)
     fn = qfloat_matrix_inverse_with_overflow if track else qfloat_matrix_inverse_packed_io
     return functools.partial(fn, **args)
 
@@ -92,13 +101,14 @@ class EncryptedMatrixInversion:
 
     ``keygen`` is a no-op, ``quantize`` gives host numpy arrays,
     ``encrypt`` puts them on the device as int64 tensors, ``evaluate`` runs
-    the circuit there (on CUDA, K1 for n <= 12 and the op-by-op path
-    beyond), ``decrypt`` brings the result back as numpy (a tuple for packed
-    io) and ``dequantize`` gives the float64 (n, n) inverse; ``run`` chains
-    them.  ``run(M, simulate=True)`` runs the same circuit op by op
-    (``lowering="unroll"``) on the same device: the port's counterpart of the
-    reference's uncompiled eager body, which on the card holds K1 against
-    the op-by-op kernels K2 and K4.
+    the circuit there (on CUDA, packed: K1 for n <= 12 and the op-by-op path
+    beyond; limb: op by op with K6 and K7), ``decrypt`` brings the result
+    back as numpy (a tuple for packed io) and ``dequantize`` gives the
+    float64 (n, n) inverse; ``run`` chains them.  ``run(M, simulate=True)``
+    runs the same circuit op by op (``lowering="unroll"``) on the same
+    device: the port's counterpart of the reference's uncompiled eager body,
+    which on the card holds K1 against the op-by-op kernels K2 and K4 (on
+    the limb backend it is the same path as ``run``).
     """
 
     def __init__(
@@ -118,9 +128,10 @@ class EncryptedMatrixInversion:
     ):
         """The arguments up to ``track_overflow`` are the reference's, in its
         order (``matrix_inversion_tpu/runtime/api.py:146-158``).
-        ``tensorize`` only regroups limb-backend ops and changes nothing
-        here.  ``track_overflow=True`` (packed io only): ``run`` returns
-        ``(inverse, overflowed)`` with a scalar int overflow flag."""
+        ``tensorize`` groups the limb backend's multiplies and reciprocals
+        (the same results).  ``track_overflow=True`` (packed io only):
+        ``run`` returns ``(inverse, overflowed)`` with a scalar int overflow
+        flag."""
         self.shape = (n, n)
         self.params = QFloatParams(
             n=n,
@@ -128,10 +139,12 @@ class EncryptedMatrixInversion:
             qfloat_ints=qfloat_ints,
             qfloat_base=qfloat_base,
             true_division=true_division,
+            tensorize=tensorize,
             backend=backend,
         )
         self.backend = self.params.resolve_backend()
-        _check_io(io, track_overflow)
+        _check_io(io, track_overflow, self.backend,
+                  "packed io requires the packed backend (base=2^k encoding that fits in int64)")
         self.io = io
         self.track_overflow = bool(track_overflow)
         if sampler is not None:
@@ -142,8 +155,9 @@ class EncryptedMatrixInversion:
                 assert np.issubdtype(sample.dtype, np.floating)
                 assert sample.shape == self.shape
         self.device = _target(device, "EncryptedMatrixInversion")
-        self.circuit = _circuit(self.params, io, self.track_overflow)
-        self._simulate = _circuit(self.params, io, self.track_overflow, lowering="unroll")
+        self.circuit = _circuit(self.params, self.backend, io, self.track_overflow)
+        self._simulate = _circuit(self.params, self.backend, io, self.track_overflow,
+                                  lowering="unroll")
 
     # ---- lifecycle steps (reference main.py:68-91) ------------------------
     def keygen(self):
@@ -203,12 +217,15 @@ class BatchedMatrixInversion:
     ``run_raw`` (device tensors in, device tensors out, asynchronous on
     CUDA) and ``dequantize`` (device -> host float64); ``run`` chains the
     three.  ``runtime/stream.py::StreamingInverter`` pipelines the same
-    stages over a stream of batches.  On a CUDA device ``lowering="auto"`` runs the fused kernel
-    (ops/fused_inverse.py) for n <= 12 and the op-by-op path beyond, whose
-    divisions go through the K2/K3 kernels and whose untracked base-2
-    multiplies go through K4 (ops/long_division.py); "unroll", "vec" and
-    "scan" run the op-by-op path at any n.  Digit I/O packs and unpacks
-    around the same circuit on the device.
+    stages over a stream of batches.  On the packed backend and a CUDA
+    device ``lowering="auto"`` runs the fused kernel (ops/fused_inverse.py)
+    for n <= 12 and the op-by-op path beyond, whose divisions go through
+    the K2/K3 kernels and whose untracked base-2 multiplies go through K4
+    (ops/long_division.py); "unroll", "vec" and "scan" run the op-by-op
+    path at any n.  Digit I/O packs and unpacks around the same circuit on
+    the device.  On the limb backend (digit I/O only) the circuit runs op by
+    op on digit arrays, its long divisions in K6 and its carry chains in K7
+    (ops/limb_kernels.py).
 
     ``track_overflow=True`` (packed io only) runs the tracked circuit
     (``qfloat_matrix_inverse_with_overflow``, on CUDA the tracked kernel):
@@ -239,20 +256,20 @@ class BatchedMatrixInversion:
         ``data_parallel=None`` (auto) and ``False`` both mean one device;
         ``True`` and the shardings raise until multi-device batching is
         ported."""
-        _check_io(io, track_overflow)
+        if backend != "auto":
+            params = params.replace(backend=backend)
+        self.backend = params.resolve_backend()
+        _check_io(io, track_overflow, self.backend, "packed io requires the packed backend")
         if data_parallel or in_shardings is not None or out_shardings is not None:
             raise NotImplementedError(
                 "multi-device batching is not ported yet (ROADMAP queue 1, item 10)"
             )
-        if backend != "auto":
-            params = params.replace(backend=backend)
-        params.resolve_backend()
         self.params = params
         self.io = io
         self.batch_size = int(batch_size)
         self.device = _target(device, "BatchedMatrixInversion")
         self.track_overflow = bool(track_overflow)
-        self._circuit = _circuit(params, io, self.track_overflow)
+        self._circuit = _circuit(params, self.backend, io, self.track_overflow)
 
     def input_shapes(self):
         """The shapes of ``run_raw``'s two int64 inputs: digits

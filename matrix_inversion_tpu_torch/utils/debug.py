@@ -4,10 +4,10 @@ Port of ``matrix_inversion_tpu/utils/debug.py:28-124`` (the reference debug
 harness, qfloat_matrix_inversion.py:763-880): run the QFloat circuit on one
 matrix and compare P/L/U/Y/X against the float oracle.  The same signatures,
 plus ``device`` (the card by default; the CPU only when named).  On the card
-``run_qfloat_inverse`` takes the circuit's own route (K1 for n <= 12), and
-the decompositions run op by op through the division and multiply kernels.
-Only the packed backend is ported: another ``backend`` raises naming ROADMAP
-queue 1, item 7b.
+``run_qfloat_inverse`` takes the circuit's own route (K1 for n <= 12 on the
+packed backend), and the decompositions run op by op through the division
+and multiply kernels (K2 and K4 packed, K6 and K7 limb).  ``backend=None``
+is ``params.resolve_backend()``: packed where the encoding fits, else limb.
 """
 
 from __future__ import annotations
@@ -59,7 +59,8 @@ def _decomposition(M, p, backend, device, who):
     digits, signs = _digits_on(M, p, device, who)
     qfloat_M = qfloat_arrays_to_qfloat_matrix(digits, signs, p.qfloat_ints, p.qfloat_base,
                                               backend)
-    return qfloat_lu_decomposition(qfloat_M, p.qfloat_len, p.qfloat_ints, p.true_division), signs
+    return qfloat_lu_decomposition(qfloat_M, p.qfloat_len, p.qfloat_ints, p.true_division,
+                                   p.tensorize), signs
 
 
 def run_qfloat_inverse(M, params: QFloatParams, backend=None, *, device="cuda"):
@@ -69,7 +70,7 @@ def run_qfloat_inverse(M, params: QFloatParams, backend=None, *, device="cuda"):
     digits, signs = _digits_on(M, p, device, "run_qfloat_inverse")
     out = qfloat_matrix_inverse(
         digits, signs, p.n, p.qfloat_len, p.qfloat_ints, p.qfloat_base,
-        p.true_division, False, backend,
+        p.true_division, p.tensorize, backend,
     )
     return qfloat_and_signs_arrays_to_float_matrix(out.cpu().numpy(), p.qfloat_ints,
                                                    p.qfloat_base)
@@ -119,7 +120,8 @@ def debug_inverse(M, params: QFloatParams, backend=None, verbose=True, *, device
     backend = backend or p.resolve_backend()
     (bin_P, qf_L, qf_U), _ = _decomposition(M, p, backend, device, "debug_inverse")
     Minv, qf_Y, qf_X = qfloat_lu_inverse(
-        bin_P, qf_L, qf_U, p.qfloat_len, p.qfloat_ints, p.true_division, debug=True,
+        bin_P, qf_L, qf_U, p.qfloat_len, p.qfloat_ints, p.true_division, p.tensorize,
+        debug=True,
     )
     L = map_2D_list(qf_L, _to_float)
     U = map_2D_list(qf_U, _to_float)

@@ -30,7 +30,8 @@ from ..runtime.api import _target
 def _circuit(p: QFloatParams, n, backend):
     return functools.partial(
         qfloat_matrix_inverse, n=n, qfloat_len=p.qfloat_len, qfloat_ints=p.qfloat_ints,
-        qfloat_base=p.qfloat_base, true_division=p.true_division, backend=backend,
+        qfloat_base=p.qfloat_base, true_division=p.true_division, tensorize=p.tensorize,
+        backend=backend,
     )
 
 

@@ -76,11 +76,10 @@ def test_qfloat_matrix_inverse_one_matrix_and_errors():
     assert got.shape == (9, 41)
     np.testing.assert_array_equal(got.numpy(), ref)
     td, ts = torch.from_numpy(d), torch.from_numpy(s)
+    # the limb backend (and "auto", and the reference's default) gives the same bits
     for backend in ("limb", "auto"):
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            mt.qfloat_matrix_inverse(td, ts, *args, backend=backend)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        mt.qfloat_matrix_inverse(td, ts, *args)  # the reference's default backend
+        assert torch.equal(mt.qfloat_matrix_inverse(td, ts, *args, backend=backend), got)
+    assert torch.equal(mt.qfloat_matrix_inverse(td, ts, *args), got)
     with pytest.raises(ValueError, match="expected"):
         mt.qfloat_matrix_inverse(td[:, :30], ts, *args, backend="packed")
     with pytest.raises(ValueError, match="expected"):
@@ -129,9 +128,16 @@ def test_digit_converters_match_jax():
         marshal.qfloat_and_signs_arrays_to_float_matrix(got, p.qfloat_ints, 2),
         jax_marshal.qfloat_and_signs_arrays_to_float_matrix(ref, p.qfloat_ints, 2),
     )
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        marshal.qfloat_arrays_to_qfloat_matrix(torch.from_numpy(d), torch.from_numpy(s),
-                                               p.qfloat_ints, 2)
+    # the reference's default backend builds limb cells: the same arrays back
+    limb = marshal.qfloat_arrays_to_qfloat_matrix(torch.from_numpy(d), torch.from_numpy(s),
+                                                  p.qfloat_ints, 2)
+    jlimb = jax_marshal.qfloat_arrays_to_qfloat_matrix(jnp.asarray(d), jnp.asarray(s),
+                                                       p.qfloat_ints, 2)
+    assert isinstance(limb[0][0], mt.QFloat)
+    np.testing.assert_array_equal(
+        np.asarray(marshal.qfloat_matrix_to_arrays_and_signs(limb, p.qfloat_len, p.qfloat_ints, 2)),
+        np.asarray(jax_marshal.qfloat_matrix_to_arrays_and_signs(jlimb, p.qfloat_len,
+                                                                 p.qfloat_ints, 2)))
 
 
 def test_packed_qfloat_digit_conversions_match_jax():
@@ -243,13 +249,13 @@ def test_encrypted_checks_inputs_and_raises_the_reference_errors():
         mt.EncryptedMatrixInversion(2, track_overflow=True, device="cpu")
     with pytest.raises(ValueError, match="track_overflow requires io='packed'"):
         JaxEncrypted(2, track_overflow=True)
-    # the limb backend, and formats only it can hold, name what is missing
-    with pytest.raises(ValueError, match="item 7b"):
+    # packed io needs the packed backend; a format only the limb backend holds
+    # takes it
+    with pytest.raises(ValueError, match="packed io requires the packed backend"):
         mt.EncryptedMatrixInversion(3, backend="limb", io="packed", device="cpu")
-    with pytest.raises(ValueError, match="item 7b"):
-        mt.EncryptedMatrixInversion(3, qfloat_base=3, device="cpu")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="packed io requires the packed backend"):
         JaxEncrypted(3, backend="limb", io="packed")
+    assert mt.EncryptedMatrixInversion(3, qfloat_base=3, device="cpu").backend == "limb"
 
 
 def test_encrypted_defaults_to_the_card_and_raises_without_one():
@@ -269,7 +275,7 @@ def test_new_exports_match_jax():
              "EncryptedMatrixInversion"]
     for name in names:
         assert name in mt.__all__ and name in mi.__all__
-    assert set(mi.__all__) - set(mt.__all__) == {"QFloat"}
+    assert set(mi.__all__) <= set(mt.__all__)  # QFloat included
     assert mt.qfloat_matrix_inverse is inverse.qfloat_matrix_inverse
     assert mt.qfloat_pivot is inverse.qfloat_pivot
     assert mt.float_matrix_to_qfloat_arrays is marshal.float_matrix_to_qfloat_arrays

@@ -27,8 +27,10 @@ def test_port_sources_found():
             "utils/timing.py", "utils/profiling.py", "utils/ubench.py",
             "utils/roofline.py", "ops/radix.py", "models/lu_float.py", "models/marshal.py",
             "models/inverse.py", "runtime/stream.py", "runtime/native.py", "utils/debug.py",
-            "utils/precision.py", "utils/run_benchmarks.py", "__main__.py"} <= names
-    assert (PORT / "csrc" / "qmarshal.cc").is_file()
+            "utils/precision.py", "utils/run_benchmarks.py", "__main__.py", "ops/limbs.py",
+            "ops/limb_kernels.py"} <= names
+    for source in ("qmarshal.cc", "limb_division.cu", "limb_tidy.cu", "limb_frame.cuh"):
+        assert (PORT / "csrc" / source).is_file()
 
 
 @pytest.mark.parametrize(

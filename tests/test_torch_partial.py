@@ -78,8 +78,8 @@ def test_pivot_matches_jax_and_the_oracle(name, n):
         assert one.shape == (n, n)
         np.testing.assert_array_equal(one.numpy(), got[b].numpy())
         np.testing.assert_array_equal(one.numpy(), lu_float.pivot_matrix(M[b]).astype(int))
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        mt.qfloat_pivot(d, s, p.as_list())
+    # the reference's default backend, limb, gives the same permutation
+    assert torch.equal(mt.qfloat_pivot(d, s, p.as_list()), got)
 
 
 @pytest.mark.parametrize("name,n", CASES)

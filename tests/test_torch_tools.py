@@ -82,10 +82,15 @@ def test_lu_inverse_debug_returns_y_and_x(matrix):
 
 
 def test_debug_tools_need_packed(matrix):
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        debug.compare_plu(matrix, P3[1], backend="limb", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        debug.run_qfloat_inverse(matrix, P3[1], backend="limb", device="cpu")
+    """The tools take the limb backend too, and agree with the packed one."""
+    np.testing.assert_array_equal(
+        debug.run_qfloat_inverse(matrix, P3[1], backend="limb", device="cpu"),
+        debug.run_qfloat_inverse(matrix, P3[1], backend="packed", device="cpu"))
+    limb = debug.compare_plu(matrix, P3[1], backend="limb", verbose=False, device="cpu")
+    packed_ = debug.compare_plu(matrix, P3[1], backend="packed", verbose=False, device="cpu")
+    for key in ("P", "L", "U"):
+        np.testing.assert_array_equal(np.asarray(limb[key][0], float),
+                                      np.asarray(packed_[key][0], float))
 
 
 def test_precision_benchmark_matches_jax():
