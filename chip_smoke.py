@@ -83,6 +83,19 @@ divisors with leading zero digits.  The limb ``run_raw`` is timed in turns
 with the packed one and with its plain version, the base-10 one with the
 base-2 one, and K6 and K7 beside their bounds.
 
+Then K1 past n = 5, which ``lowering="auto"`` sends to it up to n = 12:
+HIGH n = 6..12, untracked and tracked, and LOW n = 10 (the CLI's default
+size), built from the start in the background (minutes of nvcc each) and
+checked after the other phases, each through ``run_raw`` on a ragged batch
+against its plain version on the card and the CPU, with its build time,
+registers, spills and block size; the eight recorded outlier matrices
+(``benchmarks/results/outliers.json``) through K1 against the CPU and their
+recorded errors and flags; the CLI at its default sizes; the ``lowering``,
+``fused`` and ``rooflines`` drivers over n = 2..12 (K1 must beat the op-by-op
+path at every n it serves), and K1's per-n rows of the ``kernels`` line.
+After the limb phase, K6 at a 300-digit divisor, past the 256 digits of its
+local-memory window, against its plain version, timed.
+
 Any failure raises.  The last line is one JSON object naming
 the device.  Imports nothing of JAX.
 """
@@ -96,6 +109,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -112,6 +126,8 @@ from matrix_inversion_tpu_torch import (
     qfloat_lu_L,
     qfloat_lu_U,
     qfloat_matrix_inverse,
+    qfloat_matrix_inverse_packed_io,
+    qfloat_matrix_inverse_with_overflow,
     qfloat_pivot,
     set_division_impl,
 )
@@ -142,7 +158,7 @@ from matrix_inversion_tpu_torch.utils import (
     sass,
     ubench,
 )
-from matrix_inversion_tpu_torch.utils.profiling import device_trace
+from matrix_inversion_tpu_torch.utils.profiling import device_trace, device_work_by_range
 from matrix_inversion_tpu_torch.utils.timing import card_name_and_limit, card_state, timed_chain
 
 MAIN_BATCH = 1_048_576
@@ -191,9 +207,8 @@ K7_INSTR_PER_DIGIT = 8
 # tracked) and at the digit path's (3), the e2e benchmark at the main path's
 # batch in 4 batches of 2 passes a leg (the JAX benchmark's defaults are 8 and
 # 3: cut to keep the phase near a minute), the reference's 10,000-inversion
-# sweep, whose first batch is held to the CPU, and the CLI at sizes 2, 3, 5:
-# its default 2,3,5,10 would build K1 at LOW n=10, which takes nvcc minutes
-# and was never checked against its plain version (ROADMAP R5).
+# sweep, whose first batch is held to the CPU.  The CLI at its default sizes
+# runs after K1's check at n = 6..12, which its LOW n=10 needs.
 SERVE_BATCHES = 6
 SERVE_TRACKED_BATCHES = 3
 SERVE_DIGIT_BATCHES = 3
@@ -203,7 +218,7 @@ STEADY_BATCHES = 16  # the stream once more, after a warm run, on the same batch
 STAGE_PASSES = 3
 PRECISION_N = 10_000
 PRECISION_CHECK = 2048  # precision_benchmark's batch: its first call
-CLI_SIZES = (2, 3, 5)
+CLI_SIZES = (2, 3, 5, 10)
 CLI_RUNS = ((), ("--simulate",), ("--batch", "4"))
 CLI_TIMEOUT_S = 600
 
@@ -284,6 +299,32 @@ MUL_FORMATS = [
     ((23, 9), (23, 0), (23, 9)),
 ]
 HIGH_MUL = (40, 20, 40, 20, 40, 20)  # the High dot product's multiply, as the wrapper takes it
+
+# K1 past n = 5, which lowering="auto" sends to it up to n = 12: HIGH
+# n = 6..12, untracked and tracked, and LOW n = 10, the CLI's default size.
+# A build takes nvcc seconds to six minutes (straight-line bodies of 0.1-1 MB), so
+# they start first, in the background, largest first, K1_SIZE_BUILDS at a
+# time and at nice BUILD_NICE below the other phases, and are checked after
+# them.
+K1_SIZES = ([(f"HIGH n={n}", HIGH.replace(n=n), False) for n in range(6, 13)]
+            + [(f"HIGH n={n} tracked", HIGH.replace(n=n), True) for n in range(6, 13)]
+            + [("LOW n=10", LOW.replace(n=10), False)])
+K1_SIZE_BUILDS = 6
+BUILD_NICE = 10
+K1_CPU_ROWS = 64  # of each size's check, held to the CPU run too
+# The drivers: lowering at LOWERING_BATCH, fused and rooflines at
+# FUSED_BATCH, over DRIVER_SIZES; the tracked op-by-op path, which has no
+# multiply kernel (ROADMAP R3), only at UNROLL_TRACKED_SIZES
+DRIVER_SIZES = tuple(range(2, 13))
+LOWERING_BATCH = 65_536
+FUSED_BATCH = 262_144
+UNROLL_TRACKED_SIZES = (2, 3, 4)
+OUTLIERS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks", "results",
+                        "outliers.json")
+# K6 past the 256-digit window of its local-memory form: a 300-digit divisor
+# (the window in global scratch), WIDE_NUMBERS numbers
+WIDE_DIVISION = (302, 300)
+WIDE_NUMBERS = 65_536
 
 CHECKS = [
     ("HIGH n=2", HIGH.replace(n=2), False),
@@ -477,8 +518,12 @@ def kernels_by_step(dev, steps):
     """``{label: {kernel name: launches}}`` of the device work of each
     function in ``steps``, from one profiler trace (``device_trace``): each
     step runs, and is synchronized, inside a labelled range, and a kernel,
-    copy or fill belongs to the range its start falls in.  Raises if some
-    device work falls in no range."""
+    copy or fill belongs to the range whose host span holds the runtime
+    call that launched it (``utils/profiling.py::device_work_by_range``).
+    Raises if some device work was launched in no range.  Also prints how
+    many kernels the earlier rule (a kernel's device start inside whichever
+    range of the label the trace listed last, host or device annotation)
+    would have put in no range."""
     with tempfile.TemporaryDirectory() as logdir:
         with device_trace(logdir) as prof:
             for label, fn in steps.items():
@@ -487,16 +532,18 @@ def kernels_by_step(dev, steps):
                     if dev.type == "cuda":
                         torch.cuda.synchronize()
     events = list(prof.events())
-    ranges = {e.name[5:]: e.time_range for e in events if e.name.startswith("step:")}
-    assert set(ranges) == set(steps), f"the trace holds the ranges {list(ranges)}"
-    ran = {label: {} for label in steps}
-    for e in events:
-        # the ranges themselves come back as device-side annotations too
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.name.startswith("step:"):
-            continue
-        owners = [label for label, r in ranges.items() if r.start <= e.time_range.start <= r.end]
-        assert len(owners) == 1, f"device work {e.name} lies in the ranges {owners}"
-        ran[owners[0]][e.name] = ran[owners[0]].get(e.name, 0) + 1
+    ran = device_work_by_range(events, list(steps))
+    cpu = torch.autograd.DeviceType.CPU
+    named = [e for e in events if e.name.startswith("step:")]
+    last = {e.name[5:]: e.time_range for e in named}
+    device = [e for e in events if e.device_type != cpu and not e.name.startswith("step:")]
+    unplaced = sum(1 for e in device
+                   if not any(r.start <= e.time_range.start <= r.end for r in last.values()))
+    print(f"profiler: {len(device)} device events, each by the host range of its launching call; "
+          f"the trace holds {sum(e.device_type == cpu for e in named)} host ranges and "
+          f"{sum(e.device_type != cpu for e in named)} device annotations of the steps, "
+          f"{sum(last[e.name[5:]] is e.time_range and e.device_type != cpu for e in named)} of "
+          f"them listed last; the device-start rule would have left {unplaced} in no range")
     return ran
 
 
@@ -1327,13 +1374,12 @@ def serving_paths(dev, card, M, out, batch=MAIN_BATCH, digit_batch=DIGIT_BATCH,
     path's matrices ``M`` and output ``out``, digits at ``digit_batch``);
     ``StreamingInverter`` at HIGH n=4, packed (untracked and tracked) and
     digit I/O, each batch == ``inv.run`` and K1 once per batch, and a
-    producer failure raised after two results; the e2e benchmark; the CLI in
-    three subprocesses; the reference's error sweep, its first batch == the
+    producer failure raised after two results; the e2e benchmark; the
+    reference's error sweep, its first batch == the
     CPU's; and the debug tools on one matrix == the CPU.  Returns the e2e
     dict."""
     p = HIGH.replace(n=4)
     fmt = (p.qfloat_len, p.qfloat_ints, p.qfloat_base)
-    clis = [run_cli(flags) for flags in CLI_RUNS]  # they run while the rest does
 
     # -- the native marshaller against the numpy route, bit for bit
     host_out = tuple(o.cpu().numpy() for o in out)
@@ -1378,13 +1424,6 @@ def serving_paths(dev, card, M, out, batch=MAIN_BATCH, digit_batch=DIGIT_BATCH,
     print("stream: a producer failure in the third batch raised RuntimeError ('producer "
           "failed', from the ValueError) after two results, both == the stream's own")
 
-    # -- the CLI, started at the top of the phase: done before the stage
-    # timings' and the e2e benchmark's host clocks start
-    for wait in clis:
-        flags, lines = wait()
-        print(f"CLI python -m matrix_inversion_tpu_torch --sizes "
-              f"{','.join(map(str, CLI_SIZES))} --preset low {flags}: exit 0; "
-              + "; ".join(line.strip() for line in lines if line.startswith("Average")))
     if dev.type == "cuda":
         stream_stages(card, inv, Ms[0])
     del Ms, results, TMs, tracked, got
@@ -1818,6 +1857,219 @@ def published_bound(bytes_moved, instructions, *times):
     return bound, "operations" if by_ops > by_bytes else "bytes"
 
 
+def start_k1_size_builds():
+    """Start the nvcc builds of K1_SIZES in the background, largest first,
+    K1_SIZE_BUILDS at a time; the pool's threads, and the nvcc processes
+    they start, run at nice BUILD_NICE (on Linux a thread's own).  Returns
+    the pool and ``{label: future of the build's seconds}``."""
+    def lower_priority():
+        os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), BUILD_NICE)
+
+    pool = concurrent.futures.ThreadPoolExecutor(K1_SIZE_BUILDS, initializer=lower_priority)
+    order = sorted(K1_SIZES, key=lambda size: (-size[1].n, not size[2]))
+    return pool, {label: pool.submit(timed_s, fused_inverse.build_dir, config_of(p) + (track,))
+                  for label, p, track in order}
+
+
+def k1_ptxas(config):
+    """``(registers, spill stores, spill loads, stack frame)`` of K1's kernel
+    in one config's library, bytes a thread, from ptxas's lines."""
+    log = (fused_inverse.build_dir(config) / "nvcc.log").read_text()
+    (regs,) = [r for name, r in sass.ptxas_registers(log).items() if "fused_inverse_kernel" in name]
+    (line,) = [v for name, v in sass.ptxas_spills(log).items() if "fused_inverse_kernel" in name]
+    stack, stores, loads = (int(re.search(rf"(\d+) bytes {what}", line).group(1))
+                            for what in ("stack frame", "spill stores", "spill loads"))
+    return regs, stores, loads, stack
+
+
+def k1_sizes(dev, card, build_s, batch=CHECK_BATCH, cpu_rows=K1_CPU_ROWS):
+    """K1 at every size of K1_SIZES through ``BatchedMatrixInversion(...,
+    io="packed")`` on a ragged batch of x100 matrices, one singular and,
+    tracked, one near-singular and one all-zero: exactly one K1 launch a
+    ``run_raw`` and nothing else, == its plain version on the card bit for
+    bit (flags included), the first ``cpu_rows`` == the CPU run.  Prints each
+    size's build seconds, registers, spills and block size; returns
+    ``{label: that row}``."""
+    rows = {}
+    for i, (label, p, track) in enumerate(K1_SIZES):
+        n, config = p.n, config_of(p)
+        rng = np.random.RandomState(700 + i)
+        M = overflowy(rng, batch, n, rows=1) if track else rng.randn(batch, n, n) * 100
+        M[5, 2] = M[5, 0] + M[5, 1]  # singular
+        inv = BatchedMatrixInversion(p, batch, device=dev, backend="packed", io="packed",
+                                     track_overflow=track)
+        m, s = inv.quantize(M)
+        got, launched = launches_of(lambda: inv.run_raw(m, s))
+        expect_launches(f"K1 {label}", launched,
+                        **{"fused_inverse_tracked" if track else "fused_inverse": 1})
+        ref = fused_inverse.fused_matrix_inverse_reference(m, s, *config, track=track)
+        err = max_abs_diff(got, ref)
+        assert err == 0, f"K1 {label}: differs from the plain version on the card (max {err})"
+        cpu = fused_inverse.fused_matrix_inverse_reference(
+            m[:cpu_rows].cpu(), s[:cpu_rows].cpu(), *config, track=track)
+        assert all(torch.equal(o[:cpu_rows].cpu(), c) for o, c in zip(got, cpu)), \
+            f"K1 {label}: differs from the CPU run"
+        if track:
+            flags = got[2]
+            assert int(flags[0]) == 1 and int(flags[1]) == 1 and not bool(flags.all()), \
+                f"K1 {label}: the overflowing matrices were not flagged alone"
+        regs, stores, loads, stack = k1_ptxas(config + (track,))
+        threads = fused_inverse.block_threads(config + (track,))
+        rows[label] = {"launches": 1, "max_abs_err": err, "build_s": build_s[label],
+                       "registers": regs, "spill_stores": stores, "spill_loads": loads,
+                       "stack": stack, "threads": threads}
+        print(f"check K1 {label}: B={batch} (ragged; a singular matrix"
+              f"{', a near-singular and an all-zero one, both flagged' if track else ''}): one "
+              f"K1 launch a run_raw and nothing else; == plain version on the card bit for bit "
+              f"(tolerance 0 on magnitudes, signs{' and flags' if track else ''}), the first "
+              f"{cpu_rows} == the CPU run; nvcc {build_s[label]:.1f} s (in the background, "
+              f"{K1_SIZE_BUILDS} at a time), {regs} registers, spill stores {stores} and loads "
+              f"{loads} bytes, stack frame {stack} bytes a thread; {threads} threads a block "
+              f"({card})")
+    return rows
+
+
+def outliers_on_card(dev):
+    """The eight recorded HIGH outliers (benchmarks/results/outliers.json)
+    through K1, tracked and untracked (``lowering="auto"``): == the CPU run
+    bit for bit, one K1 launch each, the flag the recorded one and the mean
+    error against np.linalg.inv the recorded one."""
+    with open(OUTLIERS) as fh:
+        data = json.load(fh)
+    count = 0
+    for key, entry in sorted(data.items()):
+        n = int(key.split("n=")[1])
+        p = HIGH.replace(n=n)
+        fmt, config = (p.qfloat_len, p.qfloat_ints, p.qfloat_base), config_of(p)
+        for o in entry["outliers"]:
+            M = np.asarray(o["matrix"])[None]
+            mags, signs = float_matrix_to_mags_and_signs(M, *fmt)
+            m, s = torch.from_numpy(mags).to(dev), torch.from_numpy(signs).to(dev)
+            for fn, kernel in ((qfloat_matrix_inverse_packed_io, "fused_inverse"),
+                               (qfloat_matrix_inverse_with_overflow, "fused_inverse_tracked")):
+                got, launched = launches_of(lambda: fn(m, s, *config))
+                expect_launches(f"outlier {key}", launched, **{kernel: 1})
+                cpu = fn(m.cpu(), s.cpu(), *config)
+                assert all(torch.equal(g.cpu(), c) for g, c in zip(got, cpu)), \
+                    f"outlier {key}: K1 differs from the CPU run"
+            # cpu: the tracked run's magnitudes, signs and flag
+            inv = mags_and_signs_to_float_matrix(cpu[0].numpy(), cpu[1].numpy(), *fmt)
+            assert bool(cpu[2][0]) == o["overflow_flagged"]
+            assert float(np.mean(np.abs(inv - np.linalg.inv(M)))) == o["our_error"]
+            count += 1
+    print(f"outliers: the {count} recorded HIGH matrices (n=2, 5, 10) through K1, tracked and "
+          "untracked: == the CPU run bit for bit, one launch each; flags and mean errors == "
+          "the recorded ones")
+
+
+def check_wide_division(dev, card, numbers=WIDE_NUMBERS):
+    """K6 at a 300-digit divisor, past the 256 digits its local-memory window
+    takes: the form whose window lives in global scratch == the plain
+    version on the card, at bases 2 and 3, full dividends and a reciprocal's
+    one row, zero divisors and divisors with leading zero digits; timed at
+    base 2 beside the plain version."""
+    d_len, v_len = WIDE_DIVISION
+    rng = np.random.RandomState(300)
+    for base in (2, 3):
+        d = rng.randint(0, base, size=(numbers, v_len)).astype(np.int32)
+        d[:3] = 0
+        d[3:9, : v_len // 2] = 0
+        d[9, :-1], d[9, -1] = 0, 1
+        d = torch.from_numpy(d).to(dev)
+        v = torch.from_numpy(rng.randint(0, base, size=(numbers, d_len)).astype(np.int32)).to(dev)
+        one = torch.zeros(d_len, dtype=torch.int32, device=dev)
+        one[0] = 1
+        for label, dividend in (("full dividends", v), ("one row", one)):
+            q, launched = launches_of(lambda: limb_kernels.limb_division(dividend, d, base))
+            expect_launches(f"K6 wide {label}", launched, limb_division=1)
+            ref = limbs.base_p_division_reference(dividend, d, base)
+            assert torch.equal(q, ref), f"K6 at {v_len} digits, base {base}, {label}: != plain"
+        if base == 2:
+            ms = timed_ms(lambda: limb_kernels.limb_division(v, d, 2), dev, passes=3)
+            plain_ms = timed_ms(lambda: limbs.base_p_division_reference(v, d, 2), dev, passes=1,
+                                warm_up=False)
+    print(f"check K6 wide: {d_len} by {v_len} digits (the window in global scratch), {numbers} "
+          "numbers, bases 2 and 3, full dividends and one row, zero divisors and leading zero "
+          f"digits: == plain version bit for bit; base 2: {ms:.3f} ms, plain {plain_ms:.3f} ms "
+          f"({card})")
+
+
+def cli_runs():
+    """The CLI at its default sizes, plain, ``--simulate`` and ``--batch 4``,
+    in three subprocesses at once."""
+    for wait in [run_cli(flags) for flags in CLI_RUNS]:
+        flags, lines = wait()
+        print(f"CLI python -m matrix_inversion_tpu_torch --sizes "
+              f"{','.join(map(str, CLI_SIZES))} --preset low {flags}: exit 0; "
+              + "; ".join(line.strip() for line in lines if line.startswith("Average")))
+
+
+def drivers(dev, card, rates):
+    """The ``lowering``, ``fused`` and ``rooflines`` drivers over
+    DRIVER_SIZES, each dict printed on one line; raises unless K1 is faster
+    than the op-by-op path at every n that ``lowering="auto"`` sends to it.
+    Returns the ``fused`` dict."""
+    t0 = time.perf_counter()
+    lowered = run_benchmarks.lowering(DRIVER_SIZES, batch=LOWERING_BATCH, reps=5, repeats=1,
+                                      device=dev)
+    print(f"lowering ({card}; host clock {time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(lowered)}")
+    for n in range(2, fused_inverse.FUSED_MAX_N + 1):
+        k1, op = (lowered[f"n={n}/{name}"]["inversions_per_s"] for name in ("fused", "unroll"))
+        assert k1 > op, f"n={n}: K1 {k1:.4e} inversions/s is not faster than unroll {op:.4e}"
+        print(f"lowering n={n}: K1 {k1:.4e} inversions/s, unroll {op:.4e}, {k1 / op:.1f}x "
+              f"(B={LOWERING_BATCH}; {card})")
+    t0 = time.perf_counter()
+    per_n = run_benchmarks.fused(DRIVER_SIZES, batch=FUSED_BATCH, tracked=True,
+                                 unroll_sizes=UNROLL_TRACKED_SIZES,
+                                 rates={"u32_kernelmix": rates["u32_kernelmix"]}, device=dev)
+    print(f"fused ({card}; host clock {time.perf_counter() - t0:.1f} s): {json.dumps(per_n)}")
+    for track in (False, True):
+        table = run_benchmarks.rooflines(per_n, track=track)
+        print(f"rooflines{' tracked' if track else ''} ({card}): {json.dumps(table)}")
+    return per_n
+
+
+def k1_size_rows(dev, card, checks, per_n, batch=FUSED_BATCH):
+    """The ``kernels`` line's rows of K1 at HIGH n = 6..12, untracked and
+    tracked: the time from ``fused`` at ``batch``, the plain version's on
+    the same matrices (one call), the launches and error of the check, and
+    the bound from this run's shapes (``published_bound``, which raises if
+    it passes 105% of either time)."""
+    rows = []
+    for label, p, track in K1_SIZES:
+        if not label.startswith("HIGH"):
+            continue
+        n, config = p.n, config_of(p)
+        entry = per_n[f"high/n={n}/{'fused_tracked' if track else 'fused'}"]
+        ms = batch / entry["inversions_per_s"] * 1e3
+        inv = BatchedMatrixInversion(p, batch, device=dev, backend="packed", io="packed")
+        m, s = inv.quantize(np.random.RandomState(0).randn(batch, n, n) * 100)
+        plain_ms = timed_ms(lambda: fused_inverse.fused_matrix_inverse_reference(
+            m, s, *config, track=track), dev, passes=1, warm_up=False)
+        nominal = roofline.kernel_roofline(None, n, "high", None, track)[
+            "nominal_instructions_per_inversion"]
+        bound, by = published_bound(k1_bytes(n, batch, track), batch * nominal, ms, plain_ms)
+        print(f"K1 {label} at B={batch}: {ms:.3f} ms ({batch / ms * 1e3:.4e} inversions/s), plain "
+              f"version {plain_ms:.3f} ms, bound {bound:.3f} ms by {by} ({nominal:.0f} nominal "
+              f"instructions an inversion), {ms / bound:.1f}x the bound ({card})")
+        rows.append({
+            "name": f"fused_inverse{'_tracked' if track else ''} HIGH n={n}",
+            "route": "cuda",
+            "source": "matrix_inversion_tpu_torch/csrc/fused_inverse.cu",
+            "replaces": "matrix_inversion_tpu/ops/fused_inverse.py:152"
+                        + (" (track=True)" if track else ""),
+            "launches": checks[label]["launches"],
+            "max_abs_err": checks[label]["max_abs_err"],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": None,
+        })
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1829,11 +2081,14 @@ def main():
     dev = torch.device("cuda")
 
     # -- build every kernel of every path from the sources in the checkout,
-    # one nvcc per library, all started together
+    # one nvcc per library, all started together; K1 past n = 5 in the
+    # background, checked after the other phases
     t0 = time.perf_counter()
+    size_pool, size_builds = start_k1_size_builds()
     tracked_configs = [config_of(p) + (True,) for _, p in TRACKED_CHECKS]
-    # K1 at the CLI's LOW sizes too, which its subprocesses then load
-    cli_configs = [config_of(LOW.replace(n=n)) for n in CLI_SIZES]
+    # K1 at the CLI's LOW sizes too, which its subprocesses then load (n=10
+    # with K1_SIZES)
+    cli_configs = [config_of(LOW.replace(n=n)) for n in CLI_SIZES if n <= 5]
     with concurrent.futures.ThreadPoolExecutor(max_workers=6) as pool:
         fused_build = pool.submit(
             timed_s, fused_inverse.build,
@@ -1848,7 +2103,7 @@ def main():
         steps_s, k1_steps_s = steps_build.result(), k1_steps_build.result()
         native_s, limb_s = native_build.result(), limb_build.result()
     print(f"build: {len(CHECKS)} fused_inverse + {len(TRACKED_CHECKS)} tracked kernels + "
-          f"{len(cli_configs)} at the CLI's sizes (LOW n in {CLI_SIZES}) "
+          f"{len(cli_configs)} at the CLI's sizes up to 5 (LOW) "
           f"from {fused_inverse.CSRC} with nvcc {' '.join(fused_inverse.NVCC_FLAGS)} "
           f"in {fused_s:.1f} s; long_division + mul_window libraries in {op_s:.1f} s; "
           f"the ubench library ({len(ubench.MIXES)} mixes x C in {ubench.CHAIN_COUNTS}) in "
@@ -1857,7 +2112,8 @@ def main():
           f"{k1_steps_s:.1f} s; the native marshaller ({native.SOURCE}) with g++ "
           f"{' '.join(cuda_build.HOST_FLAGS)} in {native_s:.1f} s; limb_division + limb_tidy "
           f"libraries and K6's run-time-window build in {limb_s:.1f} s; all in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s, beside the {len(K1_SIZES)} K1 builds past n = 5 "
+          f"in the background")
     main_config = config_of(HIGH.replace(n=4))
     for label, c in (("fused_inverse", main_config), ("fused_inverse_tracked", main_config + (True,))):
         print(f"ptxas {label} HIGH n=4: {ptxas_info(fused_inverse.build_dir(c))}")
@@ -2005,6 +2261,7 @@ def main():
     # alone, EncryptedMatrixInversion on limb
     t0 = time.perf_counter()
     limb_rows = limb_paths(dev, card)
+    check_wide_division(dev, card)
     print(f"host clock: the limb paths, checks and timings, {time.perf_counter() - t0:.1f} s")
 
     # -- the serving pipeline and the user's tools: the native marshaller,
@@ -2091,6 +2348,24 @@ def main():
         f"the roofline path did not launch every mix: {ubench.LAUNCHES}"
     ubench_plain_ms = time_ubench_plain(dev, card)
     print(f"host clock: the roofline path, its check and timings, {time.perf_counter() - t0:.1f} s")
+
+    # -- K1 past n = 5: the builds started first, each size against its
+    # plain version on the card through run_raw, the recorded outliers, the
+    # CLI at its default sizes, the lowering, fused and rooflines drivers
+    t0 = time.perf_counter()
+    build_s = {label: future.result() for label, future in size_builds.items()}
+    size_pool.shutdown()
+    print(f"host clock: waited {time.perf_counter() - t0:.1f} s for the K1 builds past n = 5 "
+          f"({sum(build_s.values()):.1f} s of nvcc in all, the longest "
+          f"{max(build_s.values()):.1f} s)")
+    t0 = time.perf_counter()
+    size_checks = k1_sizes(dev, card, build_s)
+    outliers_on_card(dev)
+    cli_runs()
+    per_n = drivers(dev, card, rates)
+    size_rows = k1_size_rows(dev, card, size_checks, per_n)
+    print(f"host clock: K1 past n = 5, the outliers, the CLI and the drivers, "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # -- every kernel's bound, from this run's shapes: bytes over the published
     # memory rate against the 32-bit instructions its function needs over
@@ -2192,7 +2467,7 @@ def main():
         "bound_ms": limb_bounds[name][0],
         "bound_by": limb_bounds[name][1],
         "library_ms": None,
-    } for name, line in (("limb_division", 195), ("limb_tidy", 231))]}))
+    } for name, line in (("limb_division", 195), ("limb_tidy", 231))] + size_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

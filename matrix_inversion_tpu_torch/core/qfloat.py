@@ -36,6 +36,9 @@ class Zero:
     def copy(self):
         return self
 
+    def to_float(self):
+        return float(0)
+
     def __add__(self, other):
         return self if isinstance(other, Zero) else other
 
@@ -82,8 +85,24 @@ class SignedBinary:
     def value(self):
         return self._value
 
+    @value.setter
+    def value(self, newvalue):
+        self._value = newvalue
+
+    @property
+    def encrypted(self):
+        """API parity with the JAX package, where it means "on the
+        device": whether the value is a tensor."""
+        return isinstance(self._value, torch.Tensor)
+
     def copy(self):
         return SignedBinary(self._value)
+
+    def to_float(self):
+        v = self._value
+        if isinstance(v, torch.Tensor):
+            return v.cpu().numpy().astype(float)
+        return float(v)
 
     def __add__(self, other):
         if isinstance(other, SignedBinary):
@@ -243,6 +262,16 @@ class QFloatBase:
     def __ge__(self, other):
         return 1 - (other > self)
 
+    @classmethod
+    def check_convert_fhe(cls, qfloat, condition):
+        """No-op kept for API parity (reference qfloat.py:780-789): torch
+        has no clear and encrypted operands to promote between."""
+        return None
+
+    def self_check_convert_fhe(self, condition):
+        """No-op kept for API parity (reference qfloat.py:791-796)."""
+        return None
+
     def check_compatibility(self, other):
         """Reference qfloat.py:591-605."""
         if not isinstance(other, QFloatBase):
@@ -346,6 +375,12 @@ class QFloat(QFloatBase):
     @property
     def is_base_tidy(self):
         return self._is_base_tidy
+
+    @property
+    def encrypted(self):
+        """API parity with the JAX package, where it means "on the
+        device": always True, the digits are a tensor."""
+        return isinstance(self._array, torch.Tensor)
 
     # ---- host conversions (reference qfloat.py:336-410) -------------------
     @classmethod
@@ -737,10 +772,9 @@ def qf_class_of(*xs):
 
 def qf_multi_from_mul(list_a, list_b, newlength=None, newints=None):
     """Grouped windowed multiply of element pairs, by the QFloat type's
-    ``multi_from_mul``.  A type without one (the packed backend, whose
-    grouping gives the same values) multiplies pair by pair, into the format
-    ``multi_from_mul`` would choose: that of the first QFloat of ``list_a``,
-    else of ``list_b``."""
+    ``multi_from_mul``.  A type without one (the emitter's) multiplies pair
+    by pair, into the format ``multi_from_mul`` would choose: that of the
+    first QFloat of ``list_a``, else of ``list_b``."""
     cls = qf_class_of(list_a, list_b)
     if cls is None:
         return [qf_from_mul(a, b, newlength, newints) for a, b in zip(list_a, list_b)]

@@ -429,6 +429,9 @@ inline int run_host(const Arrays& a, int mode) {
 // row-major (batch, n*n) arrays and `mode`: -1 for the staged form, which
 // is what the port runs, or one of qcell::Mode's row modes, for timing; it
 // returns -1 for a mode that the arrays do not allow.
+// The threads of a block, which the size of the staging buffer sets.
+extern "C" int fused_inverse_block_threads() { return qcell::kThreads; }
+
 #if FUSED_TRACK
 
 extern "C" int FUSED_ENTRY(fused_inverse_tracked)(const void* mags, const void* signs,

@@ -39,7 +39,13 @@
 // divisor in registers); wider divisors, up to kMaxDivisorDigits, take a
 // run-time form whose window lives in local memory.  Built with
 // -DLIMB_RUNTIME_WINDOW, every width takes the run-time form: the build
-// that chip_smoke.py times against the compile-time windows.
+// that chip_smoke.py times against the compile-time windows.  Past
+// kMaxDivisorDigits a third form, limb_division_wide, keeps the window in
+// a global scratch array that the caller allocates, number i's digit slot
+// k at window[k * n + i] (a warp's accesses to one slot are contiguous).
+// The window is a ring there: a step moves its start one slot instead of
+// shifting every digit, and a round walks it twice, once for the borrow
+// out of the compare and once to subtract, so that no difference is kept.
 //
 // Built with nvcc for sm_90a into a library with a plain C interface
 // (ops/limb_kernels.py).  Without __CUDACC__ the file compiles as host C++
@@ -104,6 +110,47 @@ struct Divide {
   }
 };
 
+// Any divisor width, the window in global scratch (see the header):
+// slot (head + j) % w holds window digit j, most significant first.
+struct DivideWide {
+  const int32_t* v;
+  int64_t v_stride;
+  const int32_t* d;
+  int32_t* q;
+  int32_t* window;
+  int64_t n;
+  int d_len, v_len, base;
+  LIMB_FN void operator()(int64_t i) const {
+    const int w = v_len + 1;
+    const int32_t* vi = v + i * v_stride;
+    const int32_t* di = d + i * v_len;
+    int32_t* r = window + i;
+    for (int k = 0; k < w; ++k) r[k * n] = 0;
+    int head = 0;
+    for (int s = 0; s < d_len; ++s) {
+      // the window shifts left: its leading digit's slot takes the new one
+      const int last = head;
+      head = head + 1 == w ? 0 : head + 1;
+      r[last * n] = vi[s];
+      int32_t digit = 0;
+      for (int round = 1; round < base; ++round) {
+        int32_t borrow = 0;
+        for (int j = w - 1, k = last; j >= 0; --j, k = k == 0 ? w - 1 : k - 1) {
+          borrow = r[k * n] - (j > 0 ? di[j - 1] : 0) - borrow < 0;
+        }
+        if (borrow) break;  // the window is below d: this digit is done
+        for (int j = w - 1, k = last; j >= 0; --j, k = k == 0 ? w - 1 : k - 1) {
+          const int32_t t = r[k * n] - (j > 0 ? di[j - 1] : 0) - borrow;
+          borrow = t < 0;
+          r[k * n] = t + (borrow ? base : 0);
+        }
+        digit += 1;
+      }
+      q[i * d_len + s] = digit;
+    }
+  }
+};
+
 template <int W>
 int run(const void* v, int64_t v_stride, const void* d, void* q, int64_t n, int d_len, int v_len,
         int base, void* stream) {
@@ -135,4 +182,17 @@ extern "C" int LIMB_ENTRY(limb_division)(const void* v, int64_t v_stride, const 
   }
 #endif
   return run<0>(v, v_stride, d, q, n, d_len, v_len, base, LIMB_STREAM);
+}
+
+// The same for a divisor of any width, past kMaxDivisorDigits too: window
+// is n * (v_len + 1) int32 of scratch, which the call overwrites.
+extern "C" int LIMB_ENTRY(limb_division_wide)(const void* v, int64_t v_stride, const void* d,
+                                              void* q, void* window, int64_t n, int d_len,
+                                              int v_len, int base LIMB_STREAM_PARAM) {
+  using namespace limbdiv;
+  if (d_len < 1 || v_len < 1 || base < 2 || window == nullptr) return kLimbInvalidValue;
+  return limbframe::run(n, DivideWide{static_cast<const int32_t*>(v), v_stride,
+                                      static_cast<const int32_t*>(d), static_cast<int32_t*>(q),
+                                      static_cast<int32_t*>(window), n, d_len, v_len, base},
+                        LIMB_STREAM);
 }

@@ -20,6 +20,8 @@ path), its long divisions in K6 and its carry chains in K7 on the card
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..ops.fused_inverse import FUSED_MAX_N, fused_matrix_inverse
@@ -48,19 +50,31 @@ def _resolve_lowering(lowering, n, device):
     return lowering
 
 
-def qfloat_matrix_inverse_packed_io(mags, signs, n, qfloat_len, qfloat_ints,
-                                    qfloat_base, true_division, lowering=None):
-    """Full inverse with packed I/O: ``(..., n*n)`` int64 magnitudes and
-    signs in, the same out."""
+def _packed_circuit(mags, n, lowering, tensorize):
+    """The packed-I/O circuit that ``lowering`` resolves to: K1, or the
+    op-by-op path with ``tensorize`` grouping its multiplies and
+    reciprocals (the same bits)."""
     if mags.shape[-1] != n * n:
         raise ValueError(f"mags must have shape (..., {n * n})")
-    style = _resolve_lowering(lowering, n, mags.device)
-    fn = fused_matrix_inverse if style == "fused" else qfloat_matrix_inverse_op_by_op
+    if _resolve_lowering(lowering, n, mags.device) == "fused":
+        return fused_matrix_inverse
+    return functools.partial(qfloat_matrix_inverse_op_by_op, tensorize=tensorize)
+
+
+def qfloat_matrix_inverse_packed_io(mags, signs, n, qfloat_len, qfloat_ints,
+                                    qfloat_base, true_division, tensorize=False,
+                                    vectorize_rows=None, lowering=None):
+    """Full inverse with packed I/O: ``(..., n*n)`` int64 magnitudes and
+    signs in, the same out.  The arguments are the JAX package's
+    (``matrix_inversion_tpu/models/inverse.py:192-203``); ``vectorize_rows``
+    only changes the size of JAX's trace and is taken and ignored here."""
+    fn = _packed_circuit(mags, n, lowering, tensorize)
     return fn(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base, true_division)
 
 
 def qfloat_matrix_inverse_with_overflow(mags, signs, n, qfloat_len, qfloat_ints,
-                                        qfloat_base, true_division, lowering=None):
+                                        qfloat_base, true_division, tensorize=False,
+                                        lowering=None):
     """Packed-I/O inverse that also reports a per-matrix overflow flag.
 
     Returns ``(mags, signs, flag)``: ``flag`` is int32 of the batch shape,
@@ -70,10 +84,7 @@ def qfloat_matrix_inverse_with_overflow(mags, signs, n, qfloat_len, qfloat_ints,
     untracked inverse's.  "fused" runs the tracked kernel, the op-by-op
     path the circuit under ``track_overflow()``.
     """
-    if mags.shape[-1] != n * n:
-        raise ValueError(f"mags must have shape (..., {n * n})")
-    style = _resolve_lowering(lowering, n, mags.device)
-    fn = fused_matrix_inverse if style == "fused" else qfloat_matrix_inverse_op_by_op
+    fn = _packed_circuit(mags, n, lowering, tensorize)
     return fn(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base, true_division,
               track=True)
 

@@ -304,7 +304,7 @@ def qfloat_matrix_inverse_cells(M, qfloat_len, qfloat_ints, true_division, tenso
 
 
 def qfloat_matrix_inverse_op_by_op(mags, signs, n, qfloat_len, qfloat_ints,
-                                   qfloat_base, true_division, track=False):
+                                   qfloat_base, true_division, track=False, tensorize=False):
     """The op-by-op path: the whole circuit run eagerly on int64
     :class:`~..ops.packed.PackedQFloat` cells, ``(..., n*n)`` magnitudes and
     signs in, the same out, on any device and at any n.
@@ -315,13 +315,14 @@ def qfloat_matrix_inverse_op_by_op(mags, signs, n, qfloat_len, qfloat_ints,
     multiplies through the windowed-multiply kernel K4; a CPU tensor, or
     any tensor inside ``plain_arithmetic()``, takes the plain versions.  ``track=True`` runs the circuit inside
     ``track_overflow()`` and also returns the combined flags, int32 of the
-    batch shape.
+    batch shape.  ``tensorize`` groups the multiplies of a dot product
+    and the reciprocals as the JAX package does: the same bits.
     """
     if mags.shape[-1] != n * n:
         raise ValueError(f"mags must have shape (..., {n * n})")
     with track_overflow() if track else nullcontext() as tracker:
         M = mags_and_signs_to_qfloat_matrix(mags, signs, qfloat_len, qfloat_ints, qfloat_base)
-        Minv = qfloat_matrix_inverse_cells(M, qfloat_len, qfloat_ints, true_division)
+        Minv = qfloat_matrix_inverse_cells(M, qfloat_len, qfloat_ints, true_division, tensorize)
     out = qfloat_matrix_to_mags_and_signs(Minv, qfloat_len, qfloat_ints, qfloat_base)
     if track:
         return (*out, tracker.combined(mags.shape[:-1], device=mags.device))

@@ -36,6 +36,16 @@ def _nvcc():
     return path
 
 
+def library_path(lib_name, hashed):
+    """Where :func:`build_library` keeps the library ``lib_name`` keyed by
+    the texts ``hashed``, whether or not it is built."""
+    digest = hashlib.sha256()
+    for text in hashed:
+        digest.update(text.encode())
+        digest.update(b"\0")
+    return BUILD_DIR / digest.hexdigest()[:24] / lib_name
+
+
 def build_library(source, lib_name, hashed, files=None, what="", flags=(), host=False):
     """Compile ``csrc/<source>`` into ``_build/<hash>/<lib_name>`` and return
     its path.  ``hashed`` is the sequence of texts that keys the build;
@@ -43,12 +53,8 @@ def build_library(source, lib_name, hashed, files=None, what="", flags=(), host=
     (found there by ``#include``); ``flags`` follow ``NVCC_FLAGS``, or
     ``HOST_FLAGS`` for a host library (``host=True``, built with g++); the
     caller hashes them.  A failed build raises with the compiler's output."""
-    digest = hashlib.sha256()
-    for text in hashed:
-        digest.update(text.encode())
-        digest.update(b"\0")
-    out_dir = BUILD_DIR / digest.hexdigest()[:24]
-    lib = out_dir / lib_name
+    lib = library_path(lib_name, hashed)
+    out_dir = lib.parent
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)

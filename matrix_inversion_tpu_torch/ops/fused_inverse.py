@@ -31,7 +31,7 @@ import functools
 import torch
 
 from ..models.qfloat_lu import qfloat_matrix_inverse_op_by_op
-from .cuda_build import CSRC, NVCC_FLAGS, build_library, run_parallel
+from .cuda_build import CSRC, NVCC_FLAGS, build_library, library_path, run_parallel
 from .emit import emit_body
 from .packed import plain_arithmetic
 
@@ -58,6 +58,20 @@ def build_dir(config, defines=()):
     return _build_one(_key(config), tuple(defines)).parent
 
 
+def _hashed(key, defines, body):
+    """The texts that key the library of one config: the sources, the
+    emitted body, the flags, ``track`` and the build switches."""
+    return ((CSRC / "qfloat_cell.cuh").read_text(), (CSRC / "fused_inverse.cu").read_text(),
+            body, " ".join(NVCC_FLAGS), f"track={key[5]}", *defines)
+
+
+def built(config, defines=()):
+    """Whether the library of one config (as for :func:`build`) is in
+    ``_build/`` already; builds nothing."""
+    key = _key(config)
+    return library_path("libfused_inverse.so", _hashed(key, defines, emit_body(*key))).exists()
+
+
 def _build_one(key, defines=()):
     """Compile the kernel for one ``(n, len, ints, base, true_division,
     track)``; returns the library path.  Reuses a library already built
@@ -67,15 +81,7 @@ def _build_one(key, defines=()):
     with none, :mod:`..utils.fused_steps` with others, for timing."""
     body = emit_body(*key)
     return build_library(
-        "fused_inverse.cu", "libfused_inverse.so",
-        (
-            (CSRC / "qfloat_cell.cuh").read_text(),
-            (CSRC / "fused_inverse.cu").read_text(),
-            body,
-            " ".join(NVCC_FLAGS),
-            f"track={key[5]}",
-            *defines,
-        ),
+        "fused_inverse.cu", "libfused_inverse.so", _hashed(key, defines, body),
         files={"fused_body.inc": body},
         what=f"config {key} {' '.join(defines)}",
         flags=tuple(f"-D{d}" for d in defines),
@@ -107,6 +113,15 @@ def _library(key, defines=()):
     rows.argtypes = pointers + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     cell_major.restype = rows.restype = ctypes.c_int
     return cell_major, rows
+
+
+def block_threads(config):
+    """The threads of a block of one config's kernel (the most of 128, 64
+    and 32 whose staging buffer fits 48 KB, ``csrc/fused_inverse.cu``), read
+    from its library; builds first if needed."""
+    fn = ctypes.CDLL(str(_build_one(_key(config)))).fused_inverse_block_threads
+    fn.restype = ctypes.c_int
+    return fn()
 
 
 def _check_pair(m, s, what):

@@ -16,7 +16,9 @@ stream and gives the result in the broadcast batch shape; it raises if the
 launch fails, and on tensors anywhere else: ``ops/limbs.py`` alone decides
 which tensors take the kernels and which the plain versions.  The base and
 the widths are runtime arguments, so one library of each serves every
-encoding; K6's divisor is capped at :data:`MAX_DIVISOR_DIGITS` digits.
+encoding; K6 keeps its window in registers or local memory up to
+:data:`WINDOW_DIGITS` digits of divisor and in a global scratch tensor that
+the wrapper allocates past that.
 Both libraries are built with ``nvcc`` at first use (:mod:`.cuda_build`),
 keyed by a hash of their sources and the flags.
 """
@@ -33,8 +35,10 @@ from .cuda_build import CSRC, NVCC_FLAGS, build_library, run_parallel
 # Launches of each kernel, for checks that a run went through them.
 LAUNCHES = {"limb_division": 0, "limb_tidy": 0}
 
-# The widest divisor K6 takes (csrc/limb_division.cu, kMaxDivisorDigits).
-MAX_DIVISOR_DIGITS = 256
+# The widest divisor whose window K6 keeps in registers or local memory
+# (csrc/limb_division.cu, kMaxDivisorDigits); a wider one takes its form with
+# the window in global scratch, limb_division_wide.
+WINDOW_DIGITS = 256
 
 # K6 built with every width on its run-time window (local memory), to time
 # against the compile-time windows the library uses up to 64 digits
@@ -45,6 +49,10 @@ _ARGTYPES = {
     "limb_division": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p],
+    # (v, v_stride, d, q, window, n, d_len, v_len, base, stream)
+    "limb_division_wide": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p],
     # (in, out, sign or NULL, n, len, base, stream)
     "limb_tidy": [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                           ctypes.c_void_p],
@@ -78,9 +86,12 @@ def build():
 
 
 @functools.lru_cache(maxsize=None)
-def _library(name, flags=()):
-    fn = getattr(ctypes.CDLL(str(_build_one(name, flags))), f"{name}_launch")
-    fn.argtypes = _ARGTYPES[name]
+def _library(name, flags=(), entry=None):
+    """The launch function ``<entry>_launch`` (``entry`` defaults to
+    ``name``) of library ``name`` built with ``flags``."""
+    entry = entry or name
+    fn = getattr(ctypes.CDLL(str(_build_one(name, flags))), f"{entry}_launch")
+    fn.argtypes = _ARGTYPES[entry]
     fn.restype = ctypes.c_int
     return fn
 
@@ -104,8 +115,8 @@ def _check_device(*tensors):
                          "versions are in ops/limbs.py")
 
 
-def _launch(name, *args, device, flags=()):
-    fn = _library(name, flags)
+def _launch(name, *args, device, flags=(), entry=None):
+    fn = _library(name, flags, entry)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -119,12 +130,12 @@ def limb_division(dividend, divisor, base, flags=()):
     ``(..., d_len)`` int32 quotient digits, all ``base - 1`` where the
     divisor is zero.  A dividend broadcast over the batch (a reciprocal's
     constant) is read from one row.  ``flags``: the build to launch
-    (:data:`RUNTIME_WINDOW` for the run-time window at every width)."""
+    (:data:`RUNTIME_WINDOW` for the run-time window at every width).  A
+    divisor of more than :data:`WINDOW_DIGITS` digits takes the form whose
+    window is a scratch tensor of ``N * (v_len + 1)`` int32, allocated
+    here for the call."""
     _check_digits(base, dividend, divisor)
     d_len, v_len = dividend.shape[-1], divisor.shape[-1]
-    if v_len > MAX_DIVISOR_DIGITS:
-        raise ValueError(f"the divisor has {v_len} digits: K6 takes at most "
-                         f"{MAX_DIVISOR_DIGITS} (MAX_DIVISOR_DIGITS)")
     _check_device(dividend, divisor)
     batch = torch.broadcast_shapes(dividend.shape[:-1], divisor.shape[:-1])
     q = torch.empty(batch + (d_len,), dtype=torch.int32, device=divisor.device)
@@ -136,8 +147,15 @@ def limb_division(dividend, divisor, base, flags=()):
         v, v_stride = dividend[(0,) * len(lead)].contiguous(), 0
     else:
         v, v_stride = dividend.expand(batch + (d_len,)).contiguous(), d_len
+    n = q.numel() // d_len
+    if v_len <= WINDOW_DIGITS:
+        _launch("limb_division", v.data_ptr(), v_stride, d.data_ptr(), q.data_ptr(),
+                n, d_len, v_len, base, device=d.device, flags=flags)
+        return q
+    window = torch.empty(n * (v_len + 1), dtype=torch.int32, device=d.device)
     _launch("limb_division", v.data_ptr(), v_stride, d.data_ptr(), q.data_ptr(),
-            q.numel() // d_len, d_len, v_len, base, device=d.device, flags=flags)
+            window.data_ptr(), n, d_len, v_len, base, device=d.device, flags=flags,
+            entry="limb_division_wide")
     return q
 
 

@@ -35,7 +35,7 @@ import functools
 
 import torch
 
-from .cuda_build import CSRC, NVCC_FLAGS, build_library, run_parallel
+from .cuda_build import CSRC, NVCC_FLAGS, build_library, library_path, run_parallel
 from .packed import mul_window_consts, mul_window_sum, packed_long_division_reference
 
 # Launches of each kernel, for checks that a run went through them.
@@ -57,13 +57,19 @@ def mul_trunc_format(a_len, a_ints, b_len, b_ints, newlength, newints):
     return t1, max(0, min(t1, a_len)), newlength
 
 
+def _hashed(name):
+    return (tuple((CSRC / f).read_text()
+                  for f in ("qfloat_cell.cuh", "stream_frame.cuh", _SOURCES[name]))
+            + (" ".join(NVCC_FLAGS),))
+
+
 def _build_one(name):
-    source = _SOURCES[name]
-    return build_library(
-        source, f"lib{name}.so",
-        tuple((CSRC / f).read_text() for f in ("qfloat_cell.cuh", "stream_frame.cuh", source))
-        + (" ".join(NVCC_FLAGS),),
-    )
+    return build_library(_SOURCES[name], f"lib{name}.so", _hashed(name))
+
+
+def built():
+    """Whether both libraries are in ``_build/`` already; builds nothing."""
+    return all(library_path(f"lib{name}.so", _hashed(name)).exists() for name in _SOURCES)
 
 
 def build_dir(name):

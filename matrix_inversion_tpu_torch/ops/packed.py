@@ -41,7 +41,8 @@ import threading
 import numpy as np
 import torch
 
-from ..core.qfloat import QFloatBase, SignedBinary, Zero, check_invert_sign
+from ..core.qfloat import QFloat, QFloatBase, SignedBinary, Zero, check_invert_sign
+from . import radix
 
 MAG_DTYPE = torch.int64
 
@@ -228,11 +229,32 @@ class PackedQFloat(QFloatBase):
     def mag(self):
         return self._mag
 
+    @property
+    def is_base_tidy(self):
+        return True  # a magnitude is always normalized
+
+    @property
+    def encrypted(self):
+        """API parity with the JAX package, where it means "on the
+        device": always True, the magnitudes are a tensor."""
+        return isinstance(self._mag, torch.Tensor)
+
     def _mask(self, ndigits=None):
         n = self._length if ndigits is None else ndigits
         return (1 << (self._bits * n)) - 1
 
-    # ---- conversions (matrix_inversion_tpu/ops/packed.py:219-249) ---------
+    # ---- conversions (matrix_inversion_tpu/ops/packed.py:219-277) ---------
+    @classmethod
+    def from_float(cls, f, length=10, ints=None, base=2):
+        """(Batched) floats quantized on the host (``ops/radix.py``)."""
+        if ints is None:
+            ints = length // 2
+        digits, sign = radix.float_to_digits_and_sign(f, length, ints, base)
+        mag = radix.pack_digits(digits, base)
+        if np.ndim(sign) == 0:
+            return cls(int(mag), length, ints, base, int(sign))
+        return cls(torch.from_numpy(mag), length, ints, base, torch.from_numpy(sign).to(MAG_DTYPE))
+
     @classmethod
     def from_digits(cls, digits, ints=None, base=2, sign=1):
         """Pack a digit tensor ``[..., L]`` into magnitudes."""
@@ -250,6 +272,35 @@ class PackedQFloat(QFloatBase):
         scale = float(self._base) ** (-(self._length - self._ints))
         sign = self._sign.cpu() if isinstance(self._sign, torch.Tensor) else self._sign
         return self._mag.cpu().numpy().astype(np.float64) * scale * np.asarray(sign, np.float64)
+
+    def to_limb(self):
+        """The same value on the digit-array backend."""
+        return QFloat(self.to_digits(), self._ints, self._base, True, self._sign)
+
+    def to_str(self, tidy=True):
+        return self.to_limb().to_str(tidy)
+
+    def __str__(self):
+        return self.to_str(True)
+
+    # ---- factories (matrix_inversion_tpu/ops/packed.py:279-297) -----------
+    @classmethod
+    def zero(cls, length, ints, base, bshape=(), device=None):
+        return cls(torch.zeros(bshape, dtype=MAG_DTYPE, device=device), length, ints, base, 1)
+
+    @classmethod
+    def zero_like(cls, other):
+        return cls.zero(len(other), other.ints, other.base, other.bshape, other.device)
+
+    @classmethod
+    def one(cls, length, ints, base, bshape=(), device=None):
+        mag = torch.full(bshape, 1 << (digit_bits(base) * (length - ints)), dtype=MAG_DTYPE,
+                         device=device)
+        return cls(mag, length, ints, base, 1)
+
+    @classmethod
+    def one_like(cls, other):
+        return cls.one(len(other), other.ints, other.base, other.bshape, other.device)
 
     def copy(self):
         return PackedQFloat(self._mag, self._length, self._ints, self._base, self._sign)
@@ -274,6 +325,13 @@ class PackedQFloat(QFloatBase):
         self._length = int(newlen)
         self._mag = mag
         return self
+
+    # ---- normalization: nothing to do on a magnitude ----------------------
+    def base_tidy(self):
+        return
+
+    def tidy(self):
+        return
 
     def _tidy_signed(self, v):
         """Signed value -> (mag, sign): overflow past the top digit is
@@ -322,6 +380,16 @@ class PackedQFloat(QFloatBase):
         self._mag, self._sign = self._tidy_signed(v)
         return self
 
+    def iadd_chain(self, others):
+        """``self += o`` for each of ``others``, in order.  The JAX package
+        replays the chain as one ``lax.scan`` to keep its trace small; the
+        values, flags and counts are those of the loop."""
+        for o in others:
+            self.check_compatibility(o)
+        for o in others:
+            self += o
+        return self
+
     # ---- multiplication ---------------------------------------------------
     def __imul__(self, other):
         if isinstance(other, SignedBinary):
@@ -363,6 +431,18 @@ class PackedQFloat(QFloatBase):
             newlength, newints, a._bits,
         )
         return cls(mag, newlength, newints, a.base, a.sign * b.sign)
+
+    @classmethod
+    def multi_from_mul(cls, list_a, list_b, newlength=None, newints=None):
+        """Grouped multiply (reference qfloat.py:1023-1181): the pairs one
+        by one, in the format of the first QFloat of ``list_a``, else of
+        ``list_b``.  The JAX package stacks them into one multiply, which
+        gives the same bits."""
+        assert len(list_a) == len(list_b)
+        first = next(x for x in (*list_a, *list_b) if isinstance(x, QFloatBase))
+        newlength = len(first) if newlength is None else newlength
+        newints = first.ints if newints is None else newints
+        return [cls.from_mul(a, b, newlength, newints) for a, b in zip(list_a, list_b)]
 
     # ---- division ---------------------------------------------------------
     def __itruediv__(self, other):
@@ -421,6 +501,18 @@ class PackedQFloat(QFloatBase):
             q = q & ((1 << (self._bits * newlength)) - 1)
         sb = sign.value if isinstance(sign, SignedBinary) else sign
         return PackedQFloat(q, newlength, newints, self._base, sb * self.sign)
+
+    @classmethod
+    def multi_invert(cls, list_qfloats, sign=1, newlength=None, newints=None):
+        """Grouped reciprocal (reference qfloat.py:1311-1376): one
+        :meth:`invert` each, the bits of the JAX package's one stacked
+        division."""
+        check_invert_sign(sign)
+        qf0 = list_qfloats[0]
+        for q in list_qfloats:
+            assert isinstance(q, cls)
+            assert len(q) == len(qf0) and q.base == qf0.base and q.ints == qf0.ints
+        return [q.invert(sign, newlength, newints) for q in list_qfloats]
 
     # ---- pivot support ----------------------------------------------------
     def blend_from(self, other, cond):

@@ -83,6 +83,18 @@ def _lib():
         return _LIB
 
 
+def available() -> bool:
+    """Whether the conversions can take this library (the JAX package's
+    ``runtime/native.py::available``): it builds and loads, and the numpy
+    route is not forced."""
+    if _LIB is False:
+        return False
+    try:
+        return _lib() is not None
+    except (RuntimeError, OSError):
+        return False
+
+
 def routed(n_values: int) -> bool:
     """Whether a host conversion of ``n_values`` values takes this library:
     at ``NATIVE_MIN_VALUES`` or more, unless the numpy route is forced."""

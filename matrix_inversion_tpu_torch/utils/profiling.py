@@ -38,6 +38,48 @@ def device_trace(logdir: str):
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
+def device_work_by_range(events, labels, prefix="step:"):
+    """``{label: {name: count}}``: the device work of a trace (the
+    ``FunctionEvent``s of ``prof.events()``) by the host range named
+    ``prefix + label`` that holds its launch.
+
+    A kernel, copy or fill on the device shares its correlation id with
+    the runtime call (``cudaLaunchKernel``, ``cuLaunchKernel``,
+    ``cudaMemcpyAsync``, ...) that queued it; the call runs on the host, so
+    the host span of a ``record_function`` range says whether the range
+    queued the work, whatever the device's clock.  The device-side
+    annotation that the profiler adds under each range's name is left out:
+    its span follows the device.  Raises if a label's host range is missing
+    or there twice, or if device work has no launching call or its calls
+    lie in no range or in more than one."""
+    cpu = torch.autograd.DeviceType.CPU
+    ranges, calls = {}, {}
+    for e in events:
+        if e.device_type != cpu:
+            continue
+        if e.name.startswith(prefix):
+            label = e.name[len(prefix):]
+            if label in ranges:
+                raise ValueError(f"the trace holds the host range {e.name!r} twice")
+            ranges[label] = e.time_range
+        elif e.name.startswith("cu"):
+            calls.setdefault(e.id, []).append(e.time_range.start)
+    if set(ranges) != set(labels):
+        raise ValueError(f"the trace holds the host ranges {sorted(ranges)}, not {sorted(labels)}")
+    ran = {label: {} for label in labels}
+    for e in events:
+        if e.device_type == cpu or e.name.startswith(prefix):
+            continue
+        if e.id not in calls:
+            raise ValueError(f"device work {e.name} (correlation {e.id}) has no launching call")
+        owners = {label for label, r in ranges.items() for t in calls[e.id] if r.start <= t <= r.end}
+        if len(owners) != 1:
+            raise ValueError(f"device work {e.name} was launched in the ranges {sorted(owners)}")
+        counts = ran[owners.pop()]
+        counts[e.name] = counts.get(e.name, 0) + 1
+    return ran
+
+
 @contextlib.contextmanager
 def timed(label: str, results: dict = None):
     """Wall-clock section timer; appends to ``results`` when given."""

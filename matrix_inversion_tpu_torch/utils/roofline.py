@@ -45,6 +45,7 @@ default of :func:`flagship_roofline`, never as measurements.
 
 from __future__ import annotations
 
+import functools
 import json
 
 import torch
@@ -228,8 +229,6 @@ def flagship_roofline(
     bound is the card's published 32-bit integer peak; pass a measured
     issue rate (``utils/ubench.py``) for a measured roofline.
     """
-    import functools
-
     from ..config import PRESETS
     from ..models.inverse import qfloat_matrix_inverse_packed_io
 
@@ -279,12 +278,14 @@ def kernel_op_histogram(n: int = 4, preset: str = "high", track: bool = False):
     largest first: the true instruction mix (what to optimize next) and the
     numerator of a measured-rate roofline (see :func:`kernel_roofline`).
     """
-    return _emitted(n, preset, track)[0]
+    return dict(_emitted(n, preset, track)[0])
 
 
+@functools.lru_cache(maxsize=None)
 def _emitted(n, preset, track):
     """``(histogram, distinct first operands, distinct second operands of
-    the multiplies)`` of the emitted body."""
+    the multiplies)`` of the emitted body, emitted once per argument set
+    (seconds at n = 12)."""
     from ..config import PRESETS
     from ..ops.emit import emit_circuit
 
@@ -347,13 +348,12 @@ def rooflines(sizes, preset="high", rates=None, measured=None, track=False):
     """Per-n measured-rate roofline table: ``{"n=2": {...}, ...}``.
 
     ``rates`` as :func:`kernel_roofline`'s ``measured_rates``; ``measured``
-    maps n to the kernel's measured inversions/s.  The bulky histogram is
-    dropped.  The share ``mfu_pct_dispatched`` is bounded at 100 by
-    construction: a rate above the bound is proof that the histogram
-    overcounts what the card executes at this n (the implied primitives/s
-    would exceed the measured rate of the same primitives), so the entry
-    then reports the certified minimum overcount instead of a share above
-    100%.  Writes no file.
+    maps n to the kernel's measured inversions/s, whose share of the bound
+    is ``mfu_pct_dispatched``.  The bulky histogram is dropped.  A bound
+    counts the least work known for the kernel's function, so a kernel
+    cannot beat it: a measured rate over 105% of the bound (the bound's
+    time over 105% of the measured one) means the count or a rate is wrong,
+    and raises ``ValueError``.  Writes no file.
     """
     measured = measured or {}
     per_n = {}
@@ -367,14 +367,12 @@ def rooflines(sizes, preset="high", rates=None, measured=None, track=False):
         roof.pop("mfu_pct_vs_measured_roofline", None)
         bound = roof.get("roofline_inversions_per_s_measured_rates")
         if rate and bound:
-            if rate <= bound:
-                roof["mfu_pct_dispatched"] = round(100.0 * rate / bound, 2)
-            else:
-                roof["mfu_pct_dispatched"] = 100.0
-                roof["dispatched_at_issue_bound"] = True
-                roof["dispatched_op_count_overcount_min_pct"] = round(
-                    100.0 * (rate / bound - 1.0), 1
-                )
+            share = 100.0 * rate / bound
+            if share > 105.0:
+                raise ValueError(
+                    f"n={n}: {rate:.4e} inversions/s is {share:.1f}% of the bound {bound:.4e}: "
+                    "the count of operations is too high or a rate too low")
+            roof["mfu_pct_dispatched"] = round(share, 2)
         per_n[f"n={n}"] = roof
     return per_n
 

@@ -16,7 +16,8 @@ host C++ without ``__CUDACC__``: the same per-number functions, K7's staging
 through its block buffer phase by phase.  Built here with g++, they are held
 against the plain versions and JAX on the same cases, and against the plain
 versions on any base 2-16 and lengths 1-64 that hypothesis picks; K6 also
-as built with ``-DLIMB_RUNTIME_WINDOW``, the form the card times against.
+as built with ``-DLIMB_RUNTIME_WINDOW``, the form the card times against,
+and its form with the window in global scratch at a 300-digit divisor.
 """
 
 import ctypes
@@ -157,6 +158,12 @@ def host(tmp_path_factory):
                        else [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int])
         fn.restype = ctypes.c_int
         out[key] = fn
+    # K6's form with its window in global scratch, past 256 digits of divisor
+    wide = ctypes.CDLL(str(root / "division.so")).limb_division_wide_host
+    wide.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    wide.restype = ctypes.c_int
+    out["division_wide"] = wide
     return out
 
 
@@ -169,6 +176,20 @@ def host_division(host, v, d, p, build="division"):
     q = np.empty((d.shape[0], d_len), np.int32)
     err = host[build](v.ctypes.data, 0 if v.ndim == 1 else d_len, d.ctypes.data,
                            q.ctypes.data, d.shape[0], d_len, d.shape[-1], p)
+    assert err == 0
+    return q
+
+
+def host_division_wide(host, v, d, p):
+    """K6's wide form (the window in a scratch array, filled with garbage
+    first) on numpy digits, as :func:`host_division`."""
+    d = np.ascontiguousarray(d, np.int32)
+    v = np.ascontiguousarray(v, np.int32)
+    n, d_len, v_len = d.shape[0], v.shape[-1], d.shape[-1]
+    q = np.empty((n, d_len), np.int32)
+    window = np.full(n * (v_len + 1), -7, np.int32)
+    err = host["division_wide"](v.ctypes.data, 0 if v.ndim == 1 else d_len, d.ctypes.data,
+                                q.ctypes.data, window.ctypes.data, n, d_len, v_len, p)
     assert err == 0
     return q
 
@@ -310,6 +331,45 @@ def test_k6_host_window_forms(host):
     assert host["division"](q.ctypes.data, 4, bad.ctypes.data, q.ctypes.data, 1, 4, 257, 2) == 1
 
 
+def test_k6_host_wide_form_at_300_digits(host):
+    """The form whose window lives in global scratch, at a 300-digit divisor
+    (past the 256 digits of the run-time window): against JAX's
+    ``base_p_division`` and Python's floor division at base 2, full
+    dividends and a reciprocal's one row; against floor division at base
+    7."""
+    rng = np.random.RandomState(300)
+    v_len = 300
+    for p, d_len in ((2, 303), (7, 302)):
+        d = divisor_set(rng, 12, v_len, p)
+        for v in (digits(rng, (12, d_len), p), np.eye(1, d_len, 0, np.int32)[0]):
+            got = host_division_wide(host, v, d, p)
+            np.testing.assert_array_equal(got, floor_quotient(v, d, p))
+            if p == 2:
+                ref = jax_division(p)(jnp.asarray(np.broadcast_to(v, (12, d_len))), jnp.asarray(d))
+                same(t(got), ref)
+    # the same function as the other forms at their widths
+    for v_len, p in ((1, 2), (8, 3), (40, 2), (100, 10)):
+        d = divisor_set(rng, 12, v_len, p)
+        v = digits(rng, (12, v_len + 5), p)
+        np.testing.assert_array_equal(host_division_wide(host, v, d, p),
+                                      host_division(host, v, d, p))
+
+
+def test_k6_wide_divisors_take_the_scratch_form(monkeypatch):
+    """The wrapper sends a divisor past ``WINDOW_DIGITS`` digits to the wide
+    entry (with a scratch window for its N numbers), and narrower ones to
+    the register and local-memory forms (the launch recorded, not run)."""
+    launched = []
+    monkeypatch.setattr(limb_kernels, "_check_device", lambda *tensors: None)
+    monkeypatch.setattr(limb_kernels, "_launch",
+                        lambda name, *args, device, flags=(), entry=None:
+                        launched.append((entry, args[5] if entry else None)))
+    v = torch.zeros(5, 260, dtype=torch.int32)
+    limb_kernels.limb_division(v, torch.ones(5, 257, dtype=torch.int32), 2)
+    limb_kernels.limb_division(v, torch.ones(5, 256, dtype=torch.int32), 2)
+    assert launched == [("limb_division_wide", 5), (None, None)]
+
+
 @pytest.mark.parametrize("p", BASES)
 def test_k6_host_runtime_window_build(host, p):
     """K6 built with its run-time window at every width (the form the card
@@ -370,7 +430,8 @@ def test_wrappers_check_their_inputs():
         limb_kernels.limb_division(v.long(), d, 2)
     with pytest.raises(TypeError, match="int32"):
         limb_kernels.limb_tidy(v.long(), 2)
-    with pytest.raises(ValueError, match="at most 256"):
+    # no cap on the divisor's width: a 257-digit one is refused only for its device
+    with pytest.raises(ValueError, match="expected CUDA"):
         limb_kernels.limb_division(v, torch.ones(3, 257, dtype=torch.int32), 2)
     with pytest.raises(ValueError, match="base"):
         limb_kernels.limb_division(v, d, 1)

@@ -264,3 +264,22 @@ def test_abi_version_is_checked(tmp_path):
                    check=True)
     with pytest.raises(RuntimeError, match="ABI version 2, expected 1"):
         native._load(lib)
+
+
+def test_available_matches_jax(jax_lib, monkeypatch, tmp_path):
+    """``available()``, as the JAX package's: True where the library loads,
+    False where it cannot be had (JAX: no built file; the port: a source that
+    does not compile) or the numpy route is forced."""
+    assert native.available() is True and jax_lib.available() is True
+    monkeypatch.setattr(native, "_LIB", False)
+    assert native.available() is False
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / native.SOURCE).write_text("int qmarshal_abi_version( { return 1; }\n")
+    monkeypatch.setattr(cuda_build, "CSRC", src)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setenv("QMARSHAL_LIB", str(tmp_path / "missing.so"))
+    monkeypatch.setattr(jax_lib, "_LIB", None)
+    monkeypatch.setattr(jax_lib, "_TRIED", False)
+    assert native.available() is False and jax_lib.available() is False

@@ -5,8 +5,9 @@
 and ``precision_benchmark`` are held exactly to the JAX package's on the
 same matrices; ``time_benchmark``'s keys and log file, the CLI's output
 lines (``python -m matrix_inversion_tpu_torch --device cpu``, with and
-without ``--simulate``), and the keys of the throughput, e2e and precision
-runners of ``utils/run_benchmarks.py`` at a tiny batch on the CPU.  Without
+without ``--simulate``), and the keys of the throughput, e2e, precision,
+lowering, fused and rooflines runners of ``utils/run_benchmarks.py`` at a
+tiny batch on the CPU.  Without
 a card, every entry point that defaults to it raises.
 """
 
@@ -24,7 +25,7 @@ from matrix_inversion_tpu.utils import precision as jax_precision
 import matrix_inversion_tpu_torch as mt
 from matrix_inversion_tpu_torch import __main__ as cli
 from matrix_inversion_tpu_torch.models import marshal, qfloat_lu
-from matrix_inversion_tpu_torch.utils import debug, precision, run_benchmarks
+from matrix_inversion_tpu_torch.utils import debug, precision, roofline, run_benchmarks
 
 torch.set_num_threads(2)
 
@@ -186,3 +187,73 @@ def test_precision_table_keys(capsys):
     assert list(got) == ["low/n=2"]
     assert got["low/n=2"]["N"] == 10 and got["low/n=2"]["wall_s"] > 0
     assert "low 2 {" in capsys.readouterr().out
+
+
+def test_lowering_keys_and_equal_outputs():
+    got = run_benchmarks.lowering(sizes=(2, 3), batch=4, reps=1, repeats=1, device="cpu")
+    assert sorted(got) == ["n=2/fused", "n=2/unroll", "n=3/fused", "n=3/unroll"]
+    for entry in got.values():
+        assert entry["first_call_s"] > 0 and entry["inversions_per_s"] > 0
+        assert entry["libraries_built"] is None and entry["platform"] == "cpu"
+        assert entry["batch"] == 4 and entry["reps"] == 1
+    json.dumps(got)
+
+
+def test_lowering_raises_when_the_lowerings_differ(monkeypatch):
+    run_raw = mt.BatchedMatrixInversion.run_raw
+
+    def off_by_one(self, mags, signs):
+        out = run_raw(self, mags, signs)
+        return (out[0] + 1, out[1]) if self.params.lowering == "unroll" else out
+
+    monkeypatch.setattr(mt.BatchedMatrixInversion, "run_raw", off_by_one)
+    with pytest.raises(RuntimeError, match="unroll lowering's output differs"):
+        run_benchmarks.lowering(sizes=(2,), batch=4, reps=1, repeats=1, device="cpu")
+
+
+def test_fused_keys_and_rooflines():
+    rates = {"u32_kernelmix": 1e13}
+    got = run_benchmarks.fused(sizes=(2, 3), batch=4, reps=1, repeats=2, tracked=True,
+                               unroll_sizes=(2,), rates=rates, device="cpu")
+    assert sorted(got) == ["high/n=2/fused", "high/n=2/fused_tracked", "high/n=2/unroll_tracked",
+                           "high/n=3/fused", "high/n=3/fused_tracked"]
+    for key, entry in got.items():
+        assert entry["inversions_per_s"] > 0 and entry["first_call_s"] > 0
+        assert entry["batch"] == 4 and len(entry["chain_reps"]["elapsed_all_s"]) == 2
+        assert ("mfu_pct_vs_measured_roofline" in entry) == key.endswith("/fused")
+    for n in (2, 3):
+        roof = roofline_of(n, got[f"high/n={n}/fused"]["inversions_per_s"], rates)
+        entry = got[f"high/n={n}/fused"]
+        assert entry["ops_per_inversion_kernel"] == roof["ops_per_inversion_kernel"]
+        assert entry["mfu_pct_vs_measured_roofline"] == roof["mfu_pct_vs_measured_roofline"]
+    table = run_benchmarks.rooflines(got)
+    assert list(table) == ["n=2", "n=3"]
+    for n, row in zip((2, 3), table.values()):
+        assert row["measured_inversions_per_s"] == got[f"high/n={n}/fused"]["inversions_per_s"]
+        bound = row["roofline_inversions_per_s_measured_rates"]
+        assert row["mfu_pct_dispatched"] == round(100 * row["measured_inversions_per_s"] / bound, 2)
+        assert row["int_issue_rate"] == 1e13
+        assert "kernel_op_histogram" not in row
+    tracked = run_benchmarks.rooflines(got, track=True)
+    assert (tracked["n=2"]["measured_inversions_per_s"]
+            == got["high/n=2/fused_tracked"]["inversions_per_s"])
+    # a bound that the measured rate beats raises: no share is capped
+    with pytest.raises(ValueError, match="n=2"):
+        run_benchmarks.rooflines(got, rates={"u32_kernelmix": 1e4})
+
+
+def roofline_of(n, rate, rates):
+    return roofline.kernel_roofline(rate, n, "high", {"default": rates["u32_kernelmix"]})
+
+
+def test_new_drivers_default_to_the_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for call in (lambda: run_benchmarks.lowering(sizes=(2,), batch=4),
+                 lambda: run_benchmarks.fused(sizes=(2,), batch=4)):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            call()
+    run_benchmarks.main(["--device", "cpu", "rooflines", "--sizes", "2", "--batch", "4",
+                         "--reps", "1", "--repeats", "1"])
+    table = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(table) == ["n=2"] and table["n=2"]["rate_source"] == "none"

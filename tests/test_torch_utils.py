@@ -122,3 +122,69 @@ def test_default_device_is_the_card_and_raises_without_one():
         mt.BatchedMatrixInversion(mt.HIGH.replace(n=4), 8, device="cuda:0")
     inv = mt.BatchedMatrixInversion(mt.HIGH.replace(n=4), 8, device="cpu")
     assert inv.device.type == "cpu"
+
+
+def _event(name, id_, start, end, device="cpu"):
+    """A stand-in for a profiler ``FunctionEvent``."""
+    dtype = torch.autograd.DeviceType.CUDA if device == "cuda" else torch.autograd.DeviceType.CPU
+    return types.SimpleNamespace(name=name, id=id_, device_type=dtype,
+                                 time_range=types.SimpleNamespace(start=start, end=end))
+
+
+def test_device_work_is_counted_by_the_range_that_launched_it():
+    """Each kernel goes to the host range that holds its runtime call, found
+    by their shared correlation id: also where the device's clock puts the
+    kernel's start outside that range, and where the device-side annotation
+    of a range, listed after the host range of the same name, spans other
+    times (the rule that matched device starts against whichever of the two
+    came last could put the kernel in no range)."""
+    events = [
+        _event("step:a", 1, 100, 200),
+        _event("cudaLaunchKernel", 7, 110, 112),
+        _event("aten::empty", 7, 105, 106),  # an op whose id collides: no runtime call
+        _event("cuLaunchKernel", 8, 150, 151),
+        _event("step:b", 2, 300, 400),
+        _event("cudaLaunchKernel", 9, 310, 311),
+        _event("cudaMemsetAsync", 10, 320, 321),
+        # device work: K1 twice in a, once in b (its device start skewed past
+        # b's host range), a fill in b, and the ranges' own device annotations
+        _event("fused_inverse_kernel", 7, 120, 140, "cuda"),
+        _event("fused_inverse_kernel", 8, 160, 180, "cuda"),
+        _event("fused_inverse_kernel", 9, 401, 450, "cuda"),
+        _event("fill", 10, 330, 331, "cuda"),
+        _event("step:a", 1, 118, 181, "cuda"),
+        _event("step:b", 2, 329, 399, "cuda"),
+    ]
+    ran = profiling.device_work_by_range(events, ["a", "b"])
+    assert ran == {"a": {"fused_inverse_kernel": 2}, "b": {"fused_inverse_kernel": 1, "fill": 1}}
+    # the old rule, device start against the last range listed, misses K1 in b
+    last = {e.name[5:]: e.time_range for e in events if e.name.startswith("step:")}
+    starts = [e.time_range.start for e in events if e.name == "fused_inverse_kernel"]
+    assert not any(r.start <= starts[2] <= r.end for r in last.values())
+
+
+@pytest.mark.parametrize("case", ["no launch", "outside", "missing range", "twice"])
+def test_device_work_by_range_raises(case):
+    events = [_event("step:a", 1, 100, 200), _event("cudaLaunchKernel", 7, 110, 112),
+              _event("k", 7, 120, 130, "cuda")]
+    labels = ["a"]
+    if case == "no launch":
+        events.append(_event("k", 99, 150, 160, "cuda"))
+    elif case == "outside":
+        events += [_event("cudaLaunchKernel", 8, 250, 251), _event("k", 8, 260, 270, "cuda")]
+    elif case == "missing range":
+        labels = ["a", "b"]
+    else:
+        events.append(_event("step:a", 3, 300, 400))
+    with pytest.raises(ValueError):
+        profiling.device_work_by_range(events, labels)
+
+
+def test_device_work_by_range_on_a_cpu_trace(tmp_path):
+    """A real trace on the CPU: both host ranges are found and nothing ran on
+    a device."""
+    with profiling.device_trace(str(tmp_path)) as prof:
+        for label in ("x", "y"):
+            with torch.profiler.record_function(f"step:{label}"):
+                torch.ones(8).add_(1)
+    assert profiling.device_work_by_range(list(prof.events()), ["x", "y"]) == {"x": {}, "y": {}}
