@@ -96,6 +96,25 @@ path at every n it serves), and K1's per-n rows of the ``kernels`` line.
 After the limb phase, K6 at a 300-digit divisor, past the 256 digits of its
 local-memory window, against its plain version, timed.
 
+After the n=4 main paths, the multi-GPU phase (``parallel/``) over every
+visible card: ``make_mesh()``; ``shardmap_check`` (K1 once per card on its
+batch shard, 1,048,576 matrices a card, untracked and tracked, each
+shard's output on its card, == the one-card K1 bit for bit, flags
+included, and the first 64 == the CPU); ``BatchedMatrixInversion`` with
+``data_parallel=None`` (one card, however many are visible) and
+``True`` (the mesh); one data-parallel ``run_raw`` in the profiler's
+trace of the main paths (K1 once on each card, nothing but the shards'
+copies, no NCCL kernel); ``data_parallel_inverse`` with digit I/O at HIGH
+n=4 (K1 per shard) and n=16 (K2, K4 per shard) == one device; in
+subprocesses (this script with ``--worker``), an NCCL group of one rank per
+card (``sharded_inverse_with_stats``, its statistic exact, and
+``cell_sharded_pipeline`` with the cells split over the ranks) == the CPU,
+and two processes (one card each on NCCL, or both on one card on gloo)
+whose halves joined == the one-process K1, each loading the K1 the parent
+built; then the ``scaling`` driver in a subprocess, its dict printed.  The
+other phases run on the first card whatever the count: on a box of four
+cards the script checks the same paths and the mesh over four.
+
 Any failure raises.  The last line is one JSON object naming
 the device.  Imports nothing of JAX.
 """
@@ -105,6 +124,7 @@ import functools
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -145,6 +165,19 @@ from matrix_inversion_tpu_torch.ops import (
     long_division,
     packed,
 )
+from matrix_inversion_tpu_torch.parallel import (
+    Mesh,
+    P,
+    cell_sharded_pipeline,
+    data_parallel_inverse,
+    data_parallel_inverse_fused,
+    global_batch_arrays,
+    host_local_slice,
+    initialize_distributed,
+    make_mesh,
+    sharded_inverse_with_stats,
+)
+from matrix_inversion_tpu_torch.parallel.mesh import _all_gather
 from matrix_inversion_tpu_torch.runtime import native
 from matrix_inversion_tpu_torch.runtime.stream import StreamingInverter
 from matrix_inversion_tpu_torch.utils import (
@@ -514,12 +547,13 @@ def check_k1_layouts(dev, batch=CHECK_BATCH + 37):
     return worst
 
 
-def kernels_by_step(dev, steps):
-    """``{label: {kernel name: launches}}`` of the device work of each
-    function in ``steps``, from one profiler trace (``device_trace``): each
-    step runs, and is synchronized, inside a labelled range, and a kernel,
-    copy or fill belongs to the range whose host span holds the runtime
-    call that launched it (``utils/profiling.py::device_work_by_range``).
+def kernels_by_step(dev, steps, key=lambda e: e.name):
+    """``{label: {kernel name: launches}}`` (or by ``key`` of the event) of
+    the device work of each function in ``steps``, from one profiler trace
+    (``device_trace``): each step runs, and every card is synchronized,
+    inside a labelled range, and a kernel, copy or fill belongs to the range
+    whose host span holds the runtime call that launched it
+    (``utils/profiling.py::device_work_by_range``).
     Raises if some device work was launched in no range.  Also prints how
     many kernels the earlier rule (a kernel's device start inside whichever
     range of the label the trace listed last, host or device annotation)
@@ -530,9 +564,10 @@ def kernels_by_step(dev, steps):
                 with torch.profiler.record_function(f"step:{label}"):
                     fn()
                     if dev.type == "cuda":
-                        torch.cuda.synchronize()
+                        for i in range(torch.cuda.device_count()):
+                            torch.cuda.synchronize(i)
     events = list(prof.events())
-    ran = device_work_by_range(events, list(steps))
+    ran = device_work_by_range(events, list(steps), key=key)
     cpu = torch.autograd.DeviceType.CPU
     named = [e for e in events if e.name.startswith("step:")]
     last = {e.name[5:]: e.time_range for e in named}
@@ -547,14 +582,17 @@ def kernels_by_step(dev, steps):
     return ran
 
 
-def check_launches_under_profiler(dev, inv, mags, signs, tinv, tmags, tsigns,
+def check_launches_under_profiler(dev, inv, mags, signs, tinv, tmags, tsigns, dp,
                                   batch=LARGE_BATCH):
-    """One trace over one ``run_raw`` of each n=4 main path and one
-    ``PackedQFloat.invert`` as the High circuit calls it (61 bits by 40).
-    Each ``run_raw`` must run K1 once and nothing else on the device: no
-    transpose, no copy, no fill.  The reciprocal must launch the division
-    kernel once and no fill for its dividend (one cached word, read from
-    its address)."""
+    """One trace over one ``run_raw`` of each n=4 main path, one
+    ``PackedQFloat.invert`` as the High circuit calls it (61 bits by 40)
+    and one ``run_raw`` of ``dp``, an ``(inverter, mags, signs)`` that runs
+    data-parallel over every card.  Each main path's ``run_raw`` must run
+    K1 once and nothing else on the device: no transpose, no copy, no fill.
+    The reciprocal must launch the division kernel once and no fill for its
+    dividend (one cached word, read from its address).  The data-parallel
+    ``run_raw`` must run K1 once on each card, and besides the copies of
+    the shards between cards nothing else: no NCCL kernel."""
     x = packed.PackedQFloat(
         torch.randint(1, 1 << 40, (batch,), dtype=torch.int64, device=dev), 40, 20)
     x.invert(1, 40, 0)  # the constant word is filled once, here at the latest
@@ -562,11 +600,33 @@ def check_launches_under_profiler(dev, inv, mags, signs, tinv, tmags, tsigns,
     tinv.run_raw(tmags, tsigns)
     before = long_division.LAUNCHES["long_division_float"]
     got = []
-    ran = kernels_by_step(dev, {
+    dp_inv, dp_mags, dp_signs = dp
+    dp_inv.run_raw(dp_mags, dp_signs)
+    by_card = kernels_by_step(dev, {
         "main path": lambda: inv.run_raw(mags, signs),
         "tracked main path": lambda: tinv.run_raw(tmags, tsigns),
         "reciprocal": lambda: got.append(x.invert(1, 40, 0)),
-    })
+        "data-parallel run_raw": lambda: dp_inv.run_raw(dp_mags, dp_signs),
+    }, key=lambda e: (e.name, e.device_index))
+    ran = {}
+    for label, work in by_card.items():
+        ran[label] = {}
+        for (name, _), count in work.items():
+            ran[label][name] = ran[label].get(name, 0) + count
+    dp_work = by_card["data-parallel run_raw"]
+    cards = dp_inv.mesh.size
+    k1_cards = sorted(i for (name, i), c in dp_work.items()
+                      if "fused_inverse_kernel" in name for _ in range(c))
+    assert dev.type != "cuda" or k1_cards == list(range(cards)), \
+        f"the data-parallel run_raw ran K1 on cards {k1_cards}, not once on each of {cards}"
+    others = {key: c for key, c in dp_work.items() if "fused_inverse_kernel" not in key[0]}
+    assert not any("nccl" in name.lower() for name, _ in others), \
+        f"the data-parallel run_raw issued a collective: {others}"
+    assert cards > 1 or not others, f"the data-parallel run_raw on one card ran {others}"
+    assert all("memcpy" in name.lower() for name, _ in others), \
+        f"the data-parallel run_raw ran more than K1 and the shards' copies: {others}"
+    print(f"data-parallel run_raw on {cards} card(s) under the profiler ran {dp_work}: K1 once "
+          "on each card, no collective, nothing but the shards' copies besides")
     for label in ("main path", "tracked main path"):
         k1 = [name for name in ran[label] if "fused_inverse_kernel" in name]
         assert dev.type != "cuda" or (len(k1) == 1 and ran[label][k1[0]] == 1), \
@@ -683,6 +743,16 @@ def check_mul_kernel(dev):
               "multiplier; views off 16-byte alignment; an odd length; kernel == plain version "
               "bit for bit (tolerance 0)")
     return max_err
+
+
+# The multi-GPU phase: K1 once per card at the main path's batch a card, the
+# digit circuit per shard at the digit path's batch (K1) and at n=16 on a
+# check batch (K2, K4); the NCCL workers' batch (their statistic's sums stay
+# below 2**24: 16,384 matrices x 16 cells x 41 digits of at most 1), the
+# two-process run's, and each subprocess's time limit.
+DP_STATS_BATCH = 16_384
+DP_TWO_PROCESS_BATCH = 262_144
+DP_TIMEOUT_S = 180
 
 
 def large_n_matrices(rng, B, n):
@@ -2070,7 +2140,234 @@ def k1_size_rows(dev, card, checks, per_n, batch=FUSED_BATCH):
     return rows
 
 
+def data_parallel_paths(dev, card, per_card=MAIN_BATCH):
+    """The data-parallel K1 over every visible card: ``shardmap_check``
+    (untracked and tracked, ``per_card`` matrices a card, each shard's
+    output on its card before the gather, == the one-card K1 bit for bit,
+    flags included, and the first 64 == the CPU; K1 once per card a call);
+    ``BatchedMatrixInversion(data_parallel=None)`` runs on one card however
+    many are visible, ``data_parallel=True`` runs the mesh (of one card on
+    a one-card box; of the named card alone for ``device="cuda:0"``), all
+    == the one-card K1.  Returns the
+    forced inverter and its inputs, for the profiler's check."""
+    mesh = make_mesh()
+    count = mesh.size
+    print(f"multi-GPU: make_mesh() takes {count} card(s): {mesh}")
+    t0 = time.perf_counter()
+    check = run_benchmarks.shardmap_check(per_card)
+    print(f"shardmap_check ({card}; host clock {time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(check)}")
+    for variant in ("untracked", "tracked"):
+        assert check[variant]["k1_launches"] == count, f"{variant}: {check[variant]}"
+    p = HIGH.replace(n=4)
+    batch = per_card * count
+    auto = BatchedMatrixInversion(p, batch, backend="packed", io="packed")
+    forced = BatchedMatrixInversion(p, batch, backend="packed", io="packed", data_parallel=True)
+    named = BatchedMatrixInversion(p, batch, backend="packed", io="packed", data_parallel=True,
+                                   device="cuda:0")
+    assert auto.mesh is None, f"data_parallel=None picked {auto.mesh}"
+    assert forced.mesh.size == count and forced.device == torch.device("cuda", 0)
+    assert named.mesh.size == 1 and named.device == torch.device("cuda", 0)
+    print(f"BatchedMatrixInversion(HIGH n=4, B={batch}, io='packed'): data_parallel=None runs "
+          f"on one card of {count}; data_parallel=True runs the mesh of {forced.mesh.size} "
+          "card(s), and on device='cuda:0' the mesh of that card alone")
+    M = np.random.RandomState(70).randn(batch, 4, 4) * 100
+    mags, signs = forced.quantize(M)
+    ref = fused_inverse.fused_matrix_inverse(mags, signs, *config_of(p))
+    for label, inv in (("data_parallel=None", auto), ("data_parallel=True", forced),
+                       ("data_parallel=True, cuda:0", named)):
+        out, got = launches_of(lambda: inv.run_raw(mags, signs))
+        expect_launches(label, got, fused_inverse=inv.mesh.size if inv.mesh else 1)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref)), f"{label} != the one-card K1"
+        print(f"{label} run_raw: launches {got}; == the one-card K1 bit for bit")
+    return forced, mags, signs
+
+
+def data_parallel_digit_paths(dev, batch=DIGIT_BATCH, check_batch=CHECK_BATCH):
+    """``data_parallel_inverse`` over every card, digit I/O: HIGH n=4 on
+    ``batch`` matrices (pack, K1, unpack per shard) and HIGH n=16 on a check
+    batch cut to a multiple of the card count (K2 and K4 per shard, under
+    the shard's card), each == the one-device ``qfloat_matrix_inverse`` bit
+    for bit, launches counted."""
+    mesh = make_mesh()
+    count = mesh.size
+    for n, B, want in ((4, batch, {"fused_inverse": count}),
+                       (LARGE_N, check_batch // count * count,
+                        {"long_division_float": count * K2_LAUNCHES[LARGE_N],
+                         "mul_window": count * K4_LAUNCHES[LARGE_N]})):
+        p = HIGH.replace(n=n)
+        M = large_n_matrices(np.random.RandomState(71 + n), B, n)
+        d, s = (torch.from_numpy(a).to(dev) for a in float_matrix_to_qfloat_arrays(
+            M, p.qfloat_len, p.qfloat_ints, p.qfloat_base))
+        t0 = time.perf_counter()
+        out, got = launches_of(lambda: data_parallel_inverse(p, mesh)(d, s))
+        dp_s = time.perf_counter() - t0
+        expect_launches(f"data_parallel_inverse HIGH n={n}", got, **want)
+        t0 = time.perf_counter()
+        ref = qfloat_matrix_inverse(d, s, n, p.qfloat_len, p.qfloat_ints, p.qfloat_base,
+                                    p.true_division, backend="packed")
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        assert torch.equal(out, ref), f"data_parallel_inverse HIGH n={n} != one device"
+        print(f"data_parallel_inverse HIGH n={n} B={B} on {count} card(s): launches {got}; == "
+              f"the one-device path bit for bit; host clock {dp_s:.2f} s against {one_s:.2f} s "
+              "on one device")
+
+
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _k1_loaded(p, track=False):
+    """Seconds to load the HIGH n=4 K1 library that the parent built; raises
+    if it is not in ``_build/`` (a worker must not run nvcc)."""
+    config = config_of(p) + (track,)
+    assert fused_inverse.built(config), f"K1 {config} is not built: the worker would run nvcc"
+    t0 = time.perf_counter()
+    fused_inverse.build([config])
+    return time.perf_counter() - t0
+
+
+def stats_worker(rank, world, port):
+    """One rank of the NCCL group, one card each: its slice of the batch
+    through ``sharded_inverse_with_stats`` (the moments all-reduced) and
+    its block of cells through ``cell_sharded_pipeline`` (gathered across
+    the ranks), each == the CPU run bit for bit, the statistic exactly."""
+    t0 = time.perf_counter()
+    p = HIGH.replace(n=4)
+    M = np.random.RandomState(80).randn(DP_STATS_BATCH, 4, 4) * 100
+    digits, signs = float_matrix_to_qfloat_arrays(M, p.qfloat_len, p.qfloat_ints, p.qfloat_base)
+    # the CPU run, one process, before the group is up
+    cpu_out, cpu_stat = sharded_inverse_with_stats(p, make_mesh(1, device="cpu"))(
+        torch.from_numpy(digits), torch.from_numpy(signs))
+    cpu_s = time.perf_counter() - t0
+    card = torch.device("cuda", rank)
+    torch.cuda.set_device(card)
+    # a group even of one rank (initialize_distributed is a no-op for one
+    # process), so that the collectives run through NCCL on the card
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                         world_size=world, rank=rank)
+    load_s = _k1_loaded(p)
+    mesh = Mesh([card], ("data",))
+    start, size = host_local_slice(DP_STATS_BATCH, mesh)
+    d, offset = global_batch_arrays(digits[start:start + size], mesh, P("data", None, None))
+    s, _ = global_batch_arrays(signs[start:start + size], mesh, P("data", None))
+    assert offset == start
+    before = fused_inverse.LAUNCHES
+    out, stat = sharded_inverse_with_stats(p, mesh)(d, s)
+    per = 16 // world
+    cells = slice(rank * per, (rank + 1) * per)
+    cell_out = cell_sharded_pipeline(p, Mesh([[card]], ("data", "cell")))(
+        torch.from_numpy(digits[:, cells]).to(card), torch.from_numpy(signs[:, cells]).to(card))
+    torch.cuda.synchronize()
+    launches = fused_inverse.LAUNCHES - before
+    assert torch.equal(out.cpu(), cpu_out[start:start + size]), "stats: output != the CPU"
+    assert stat.item() == cpu_stat.item(), f"stats: {stat.item()} != the CPU's {cpu_stat.item()}"
+    assert torch.equal(cell_out.cpu(), cpu_out), "cell pipeline: output != the CPU"
+    assert launches == 2, f"K1 launched {launches} times, not once a program"
+    torch.distributed.destroy_process_group()
+    print(json.dumps({"worker": "stats", "rank": rank, "world": world, "card": str(card),
+                      "k1_load_s": load_s, "launches": launches, "stat": stat.item(),
+                      "rows": [start, size], "cells": [cells.start, cells.stop],
+                      "cpu_run_s": cpu_s, "total_s": time.perf_counter() - t0}))
+
+
+def halves_worker(rank, world, port, backend):
+    """One of two processes: ``initialize_distributed`` ->
+    ``host_local_slice`` -> ``global_batch_arrays`` ->
+    ``data_parallel_inverse_fused`` on its half, on its own card (NCCL) or,
+    with one card, both on it (gloo, gathering through the host); the
+    halves joined == the one-process K1 bit for bit."""
+    t0 = time.perf_counter()
+    card = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(card)
+    assert initialize_distributed(f"127.0.0.1:{port}", world, rank, backend=backend)
+    p = HIGH.replace(n=4)
+    load_s = _k1_loaded(p)
+    M = np.random.RandomState(81).randn(DP_TWO_PROCESS_BATCH, 4, 4) * 100
+    mags, signs = float_matrix_to_mags_and_signs(M, p.qfloat_len, p.qfloat_ints, p.qfloat_base)
+    mesh = Mesh([card], ("data",))
+    start, size = host_local_slice(DP_TWO_PROCESS_BATCH, mesh)
+    m, offset = global_batch_arrays(mags[start:start + size], mesh, P("data", None))
+    s, _ = global_batch_arrays(signs[start:start + size], mesh, P("data", None))
+    before = fused_inverse.LAUNCHES
+    out = data_parallel_inverse_fused(p, mesh)(m, s)
+    launches = fused_inverse.LAUNCHES - before
+    joined = [_all_gather(x, 0) for x in out]
+    ref = fused_inverse.fused_matrix_inverse(torch.from_numpy(mags).to(card),
+                                             torch.from_numpy(signs).to(card), *config_of(p))
+    assert all(torch.equal(a, b) for a, b in zip(joined, ref)), "the halves != the one-process K1"
+    assert launches == 1 and offset == start
+    torch.distributed.destroy_process_group()
+    print(json.dumps({"worker": "halves", "rank": rank, "world": world, "backend": backend,
+                      "card": str(card), "k1_load_s": load_s, "launches": launches,
+                      "rows": [start, size], "total_s": time.perf_counter() - t0}))
+
+
+def _start(args):
+    """A subprocess of this script or of a module (``-m``) in the repo's
+    root; returns a function that waits for it (killing it past
+    DP_TIMEOUT_S), raises unless it exited 0 and returns its output."""
+    cmd = [sys.executable, *args]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def wait():
+        try:
+            out, err = proc.communicate(timeout=DP_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        assert proc.returncode == 0, f"{' '.join(cmd)} exited {proc.returncode}:\n{out}\n{err}"
+        return out
+
+    return wait
+
+
+def distributed_paths(card):
+    """The process-group checks in subprocesses, all started at once: an
+    NCCL group of one rank per card (``stats_worker``), and two processes on
+    NCCL (two or more cards) or on gloo sharing the card
+    (``halves_worker``); then the ``scaling`` driver alone in a subprocess
+    of its own (its own profiler session).  Any failure, timeout or exit
+    other than 0 raises.  Returns the ``scaling`` dict."""
+    count = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    stats_port, halves_port = _free_port(), _free_port()
+    backend = "nccl" if count >= 2 else "gloo"
+    script = os.path.abspath(__file__)
+    waits = [_start([script, "--worker", "stats", str(r), str(count), str(stats_port)])
+             for r in range(count)]
+    waits += [_start([script, "--worker", "halves", str(r), "2", str(halves_port), backend])
+              for r in range(2)]
+    for wait in waits:
+        print(f"worker: {wait().strip().splitlines()[-1]}")
+    print(f"host clock: {count} NCCL rank(s) and 2 {backend} processes, "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    t0 = time.perf_counter()
+    out = _start(["-m", "matrix_inversion_tpu_torch.utils.run_benchmarks", "scaling"])()
+    scaling = json.loads(out.strip().splitlines()[-1])
+    print(f"host clock: the scaling driver in a subprocess, {time.perf_counter() - t0:.1f} s")
+    return scaling
+
+
+def worker(argv):
+    """``--worker stats RANK WORLD PORT`` or ``--worker halves RANK WORLD
+    PORT BACKEND``: one process of ``distributed_paths``."""
+    kind, rank, world, port, *rest = argv
+    if kind == "stats":
+        stats_worker(int(rank), int(world), port)
+    else:
+        halves_worker(int(rank), int(world), port, *rest)
+    return 0
+
+
 def main():
+    if sys.argv[1:2] == ["--worker"]:
+        return worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2239,9 +2536,22 @@ def main():
           "the CPU (first 256), flags included; magnitudes and signs == untracked kernel; "
           f"mean abs error vs np.linalg.inv on {int(ok.sum())} unflagged matrices {tmae:.3e}")
 
+    # -- multi-GPU: K1 once per card on its batch shard, against the one-card
+    # K1 and the CPU; the API's choice of one card or the mesh
+    t0 = time.perf_counter()
+    dp = data_parallel_paths(dev, card)
+
     # -- one run_raw of each main path under the profiler: K1 and nothing
-    # else; and one reciprocal: the division kernel and no fill
-    check_launches_under_profiler(dev, inv, mags, signs, tinv, tmags, tsigns)
+    # else; one reciprocal: the division kernel and no fill; one
+    # data-parallel run_raw: K1 once per card and no collective
+    check_launches_under_profiler(dev, inv, mags, signs, tinv, tmags, tsigns, dp)
+    del dp
+
+    # -- multi-GPU, continued: the digit circuit per shard (K1; K2 and K4 at
+    # n=16), the process groups in subprocesses, the scaling driver
+    data_parallel_digit_paths(dev)
+    scaling = distributed_paths(card)
+    print(f"host clock: the multi-GPU paths, {time.perf_counter() - t0:.1f} s")
 
     # -- the op-by-op path's kernels vs their plain versions on the card
     op_err = {**check_division_kernels(dev), "mul_window": check_mul_kernel(dev)}
@@ -2402,6 +2712,7 @@ def main():
               f"= {ms / limb_bounds[name][0]:.2f}x the bound ({card})")
 
     print(f"e2e ({card}): {json.dumps(e2e)}")
+    print(f"scaling ({card}): {json.dumps(scaling)}")
     source = "matrix_inversion_tpu_torch/csrc/fused_inverse.cu"
     print(json.dumps({"kernels": [{
         "name": "fused_inverse",

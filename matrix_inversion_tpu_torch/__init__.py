@@ -8,8 +8,9 @@ I/O and packed I/O, untracked and with per-matrix overflow flags; on the
 limb backend (``QFloat`` digit arrays, any base) the inverse with digit
 I/O; the single-matrix lifecycle ``EncryptedMatrixInversion``, the
 partial pivot/L/U circuits with the float oracle, streaming, the CLI and
-the user's tools, and the roofline path with the issue-rate probes.  Not
-yet: multi-device batching.
+the user's tools, the roofline path with the issue-rate probes, and
+multi-device batching over a mesh of cards and a ``torch.distributed``
+process group.
 
 * ``config``        -- QFloatParams and the Low/Medium/Medium+/High presets;
 * ``core.qfloat``   -- the Zero / SignedBinary / QFloatBase dispatch layer
@@ -32,7 +33,11 @@ yet: multi-device batching.
   points (untracked and with overflow), the partial circuits, and the
   float LU oracle ``models.lu_float``;
 * ``runtime.api``   -- EncryptedMatrixInversion and BatchedMatrixInversion
-  (on the card unless the caller names the CPU; digit I/O by default);
+  (on the card unless the caller names the CPU; digit I/O by default;
+  ``data_parallel`` and the shardings over a mesh);
+* ``parallel``      -- the device mesh and the batch-sharded programs (K1
+  once per card on its shard), and the process group's set-up and batch
+  slicing;
 * ``utils.samplers``, ``utils.timing``, ``utils.profiling`` -- matrix
   samplers, chained timing on CUDA events, ``torch.profiler`` traces and
   the QFloat op counters;

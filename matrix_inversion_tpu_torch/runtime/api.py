@@ -3,7 +3,8 @@
 Port of ``matrix_inversion_tpu/runtime/api.py:143-441``.
 ``EncryptedMatrixInversion`` keeps the reference's lifecycle
 (reference main.py:17-116) for one matrix; ``BatchedMatrixInversion``
-inverts (B, n, n) float batches in one device program.  Both take digit
+inverts (B, n, n) float batches on one device or, data-parallel, once per
+card of a mesh (``parallel/mesh.py``).  Both take digit
 I/O (``io="digits"``, the reference's default: ``(..., n*n, len)`` digits
 in, ``(..., n*n, len+1)`` out) or packed I/O (``io="packed"``: one int64
 magnitude and one sign a cell; the packed backend only).  The backend is
@@ -34,6 +35,7 @@ from ..models.marshal import (
     mags_and_signs_to_float_matrix,
     qfloat_and_signs_arrays_to_float_matrix,
 )
+from ..parallel.mesh import Mesh, ShardedProgram, data_parallel_inverse_fused, make_mesh
 
 
 def _check_io(io, track_overflow, backend, packed_io_message):
@@ -56,6 +58,22 @@ def _target(device, who):
             'pass device="cpu" to run the plain PyTorch path'
         )
     return device
+
+
+def _first(shardings):
+    """The first sharding of ``shardings`` (one, or a tuple of them)."""
+    return shardings[0] if isinstance(shardings, (tuple, list)) else shardings
+
+
+def _sharded_axes(spec):
+    """``(batch, cells)``: whether ``spec`` shards the batch axis over
+    ``data`` and the cell axis over ``cell``; raises for any other
+    sharding."""
+    parts = tuple(spec) + (None, None)
+    if parts[0] not in (None, "data") or parts[1] not in (None, "cell") or any(parts[2:]):
+        raise ValueError(f"the port shards the batch axis over 'data' and the cell axis over "
+                         f"'cell', not {spec!r}")
+    return parts[0] == "data", parts[1] == "cell"
 
 
 def _circuit(params: QFloatParams, backend: str, io: str, track: bool, lowering=None):
@@ -253,23 +271,63 @@ class BatchedMatrixInversion:
         (``matrix_inversion_tpu/runtime/api.py:297-308``), so a positional
         call means the same in both.  ``donate`` is accepted and does
         nothing: eager PyTorch has no buffers to donate.
-        ``data_parallel=None`` (auto) and ``False`` both mean one device;
-        ``True`` and the shardings raise until multi-device batching is
-        ported."""
+
+        ``data_parallel=True`` runs K1 once per card of ``make_mesh()``
+        (``parallel/mesh.py::data_parallel_inverse_fused``; on
+        ``device="cpu"`` over the 8-entry CPU mesh, each shard on K1's plain
+        version; on a card the caller named by index, ``"cuda:1"``, over
+        that card alone); it needs ``io="packed"`` and a batch divisible by
+        the mesh's size.  ``None`` and ``False`` are one device, unlike the
+        JAX package's auto choice: ``run_raw`` takes and returns whole
+        tensors on the first card, and carrying the other cards' shards
+        through it makes the mesh slower than one card (``PERF.md`` §5).
+        ``in_shardings``/``out_shardings`` take
+        :class:`~..parallel.mesh.NamedSharding`s (one, or one per input or
+        output; the first input's, else the first output's, decides): a spec
+        whose first entry is ``"data"`` runs the circuit once per data
+        shard, a second entry ``"cell"`` gathers the cells first, and
+        ``P()`` runs on one device.  Whatever the sharding, the values equal
+        the one-device run's, and ``run_raw`` takes and returns whole tensors
+        on the first device of the mesh (``self.device``), which ``mesh``
+        names (None for one device)."""
         if backend != "auto":
             params = params.replace(backend=backend)
         self.backend = params.resolve_backend()
         _check_io(io, track_overflow, self.backend, "packed io requires the packed backend")
-        if data_parallel or in_shardings is not None or out_shardings is not None:
-            raise NotImplementedError(
-                "multi-device batching is not ported yet (ROADMAP queue 1, item 10)"
-            )
         self.params = params
         self.io = io
         self.batch_size = int(batch_size)
         self.device = _target(device, "BatchedMatrixInversion")
         self.track_overflow = bool(track_overflow)
+        self.mesh = None
+        if data_parallel:
+            if io != "packed":
+                raise ValueError("data_parallel requires io='packed'")
+            mesh = (make_mesh(device=self.device) if self.device.index is None
+                    else Mesh([self.device], ("data",)))
+            if batch_size % mesh.size:
+                raise ValueError(
+                    f"data_parallel needs batch_size divisible by device_count ({mesh.size})"
+                )
+            self._use(mesh, data_parallel_inverse_fused(params, mesh, track=self.track_overflow))
+            return
         self._circuit = _circuit(params, self.backend, io, self.track_overflow)
+        if in_shardings is not None or out_shardings is not None:
+            sharding = _first(in_shardings) or _first(out_shardings)
+            batch, cells = _sharded_axes(sharding.spec)
+            mesh = sharding.mesh
+            if mesh.devices.flat[0].type != self.device.type:
+                raise ValueError(f"the sharding's mesh lies on {mesh.devices.flat[0]}, the "
+                                 f"inverter on {self.device}")
+            self._use(mesh, ShardedProgram(self._circuit, mesh, batch, cells)
+                      if batch or cells else self._circuit)
+
+    def _use(self, mesh, circuit):
+        """Run ``circuit`` over ``mesh``, whose first device takes the
+        inputs and holds the outputs."""
+        self.mesh = mesh
+        self.device = mesh.devices.flat[0]
+        self._circuit = circuit
 
     def input_shapes(self):
         """The shapes of ``run_raw``'s two int64 inputs: digits

@@ -38,10 +38,11 @@ def device_trace(logdir: str):
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def device_work_by_range(events, labels, prefix="step:"):
-    """``{label: {name: count}}``: the device work of a trace (the
+def device_work_by_range(events, labels, prefix="step:", key=lambda e: e.name):
+    """``{label: {key: count}}``: the device work of a trace (the
     ``FunctionEvent``s of ``prof.events()``) by the host range named
-    ``prefix + label`` that holds its launch.
+    ``prefix + label`` that holds its launch, counted under ``key(event)``
+    (the kernel's name; ``(e.name, e.device_index)`` counts by card too).
 
     A kernel, copy or fill on the device shares its correlation id with
     the runtime call (``cudaLaunchKernel``, ``cuLaunchKernel``,
@@ -76,7 +77,7 @@ def device_work_by_range(events, labels, prefix="step:"):
         if len(owners) != 1:
             raise ValueError(f"device work {e.name} was launched in the ranges {sorted(owners)}")
         counts = ran[owners.pop()]
-        counts[e.name] = counts.get(e.name, 0) + 1
+        counts[key(e)] = counts.get(key(e), 0) + 1
     return ran
 
 

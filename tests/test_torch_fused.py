@@ -20,6 +20,7 @@ from matrix_inversion_tpu.runtime.api import BatchedMatrixInversion as JaxBatche
 
 import matrix_inversion_tpu_torch as mt
 from matrix_inversion_tpu_torch.ops import fused_inverse, packed
+from matrix_inversion_tpu_torch.parallel import NamedSharding, P, make_mesh
 
 torch.set_num_threads(2)
 
@@ -152,17 +153,21 @@ def test_batched_api_matches_jax_end_to_end():
     np.testing.assert_array_equal(port.dequantize(out), got)
 
 
-@pytest.mark.parametrize(
-    "kw,match",
-    [
-        ({"out_shardings": object()}, "item 10"),
-        ({"data_parallel": True}, "item 10"),
-        ({"in_shardings": object()}, "item 10"),
-    ],
-)
-def test_batched_api_unported_options_name_roadmap(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        mt.BatchedMatrixInversion(mt.HIGH.replace(n=4), 8, device="cpu", **kw)
+@pytest.mark.parametrize("option", ["out_shardings", "data_parallel", "in_shardings"])
+def test_batched_api_unported_options_name_roadmap(option):
+    """The options that raised until multi-device batching was ported
+    (ROADMAP item 10) now run over the CPU mesh, each equal to the
+    one-device run: the batch sharded over ``data`` through either
+    sharding, and ``data_parallel=True`` (K1's plain version per shard)."""
+    p = mt.HIGH.replace(n=4)
+    mesh = make_mesh(device="cpu")
+    kw = {"data_parallel": True} if option == "data_parallel" else {
+        option: NamedSharding(mesh, P("data", None))}
+    M = np.random.RandomState(7).randn(8, 4, 4) * 100
+    sharded = mt.BatchedMatrixInversion(p, 8, backend="packed", io="packed", device="cpu", **kw)
+    one = mt.BatchedMatrixInversion(p, 8, backend="packed", io="packed", device="cpu")
+    assert sharded.mesh.shape == {"data": 8} and sharded.device == torch.device("cpu")
+    np.testing.assert_array_equal(sharded.run(M), one.run(M))
 
 
 def test_batched_api_takes_the_reference_positional_order():

@@ -28,7 +28,8 @@ def test_port_sources_found():
             "utils/roofline.py", "ops/radix.py", "models/lu_float.py", "models/marshal.py",
             "models/inverse.py", "runtime/stream.py", "runtime/native.py", "utils/debug.py",
             "utils/precision.py", "utils/run_benchmarks.py", "__main__.py", "ops/limbs.py",
-            "ops/limb_kernels.py"} <= names
+            "ops/limb_kernels.py", "parallel/__init__.py", "parallel/mesh.py",
+            "parallel/distributed.py"} <= names
     for source in ("qmarshal.cc", "limb_division.cu", "limb_tidy.cu", "limb_frame.cuh"):
         assert (PORT / "csrc" / source).is_file()
 

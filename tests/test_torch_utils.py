@@ -163,6 +163,21 @@ def test_device_work_is_counted_by_the_range_that_launched_it():
     assert not any(r.start <= starts[2] <= r.end for r in last.values())
 
 
+def test_device_work_by_range_counts_by_card():
+    """With a key of name and device, K1 launched once on each of two cards
+    in one range counts once per card."""
+    events = [_event("step:dp", 1, 100, 200), _event("cudaLaunchKernel", 7, 110, 111),
+              _event("cudaLaunchKernel", 8, 120, 121), _event("cudaMemcpyAsync", 9, 130, 131)]
+    for id_, index in ((7, 0), (8, 1)):
+        events.append(_event("fused_inverse_kernel", id_, 140, 150, "cuda"))
+        events[-1].device_index = index
+    events.append(_event("Memcpy PtoP", 9, 160, 170, "cuda"))
+    events[-1].device_index = 0
+    ran = profiling.device_work_by_range(events, ["dp"], key=lambda e: (e.name, e.device_index))
+    assert ran == {"dp": {("fused_inverse_kernel", 0): 1, ("fused_inverse_kernel", 1): 1,
+                          ("Memcpy PtoP", 0): 1}}
+
+
 @pytest.mark.parametrize("case", ["no launch", "outside", "missing range", "twice"])
 def test_device_work_by_range_raises(case):
     events = [_event("step:a", 1, 100, 200), _event("cudaLaunchKernel", 7, 110, 112),
