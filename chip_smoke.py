@@ -79,7 +79,10 @@ the CPU and its plain version, its error against np.linalg.inv;
 ``run(simulate=True)`` equal the packed backend's; and the long division K6
 and the carry chain K7 alone against their plain versions at 1,048,576
 numbers, at HIGH's widths at bases 2, 3 and 10 with zero divisors and
-divisors with leading zero digits.  The limb ``run_raw`` is timed in turns
+divisors with leading zero digits; K6 at every window-word boundary of
+bases 2, 3, 7, 10, 16, 1,000 and 2**16 + 1 against its first design (a
+digit window) and Python's floor division, and timed in turns against its
+first design.  The limb ``run_raw`` is timed in turns
 with the packed one and with its plain version, the base-10 one with the
 base-2 one, and K6 and K7 beside their bounds.
 
@@ -93,8 +96,11 @@ registers, spills and block size; the eight recorded outlier matrices
 recorded errors and flags; the CLI at its default sizes; the ``lowering``,
 ``fused`` and ``rooflines`` drivers over n = 2..12 (K1 must beat the op-by-op
 path at every n it serves), and K1's per-n rows of the ``kernels`` line.
-After the limb phase, K6 at a 300-digit divisor, past the 256 digits of its
-local-memory window, against its plain version, timed.
+After the limb phase, K6 at a 300-digit divisor against its plain
+version, timed in turns against its first design, whose window lies in
+global scratch at that width; and K6's own form with its window in global
+scratch, past its staged rows at base 2 and past its window's words at
+base 10, against its plain version.
 
 After the n=4 main paths, the multi-GPU phase (``parallel/``) over every
 visible card: ``make_mesh()``; ``shardmap_check`` (K1 once per card on its
@@ -231,10 +237,32 @@ K7_TENSORIZE_LAUNCHES = {4: 139}  # tensorize=True groups some tidies
 # HIGH's precision in base 10: 12 digits, 6 of them integer (1e6 > 2**20, 1e-6
 # ~ 2**-20); no power of two, so "auto" resolves to the limb backend
 HIGH_BASE10 = HIGH.replace(n=4, qfloat_base=10, qfloat_len=12, qfloat_ints=6)
-# a digit step of K6 (subtract with borrow, the borrow, the add-back, the
-# select) and of K7 (carry in, divide, remainder, borrow; twice with sign)
-K6_INSTR_PER_STEP = 4
+# K6's least work in 32-bit instructions, by the operations of its window
+# in 64-bit words (csrc/limb_division.cu): a multiply-add of a word by a
+# chunk's digit or base (two wide multiply-adds), a compare-subtract round
+# over a word (a subtract with borrow and a select, two each), a subtract of
+# a word (two), a chunk's estimate (a conversion a word, then a multiply, a
+# clamp and a conversion back), a digit gathered into its chunk (a
+# multiply-add) and split out of its quotient chunk (a multiply-high by the
+# base's inverse, two wide multiplies, and a multiply-subtract); and a digit
+# of K7 (carry in, divide, remainder, borrow; twice with sign)
+K6_MUL_ADD = 2
+K6_ROUND_PER_WORD = 4
+K6_SUBTRACT_PER_WORD = 2
+K6_ESTIMATE = 3
+K6_GATHER = 1
+K6_SPLIT = 3
 K7_INSTR_PER_DIGIT = 8
+# K6's shapes timed against its first design (LIMB_DIGIT_WINDOW): (base,
+# d_len, v_len, one row)
+K6_FORMS = ((2, 60, 40, False), (3, 61, 40, True), (10, 61, 40, True), (10, 19, 12, False))
+# the bases whose window-word boundaries K6 is checked at, on the first
+# K6_FIRST_DESIGN_CHECK numbers against its first design and on the first
+# K6_PYTHON_CHECK against Python's integers (past 2**16 its digits are
+# staged in 32 bits)
+K6_BOUNDARY_BASES = (2, 3, 7, 10, 16, 1000, 2 ** 16 + 1)
+K6_FIRST_DESIGN_CHECK = 65_536
+K6_PYTHON_CHECK = 256
 
 # The serving phase: the stream at the main path's batch (6 batches, 3
 # tracked) and at the digit path's (3), the e2e benchmark at the main path's
@@ -354,10 +382,15 @@ FUSED_BATCH = 262_144
 UNROLL_TRACKED_SIZES = (2, 3, 4)
 OUTLIERS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks", "results",
                         "outliers.json")
-# K6 past the 256-digit window of its local-memory form: a 300-digit divisor
-# (the window in global scratch), WIDE_NUMBERS numbers
+# K6 at a 300-digit divisor (five window words at base 2, eight at base 3;
+# its first design's window in global scratch), WIDE_NUMBERS numbers; and
+# one digit past the widest divisor K6 stages at the bases of
+# WIDE_SCRATCH_BASES (base 2: rows past MAX_STAGED_DIGITS; base 10: a
+# window past MAX_WORDS words), where it takes its own form with the window
+# in global scratch
 WIDE_DIVISION = (302, 300)
 WIDE_NUMBERS = 65_536
+WIDE_SCRATCH_BASES = (2, 10)
 
 CHECKS = [
     ("HIGH n=2", HIGH.replace(n=2), False),
@@ -1067,28 +1100,169 @@ def smallest_pivot(A):
     return min(abs(minors[k + 1] / minors[k]) for k in range(len(A)))
 
 
-def k6_inputs(rng, N, d_len, v_len, p, dev, one_row=False):
+def k6_inputs(gen, N, d_len, v_len, p, dev, one_row=False):
     """N tidy dividends (or one constant row: a reciprocal's) and divisors
-    at base p; a sixteenth of the divisors zero and a sixteenth with their
-    top half of digits zero."""
+    at base p, drawn on ``dev`` from the generator ``gen``; a sixteenth of
+    the divisors zero and a sixteenth with their top half of digits
+    zero."""
     if one_row:
         v = torch.zeros(d_len, dtype=torch.int32, device=dev)
         v[0] = 1
     else:
-        v = torch.from_numpy(rng.randint(0, p, size=(N, d_len)).astype(np.int32)).to(dev)
-    d = torch.from_numpy(rng.randint(0, p, size=(N, v_len)).astype(np.int32)).to(dev)
+        v = torch.randint(0, p, (N, d_len), generator=gen, device=dev, dtype=torch.int32)
+    d = torch.randint(0, p, (N, v_len), generator=gen, device=dev, dtype=torch.int32)
     d[: N // 16] = 0
     d[N // 16: N // 8, : v_len // 2] = 0
     return v, d
 
 
-def k6_steps(q, v_len, p):
-    """Digit steps K6 needs for quotients ``q`` (N, d_len): quotient digit
-    i takes min(q_i + 1, p - 1) rounds over JAX's window of min(i + 1,
-    v_len + 1) digits."""
-    rounds = torch.clamp(q.long() + 1, max=p - 1)
-    widths = torch.clamp(torch.arange(1, q.shape[-1] + 1, device=q.device), max=v_len + 1)
-    return int((rounds * widths).sum())
+def k6_work(v, d, p):
+    """``(bytes, instructions)`` of K6's least work on dividends ``v`` (one
+    row: a reciprocal's) and divisors ``d``.  Bytes: each input read once
+    (a reciprocal's row once), each quotient written once.  Instructions,
+    for each nonzero divisor: its conversion (each digit gathered into its
+    chunk, a multiply-add a window word a chunk); per chunk of quotient
+    digits the shift-in (a multiply-add a word), the estimate and its
+    multiply-subtract (a conversion, a multiply-add and a subtract a word)
+    and one compare-subtract round, the fewest a chunk needs to be known;
+    each dividend digit gathered and each quotient digit split out; a zero
+    divisor only writes its digits."""
+    n, v_len = d.shape
+    d_len = v.shape[-1]
+    k, words = limb_kernels.window_plan(p, v_len)
+    per_chunk = words * (K6_MUL_ADD + 1 + K6_MUL_ADD + K6_SUBTRACT_PER_WORD
+                         + K6_ROUND_PER_WORD) + K6_ESTIMATE
+    per_number = (v_len * K6_GATHER + -(-v_len // k) * words * K6_MUL_ADD
+                  + d_len * (K6_GATHER + K6_SPLIT) + -(-d_len // k) * per_chunk)
+    nonzero = int((d != 0).any(-1).sum())
+    return 4 * (v.numel() + d.numel() + n * d_len), nonzero * per_number
+
+
+def k6_boundaries(p):
+    """``(d_len, v_len)`` on both sides of every window-word boundary K6
+    stages at base ``p``: the widest divisor of ``k`` words and the
+    narrowest of ``k + 1``, with a dividend two digits wider (at most
+    ``MAX_STAGED_DIGITS``)."""
+    out = []
+    v_len = 1
+    while True:
+        words = limb_kernels.window_words(p, v_len)
+        while limb_kernels.window_words(p, v_len + 1) == words:
+            v_len += 1
+        for width in (v_len, v_len + 1):
+            d_len = min(width + 2, limb_kernels.MAX_STAGED_DIGITS)
+            if not limb_kernels.scratch_form(d_len, width, p):
+                out.append((d_len, width))
+        if limb_kernels.scratch_form(v_len + 1, v_len + 1, p):
+            return out
+        v_len += 1
+
+
+def python_quotient(v, d, p):
+    """The quotient digits of K6's function, by Python's integers: floor(v /
+    d), all ``p - 1`` where d = 0."""
+    d_len = v.shape[-1]
+    rows = v.expand(d.shape[0], d_len).tolist()
+    out = []
+    for vr, dr in zip(rows, d.tolist()):
+        a = b = 0
+        for x in vr:
+            a = a * p + x
+        for x in dr:
+            b = b * p + x
+        x = a // b if b else p ** d_len - 1
+        digits = []
+        for _ in range(d_len):
+            x, r = divmod(x, p)
+            digits.append(r)
+        out.append(digits[::-1])
+    return torch.tensor(out, dtype=torch.int32)
+
+
+def k6_alone(dev, card, numbers=LIMB_KERNEL_NUMBERS, boundary_bases=K6_BOUNDARY_BASES):
+    """K6 alone: == the plain version at HIGH's widths, bases 2, 3, 10, full
+    dividends and a reciprocal's one row; at every window-word boundary of
+    ``boundary_bases``, on the first numbers == its first design
+    (``DIGIT_WINDOW``, itself held to the plain version) and Python's floor
+    division; each of ``K6_FORMS`` == its first design, timed against it in
+    turns, beside its bound.  Returns ``(max_abs_err, ms, plain_ms, bytes,
+    instructions)`` at base 2, (60, 40)."""
+    gen = torch.Generator(device=dev).manual_seed(53)
+    err = 0
+    for p in (2, 3, 10):
+        for d_len, v_len, one_row in ((60, 40, False), (61, 40, True)):
+            v, dv = k6_inputs(gen, numbers, d_len, v_len, p, dev, one_row)
+            q = limb_kernels.limb_division(v, dv, p)
+            with packed.plain_arithmetic():
+                ref = limbs.base_p_division(v, dv, p)
+            err = max(err, max_abs_diff([q], [ref]))
+            assert torch.equal(q, ref), f"K6 != plain base {p} ({d_len}, {v_len})"
+    print(f"K6 == plain at {numbers} numbers, bases 2, 3, 10, (60, 40) digits with a full "
+          "dividend and (61, 40) with a reciprocal's, a sixteenth of the divisors zero and a "
+          f"sixteenth with their top half zero (tolerance 0; max abs difference {err})")
+    widths = {}
+    for p in boundary_bases:
+        widths[p] = k6_boundaries(p)
+        for d_len, v_len in widths[p]:
+            v, dv = k6_inputs(gen, numbers, d_len, v_len, p, dev)
+            q = limb_kernels.limb_division(v, dv, p)
+            label = f"base {p} ({d_len}, {v_len})"
+            head = slice(0, K6_FIRST_DESIGN_CHECK)
+            assert torch.equal(q[head], limb_kernels.limb_division(
+                v[head], dv[head], p, flags=limb_kernels.DIGIT_WINDOW)), \
+                f"K6 != its first design, {label}"
+            head = slice(0, K6_PYTHON_CHECK)
+            assert torch.equal(q[head].cpu(), python_quotient(v[head].cpu(), dv[head].cpu(), p)), \
+                f"K6 != Python's floor division, {label}"
+            del v, dv, q
+    print(f"K6 at every window-word boundary, {numbers} numbers (d_len, v_len) "
+          f"{ {p: w for p, w in widths.items()} }: on the first {K6_FIRST_DESIGN_CHECK} == "
+          f"its first design (digit window) and on the first {K6_PYTHON_CHECK} == Python's "
+          "floor division")
+    forms = {"word window": (), "digit window": limb_kernels.DIGIT_WINDOW}
+    for p, d_len, v_len, one_row in K6_FORMS:
+        v, dv = k6_inputs(gen, numbers, d_len, v_len, p, dev, one_row)
+        q = limb_kernels.limb_division(v, dv, p)
+        fns = {label: functools.partial(limb_kernels.limb_division, v, dv, p, flags=flags)
+               for label, flags in forms.items()}
+        for label, fn in fns.items():
+            assert torch.equal(fn(), q), f"K6 {label} != word window, base {p} ({d_len}, {v_len})"
+        t = timed_in_turns(fns, dev, launches=5)
+        bytes_moved, instructions = k6_work(v, dv, p)
+        bound, by = published_bound(bytes_moved, instructions, *t.values())
+        smem = limb_kernels.staged_bytes(d_len, v_len, p, one_row)
+        chunk, words = limb_kernels.window_plan(p, v_len)
+        print(f"time K6 base {p} ({d_len}, {v_len}){' reciprocal' if one_row else ''} at "
+              f"{numbers} numbers, in turns: "
+              + ", ".join(f"{label} {ms:.3f} ms" for label, ms in t.items())
+              + f"; bound {bound:.3f} ms by {by} ({bytes_moved / numbers:.0f} bytes, "
+              f"{instructions / numbers:.0f} instructions a number; word window "
+              f"{t['word window'] / bound:.2f}x the bound); "
+              f"{words} window words, {chunk} digits a chunk, {smem} bytes of shared memory "
+              f"a block (equal quotients; {card})")
+        if (p, d_len, v_len, one_row) == K6_FORMS[0]:
+            ms, work = t["word window"], (bytes_moved, instructions)
+            with packed.plain_arithmetic():
+                plain = timed_ms(lambda: limbs.base_p_division(v, dv, p), dev, passes=1)
+            # a device copy of as many bytes, half read and half written: what
+            # the card's memory gives a kernel that only moves them
+            src = torch.empty(bytes_moved // 8, dtype=torch.int32, device=dev)
+            dst = torch.empty_like(src)
+            copy_ms = timed_ms(lambda: dst.copy_(src), dev, launches=5)
+            del src, dst
+        del v, dv, q
+    print(f"time K6 base 2 (60, 40) at {numbers} numbers: {ms:.3f} ms, plain version "
+          f"{plain:.3f} ms; a copy of as many bytes (copy_) {copy_ms:.3f} ms ({card})")
+    return err, ms, plain, *work
+
+
+def k6_ptxas():
+    """ptxas's registers, spills and static shared memory for every kernel
+    of K6's library and of its first design, kept for timing (the staged
+    kernel's shared memory is dynamic: ``limb_kernels.staged_bytes``)."""
+    for flags in ((), limb_kernels.DIGIT_WINDOW):
+        print(f"ptxas limb_division {' '.join(flags) or '(the library)'}: "
+              f"{ptxas_info(limb_kernels.build_dir('limb_division', flags))}")
 
 
 def limb_paths(dev, card, batch=DIGIT_BATCH, plain_batch=LIMB_PLAIN_BATCH,
@@ -1101,7 +1275,7 @@ def limb_paths(dev, card, batch=DIGIT_BATCH, plain_batch=LIMB_PLAIN_BATCH,
     plain versions at HIGH's widths at bases 2, 3 and 10, timed; and
     ``EncryptedMatrixInversion`` on limb.  Returns the kernels' rows of the
     ``kernels`` line: ``{name: (launches, max_abs_err, ms, plain_ms,
-    instructions, bytes)}``."""
+    bytes, instructions)}``."""
     p2 = HIGH.replace(n=4)
     config = config_of(p2)
     sampler = samplers.normal_sampler(4, rng=np.random.RandomState(50))
@@ -1246,18 +1420,12 @@ def limb_paths(dev, card, batch=DIGIT_BATCH, plain_batch=LIMB_PLAIN_BATCH,
           f"launches {run_counts}; run == run(simulate=True) == the packed backend's run on 3 "
           "matrices")
 
-    # K6 and K7 alone at HIGH's widths, bases 2, 3, 10, against their plain
-    # versions; the main path's shapes timed
-    krng = np.random.RandomState(53)
-    err6 = err7 = 0
+    # K6 alone; K7 alone at HIGH's widths, bases 2, 3, 10, against its plain
+    # version; the main path's shapes timed
+    err6, ms6, plain6, *k6_work_ = k6_alone(dev, card, numbers)
+    krng = np.random.RandomState(54)
+    err7 = 0
     for p in (2, 3, 10):
-        for d_len, v_len, one_row in ((60, 40, False), (61, 40, True)):
-            v, dv = k6_inputs(krng, numbers, d_len, v_len, p, dev, one_row)
-            q = limb_kernels.limb_division(v, dv, p)
-            with packed.plain_arithmetic():
-                ref = limbs.base_p_division(v, dv, p)
-            err6 = max(err6, max_abs_diff([q], [ref]))
-            assert torch.equal(q, ref), f"K6 != plain base {p} ({d_len}, {v_len})"
         for L in (40, 43):
             a = torch.from_numpy(krng.randint(-2 * L * p * p, 2 * L * p * p, size=(numbers, L))
                                  .astype(np.int32)).to(dev)
@@ -1269,51 +1437,18 @@ def limb_paths(dev, card, batch=DIGIT_BATCH, plain_batch=LIMB_PLAIN_BATCH,
                 err7 = max(err7, max_abs_diff(got_t, ref_t))
                 assert all(torch.equal(x, y) for x, y in zip(got_t, ref_t)), \
                     f"K7 != plain base {p} L={L} signed={signed}"
-    print(f"K6 == plain at {numbers} numbers, bases 2, 3, 10, (60, 40) digits with a full "
-          "dividend and (61, 40) with a reciprocal's, a sixteenth of the divisors zero and a "
-          f"sixteenth with their top half zero; K7 == plain at {numbers} numbers, L 40 and 43, "
-          f"both modes (tolerance 0; max abs difference K6 {err6}, K7 {err7})")
-    v, dv = k6_inputs(krng, numbers, 60, 40, 2, dev)
-    q = limb_kernels.limb_division(v, dv, 2)
-    ms6 = timed_ms(lambda: limb_kernels.limb_division(v, dv, 2), dev, launches=5)
-    with packed.plain_arithmetic():
-        plain6 = timed_ms(lambda: limbs.base_p_division(v, dv, 2), dev, passes=1)
-    steps = k6_steps(q, 40, 2)
-    k6_work = (steps * K6_INSTR_PER_STEP, numbers * (60 + 40 + 60) * 4)
+    print(f"K7 == plain at {numbers} numbers, L 40 and 43, both modes (tolerance 0; max abs "
+          f"difference {err7})")
     a = torch.from_numpy(krng.randint(0, 41, size=(numbers, 40)).astype(np.int32)).to(dev)
     ms7 = timed_ms(lambda: limb_kernels.limb_tidy(a, 2, signed=True), dev, launches=5)
     ms7_tidy = timed_ms(lambda: limb_kernels.limb_tidy(a, 2), dev, launches=5)
     with packed.plain_arithmetic():
         plain7 = timed_ms(lambda: limbs.tidy_to_sign_mag(a, 2), dev, passes=1)
-    k7_work = (numbers * 40 * K7_INSTR_PER_DIGIT, numbers * (40 * 8 + 4))
-    for p, d_len, v_len, one_row in ((3, 61, 40, True), (10, 61, 40, True), (10, 19, 12, False)):
-        v, dv = k6_inputs(krng, numbers, d_len, v_len, p, dev, one_row)
-        qp = limb_kernels.limb_division(v, dv, p)
-        ms = timed_ms(lambda: limb_kernels.limb_division(v, dv, p), dev, launches=5)
-        print(f"time K6 base {p} ({d_len}, {v_len}){' reciprocal' if one_row else ''} at "
-              f"{numbers} numbers: {ms:.3f} ms, {k6_steps(qp, v_len, p) / numbers:.0f} digit "
-              f"steps a number ({card})")
-    print(f"time K6 base 2 (60, 40) at {numbers} numbers: {ms6:.3f} ms, plain version "
-          f"{plain6:.3f} ms; {steps / numbers:.0f} digit steps a number; K7 base 2 L=40 tidy + "
-          f"sign {ms7:.3f} ms, tidy {ms7_tidy:.3f} ms, plain version (tidy then sign) "
-          f"{plain7:.3f} ms ({card})")
-    # K6's compile-time window (48 digits at HIGH's 40-digit divisor, 16 at
-    # base 10's 12) against its run-time window on the same inputs, in turns
-    runtime = limb_kernels.RUNTIME_WINDOW
-    for p, d_len, v_len in ((2, 60, 40), (10, 19, 12)):
-        v, dv = k6_inputs(krng, numbers, d_len, v_len, p, dev)
-        q = limb_kernels.limb_division(v, dv, p)
-        assert torch.equal(limb_kernels.limb_division(v, dv, p, flags=runtime), q), \
-            f"K6's run-time window != its compile-time window, base {p} ({d_len}, {v_len})"
-        t = timed_in_turns(
-            {"compile-time window": lambda: limb_kernels.limb_division(v, dv, p),
-             "run-time window": lambda: limb_kernels.limb_division(v, dv, p, flags=runtime)},
-            dev, launches=5)
-        print(f"time K6 base {p} ({d_len}, {v_len}) at {numbers} numbers, in turns: "
-              f"compile-time window {t['compile-time window']:.3f} ms, run-time window "
-              f"{t['run-time window']:.3f} ms (equal quotients; {card})")
-    del v, dv, q, a
-    return {"limb_division": (got["limb_division"], err6, ms6, plain6, *k6_work),
+    k7_work = (numbers * (40 * 8 + 4), numbers * 40 * K7_INSTR_PER_DIGIT)
+    print(f"time K7 base 2 L=40 tidy + sign {ms7:.3f} ms, tidy {ms7_tidy:.3f} ms, plain version "
+          f"(tidy then sign) {plain7:.3f} ms ({card})")
+    del a
+    return {"limb_division": (got["limb_division"], err6, ms6, plain6, *k6_work_),
             "limb_tidy": (got["limb_tidy"], err7, ms7, plain7, *k7_work)}
 
 
@@ -2032,36 +2167,84 @@ def outliers_on_card(dev):
           "the recorded ones")
 
 
+def widest_staged_divisor(p):
+    """The widest divisor K6 divides at base ``p`` with its staged word
+    window, a dividend as wide: one digit more takes it to its form with the
+    window in global scratch."""
+    v_len = 1
+    while not limb_kernels.scratch_form(v_len + 1, v_len + 1, p):
+        v_len += 1
+    return v_len
+
+
+def wide_inputs(rng, numbers, d_len, v_len, base, dev):
+    """Dividends, divisors (three zero, six with their top half zero, one
+    equal to 1) and a reciprocal's one row, drawn with numpy."""
+    d = rng.randint(0, base, size=(numbers, v_len)).astype(np.int32)
+    d[:3] = 0
+    d[3:9, : v_len // 2] = 0
+    d[9, :-1], d[9, -1] = 0, 1
+    v = rng.randint(0, base, size=(numbers, d_len)).astype(np.int32)
+    one = np.zeros(d_len, np.int32)
+    one[0] = 1
+    return [torch.from_numpy(x).to(dev) for x in (v, d, one)]
+
+
 def check_wide_division(dev, card, numbers=WIDE_NUMBERS):
-    """K6 at a 300-digit divisor, past the 256 digits its local-memory window
-    takes: the form whose window lives in global scratch == the plain
-    version on the card, at bases 2 and 3, full dividends and a reciprocal's
-    one row, zero divisors and divisors with leading zero digits; timed at
-    base 2 beside the plain version."""
-    d_len, v_len = WIDE_DIVISION
+    """K6 at a 300-digit divisor: its window in words (five at base 2,
+    eight at base 3) and its first design, which past 256 digits keeps the
+    window in global scratch; then K6 one digit past the widest divisor it
+    stages at ``WIDE_SCRATCH_BASES``, in its own form with the window in
+    global scratch.  Each == the plain version on the card, one launch,
+    full dividends and a reciprocal's one row, zero divisors and divisors
+    with leading zero digits; at 300 digits the two timed in turns, and the
+    plain version at base 2."""
+    first = limb_kernels.DIGIT_WINDOW
     rng = np.random.RandomState(300)
-    for base in (2, 3):
-        d = rng.randint(0, base, size=(numbers, v_len)).astype(np.int32)
-        d[:3] = 0
-        d[3:9, : v_len // 2] = 0
-        d[9, :-1], d[9, -1] = 0, 1
-        d = torch.from_numpy(d).to(dev)
-        v = torch.from_numpy(rng.randint(0, base, size=(numbers, d_len)).astype(np.int32)).to(dev)
-        one = torch.zeros(d_len, dtype=torch.int32, device=dev)
-        one[0] = 1
-        for label, dividend in (("full dividends", v), ("one row", one)):
-            q, launched = launches_of(lambda: limb_kernels.limb_division(dividend, d, base))
-            expect_launches(f"K6 wide {label}", launched, limb_division=1)
-            ref = limbs.base_p_division_reference(dividend, d, base)
-            assert torch.equal(q, ref), f"K6 at {v_len} digits, base {base}, {label}: != plain"
+    # (base, d_len, v_len, {build: whether it takes the window in scratch})
+    cases = [(base, *WIDE_DIVISION, {(): False, first: True}) for base in (2, 3)]
+    for base in WIDE_SCRATCH_BASES:
+        v_len = widest_staged_divisor(base) + 1
+        cases.append((base, v_len + 2, v_len, {(): True}))
+    times, checked = {}, []
+    for base, d_len, v_len, builds in cases:
+        v, d, one = wide_inputs(rng, numbers, d_len, v_len, base, dev)
+        # the plain version once for both dividends
+        ref = limbs.base_p_division_reference(
+            torch.cat([v, one.expand(numbers, d_len)]), torch.cat([d, d]), base)
+        for flags, scratch in builds.items():
+            assert limb_kernels.scratch_form(d_len, v_len, base, flags) == scratch
+            for label, dividend, want in (("full dividends", v, ref[:numbers]),
+                                          ("one row", one, ref[numbers:])):
+                q, launched = launches_of(
+                    lambda: limb_kernels.limb_division(dividend, d, base, flags=flags))
+                expect_launches(f"K6 {flags} base {base} ({d_len}, {v_len}) {label}", launched,
+                                limb_division=1)
+                assert torch.equal(q, want), \
+                    f"K6 {flags} base {base} ({d_len}, {v_len}) {label}: != plain"
+        if len(builds) == 1:
+            checked.append(f"base {base} ({d_len}, {v_len}), "
+                           f"{limb_kernels.window_words(base, v_len)} window words")
+            continue
+        times[base] = timed_in_turns(
+            {"word window": lambda: limb_kernels.limb_division(v, d, base),
+             "digit window in scratch": lambda: limb_kernels.limb_division(v, d, base,
+                                                                           flags=first)},
+            dev, rounds=3)
         if base == 2:
-            ms = timed_ms(lambda: limb_kernels.limb_division(v, d, 2), dev, passes=3)
             plain_ms = timed_ms(lambda: limbs.base_p_division_reference(v, d, 2), dev, passes=1,
                                 warm_up=False)
-    print(f"check K6 wide: {d_len} by {v_len} digits (the window in global scratch), {numbers} "
-          "numbers, bases 2 and 3, full dividends and one row, zero divisors and leading zero "
-          f"digits: == plain version bit for bit; base 2: {ms:.3f} ms, plain {plain_ms:.3f} ms "
-          f"({card})")
+    d_len, v_len = WIDE_DIVISION
+    print(f"check K6 wide: {d_len} by {v_len} digits, {numbers} numbers, bases 2 and 3 "
+          f"({limb_kernels.window_words(2, v_len)} and {limb_kernels.window_words(3, v_len)} "
+          "window words), full dividends and one row, zero divisors and leading zero digits: "
+          "the word window and the first design's digit window in global scratch == plain "
+          "version bit for bit; in turns "
+          + "; ".join(f"base {b}: " + ", ".join(f"{k} {ms:.3f} ms" for k, ms in t.items())
+                      for b, t in times.items())
+          + f"; plain at base 2 {plain_ms:.3f} ms; past the staged word window ("
+          + "; ".join(checked) + "), K6's form with its window in global scratch == plain "
+          f"version bit for bit, one launch each ({card})")
 
 
 def cli_runs():
@@ -2408,21 +2591,19 @@ def main():
           f"{len({(t, d) for _, t, d, _ in fused_steps.STEPS})} builds of K1's design steps in "
           f"{k1_steps_s:.1f} s; the native marshaller ({native.SOURCE}) with g++ "
           f"{' '.join(cuda_build.HOST_FLAGS)} in {native_s:.1f} s; limb_division + limb_tidy "
-          f"libraries and K6's run-time-window build in {limb_s:.1f} s; all in "
+          f"libraries and K6's digit-window build in {limb_s:.1f} s; all in "
           f"{time.perf_counter() - t0:.1f} s, beside the {len(K1_SIZES)} K1 builds past n = 5 "
           f"in the background")
     main_config = config_of(HIGH.replace(n=4))
     for label, c in (("fused_inverse", main_config), ("fused_inverse_tracked", main_config + (True,))):
         print(f"ptxas {label} HIGH n=4: {ptxas_info(fused_inverse.build_dir(c))}")
-    for name in ("long_division", "mul_window", "limb_division", "limb_tidy"):
+    for name in ("long_division", "mul_window", "limb_tidy"):
         module = long_division if name in ("long_division", "mul_window") else limb_kernels
         log = (module.build_dir(name) / "nvcc.log").read_text()
         regs = {re.sub(r"^_ZN6sframe|EEvPKm.*$", "", entry): r
                 for entry, r in sass.ptxas_registers(log).items()}
         print(f"ptxas {name}, registers: {regs}; spills: {sass.ptxas_spill_lines(log) or 'none'}")
-    log = (limb_kernels.build_dir("limb_division", limb_kernels.RUNTIME_WINDOW) / "nvcc.log").read_text()
-    print(f"ptxas limb_division with {' '.join(limb_kernels.RUNTIME_WINDOW)}, registers: "
-          f"{sass.ptxas_registers(log)}; spills: {sass.ptxas_spill_lines(log) or 'none'}")
+    k6_ptxas()
     ubench_regs = ubench.ptxas_registers()
     print(f"ptxas ubench, registers of the C={UBENCH_C} kernels: "
           f"{ {name: ubench_regs[(name, UBENCH_C)] for name in ubench.MIXES} }; spills: "
@@ -2702,7 +2883,7 @@ def main():
         kernelmix_ms, ubench_plain_ms)
 
     limb_bounds = {}
-    for name, (_, _, ms, plain, instructions, bytes_moved) in limb_rows.items():
+    for name, (_, _, ms, plain, bytes_moved, instructions) in limb_rows.items():
         limb_bounds[name] = published_bound(bytes_moved, instructions, ms, plain)
         at_k5 = max(instructions / rates["u32_kernelmix"], bytes_moved / HBM_BYTES_PER_S) * 1e3
         print(f"bound {name} at {LIMB_KERNEL_NUMBERS} numbers: {limb_bounds[name][0]:.3f} ms by "

@@ -8,16 +8,24 @@
 // that does all the work of number i; this frame runs it for i < n: on the
 // card one thread a number, kThreads a block, on the stream given; without
 // __CUDACC__ as one loop, which is how the CPU tests run the same element
-// functions.  K6 runs in it, and K7 for rows too wide for its staged
-// kernel.
+// functions.  K6's form with its window in global scratch runs in it, and
+// K7 for rows too wide for its staged kernel.
+//
+// The staged kernels of K6 and K7 read and write a block's rows through
+// shared memory instead (stage below): a block's numbers are one contiguous
+// run of digits, copied with neighbouring threads on neighbouring words,
+// into rows padded to an odd stride so that a warp's threads, one a row,
+// fall in 32 banks.
 #pragma once
 
 #include <stdint.h>
 
 #ifdef __CUDACC__
 #define LIMB_FN __device__ __forceinline__
+#define LIMB_HOST_FN __host__ __device__ __forceinline__
 #else
 #define LIMB_FN inline
+#define LIMB_HOST_FN inline
 #endif
 
 namespace limbframe {
@@ -48,6 +56,32 @@ int run(int64_t n, Op op, void* stream) {
   for (int64_t i = 0; i < n; ++i) op(i);
   return 0;
 #endif
+}
+
+// Thread t of a block of `threads`' share of the copy between `rows` rows
+// of `len` int32 digits, contiguous at `flat`, and the padded buffer of
+// Slots (row r at r * stride): word k of the run goes to or from buffer
+// slot (k / len) * stride + k % len, the row and column stepped without a
+// division.
+template <class Slot>
+LIMB_FN void stage(int32_t* flat, Slot* buf, int rows, int len, int stride, int t, int threads,
+                   bool into_buffer) {
+  const int step_r = threads / len, step_c = threads - step_r * len;
+  int r = t / len, c = t - r * len;
+  for (int k = t; k < rows * len; k += threads) {
+    Slot* slot = buf + r * stride + c;
+    if (into_buffer) {
+      *slot = Slot(flat[k]);
+    } else {
+      flat[k] = int32_t(*slot);
+    }
+    r += step_r;
+    c += step_c;
+    if (c >= len) {
+      c -= len;
+      r += 1;
+    }
+  }
 }
 
 }  // namespace limbframe

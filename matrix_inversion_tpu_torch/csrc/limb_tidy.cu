@@ -68,22 +68,6 @@ LIMB_FN void tidy_one(int32_t* digits, int32_t* sign, int len, int32_t base) {
   *sign = 1 - 2 * negative;
 }
 
-// Thread t of a block's share of the copy between `rows` rows of `len`
-// digits, contiguous at `flat`, and the padded buffer (row r at r * stride):
-// word k of the run goes to or from buffer word (k / len) * stride + k % len.
-LIMB_FN void stage(int32_t* flat, int32_t* buf, int rows, int len, int stride, int t,
-                   bool into_buffer) {
-  for (int k = t; k < rows * len; k += kThreads) {
-    const int r = k / len;
-    int32_t* slot = buf + r * stride + (k - r * len);
-    if (into_buffer) {
-      *slot = flat[k];
-    } else {
-      flat[k] = *slot;
-    }
-  }
-}
-
 #ifdef __CUDACC__
 
 // A block's 128 numbers: staged in, tidied one a thread, staged out.
@@ -94,13 +78,14 @@ staged_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t
   const int stride = len | 1;
   const int64_t first = int64_t(blockIdx.x) * kThreads;
   const int rows = int(n - first < kThreads ? n - first : kThreads);
-  stage(const_cast<int32_t*>(in) + first * len, buf, rows, len, stride, threadIdx.x, true);
+  limbframe::stage(const_cast<int32_t*>(in) + first * len, buf, rows, len, stride, threadIdx.x,
+                   kThreads, true);
   __syncthreads();
   if (int(threadIdx.x) < rows) {
     tidy_one(buf + threadIdx.x * stride, sign ? sign + first + threadIdx.x : nullptr, len, base);
   }
   __syncthreads();
-  stage(out + first * len, buf, rows, len, stride, threadIdx.x, false);
+  limbframe::stage(out + first * len, buf, rows, len, stride, threadIdx.x, kThreads, false);
 }
 
 int launch_staged(const int32_t* in, int32_t* out, int32_t* sign, int64_t n, int len, int base,
@@ -123,13 +108,14 @@ int launch_staged(const int32_t* in, int32_t* out, int32_t* sign, int64_t n, int
   for (int64_t first = 0; first < n; first += kThreads) {
     const int rows = int(n - first < kThreads ? n - first : kThreads);
     for (int t = 0; t < kThreads; ++t) {
-      stage(const_cast<int32_t*>(in) + first * len, buf, rows, len, stride, t, true);
+      limbframe::stage(const_cast<int32_t*>(in) + first * len, buf, rows, len, stride, t, kThreads,
+                       true);
     }
     for (int t = 0; t < rows; ++t) {
       tidy_one(buf + t * stride, sign ? sign + first + t : nullptr, len, base);
     }
     for (int t = 0; t < kThreads; ++t) {
-      stage(out + first * len, buf, rows, len, stride, t, false);
+      limbframe::stage(out + first * len, buf, rows, len, stride, t, kThreads, false);
     }
   }
   return 0;

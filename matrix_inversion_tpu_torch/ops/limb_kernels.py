@@ -6,9 +6,11 @@ They have no Pallas counterpart: they replace the ``lax.scan`` chains of
 ``base_tidy`` and ``tidy_to_sign_mag``, ``:231``), which JAX compiles into
 one program and eager PyTorch would run as a few launches a digit.  The
 CUDA sources are ``csrc/limb_division.cu`` and ``csrc/limb_tidy.cu`` in the
-frame of ``csrc/limb_frame.cuh``: one thread a number, walking its int32
-digits (most significant first, batch-major ``(N, L)``) from the least
-significant up.  ``PERF.md`` has their times and bounds.
+frame of ``csrc/limb_frame.cuh``: one thread a number, a block's 128
+numbers staged through shared memory, their int32 digits (most significant
+first, batch-major ``(N, L)``) read and written as contiguous runs.  K6
+divides with its remainder window in 64-bit words; K7 walks the digits from
+the least significant up.  ``PERF.md`` has their times and bounds.
 
 Each wrapper takes int32 digit tensors on one CUDA device, with leading
 batch axes, broadcasts their batches, launches the kernel on the current
@@ -16,9 +18,9 @@ stream and gives the result in the broadcast batch shape; it raises if the
 launch fails, and on tensors anywhere else: ``ops/limbs.py`` alone decides
 which tensors take the kernels and which the plain versions.  The base and
 the widths are runtime arguments, so one library of each serves every
-encoding; K6 keeps its window in registers or local memory up to
-:data:`WINDOW_DIGITS` digits of divisor and in a global scratch tensor that
-the wrapper allocates past that.
+encoding; K6 keeps its window in up to :data:`MAX_WORDS` words in
+registers, for rows of up to :data:`MAX_STAGED_DIGITS` digits, and a digit
+window in a global scratch tensor that the wrapper allocates past that.
 Both libraries are built with ``nvcc`` at first use (:mod:`.cuda_build`),
 keyed by a hash of their sources and the flags.
 """
@@ -35,14 +37,65 @@ from .cuda_build import CSRC, NVCC_FLAGS, build_library, run_parallel
 # Launches of each kernel, for checks that a run went through them.
 LAUNCHES = {"limb_division": 0, "limb_tidy": 0}
 
-# The widest divisor whose window K6 keeps in registers or local memory
-# (csrc/limb_division.cu, kMaxDivisorDigits); a wider one takes its form with
-# the window in global scratch, limb_division_wide.
-WINDOW_DIGITS = 256
+# K6's widest window in words (csrc/limb_division.cu, kMaxWords) and its
+# widest staged row (kMaxStagedDigits); past either, a division takes the
+# form with a digit window in global scratch, limb_division_wide.
+MAX_WORDS = 8
+MAX_STAGED_DIGITS = 449
 
-# K6 built with every width on its run-time window (local memory), to time
-# against the compile-time windows the library uses up to 64 digits
-RUNTIME_WINDOW = ("-DLIMB_RUNTIME_WINDOW",)
+# K6 built as it was designed first, one thread a number with its window a
+# row of digits in registers (csrc/limb_division.cu, LIMB_DIGIT_WINDOW), to
+# time against the word window; its window takes divisors of up to
+# DIGIT_WINDOW_DIGITS digits
+DIGIT_WINDOW = ("-DLIMB_DIGIT_WINDOW",)
+DIGIT_WINDOW_DIGITS = 256
+
+
+@functools.lru_cache(maxsize=None)
+def window_plan(base, v_len):
+    """``(chunk, words)`` of K6 at a base and a divisor width
+    (csrc/limb_division.cu, radix_of): the quotient digits it finds at
+    once, at most the most with ``base**k < 2**32``, and its window's
+    64-bit words, the fewest that hold ``base**(v_len + chunk) - 1``.  The
+    chunk is the most unless those digits take the window past one digit's
+    words while half of them or more fit there; then as many as fit."""
+    most = 1
+    while base ** (most + 1) < 2 ** 32:
+        most += 1
+
+    def words(digits):
+        return -(-((base ** digits - 1).bit_length()) // 64)
+
+    fit = 1
+    while fit < most and words(v_len + fit + 1) <= words(v_len + 1):
+        fit += 1
+    chunk = most if 2 * fit < most else fit
+    return chunk, words(v_len + chunk)
+
+
+def window_words(base, v_len):
+    """K6's window in 64-bit words (:func:`window_plan`)."""
+    return window_plan(base, v_len)[1]
+
+
+def scratch_form(d_len, v_len, base, flags=()):
+    """Whether K6 (built with ``flags``) divides at these widths in its form
+    with the window in global scratch."""
+    if flags == DIGIT_WINDOW:
+        return v_len > DIGIT_WINDOW_DIGITS
+    return (max(d_len, v_len) > MAX_STAGED_DIGITS
+            or window_words(base, v_len) > MAX_WORDS)
+
+
+def staged_bytes(d_len, v_len, base, one_row=False):
+    """Bytes of shared memory a block of K6's staged kernel takes: 128 rows
+    of an odd number of 32-bit words, each holding ``max(d_len, v_len)``
+    digits in 16 bits (in 32 at bases past ``2**16``), and a reciprocal's
+    row of int32 (csrc/limb_division.cu, staged_bytes)."""
+    slot = 2 if base <= 1 << 16 else 4
+    words = -(-max(d_len, v_len) * slot // 4) | 1
+    return 4 * (128 * words + (d_len if one_row else 0))
+
 
 _ARGTYPES = {
     # (v, v_stride, d, q, n, d_len, v_len, base, stream)
@@ -77,9 +130,9 @@ def build_dir(name, flags=()):
 
 
 def build():
-    """Build both libraries and K6's :data:`RUNTIME_WINDOW` form (in
+    """Build both libraries and K6's :data:`DIGIT_WINDOW` form (in
     parallel, one nvcc each) and load them."""
-    jobs = [("limb_division", ()), ("limb_tidy", ()), ("limb_division", RUNTIME_WINDOW)]
+    jobs = [("limb_division", ()), ("limb_tidy", ()), ("limb_division", DIGIT_WINDOW)]
     run_parallel([functools.partial(_build_one, *job) for job in jobs])
     for job in jobs:
         _library(*job)
@@ -125,15 +178,15 @@ def _launch(name, *args, device, flags=(), entry=None):
 
 
 def limb_division(dividend, divisor, base, flags=()):
-    """K6: the restoring long division of tidy digit arrays (each digit in
-    ``[0, base)``): ``(..., d_len)`` dividends by ``(..., v_len)`` divisors,
+    """K6: the long division of tidy digit arrays (each digit in ``[0,
+    base)``): ``(..., d_len)`` dividends by ``(..., v_len)`` divisors,
     ``(..., d_len)`` int32 quotient digits, all ``base - 1`` where the
     divisor is zero.  A dividend broadcast over the batch (a reciprocal's
     constant) is read from one row.  ``flags``: the build to launch
-    (:data:`RUNTIME_WINDOW` for the run-time window at every width).  A
-    divisor of more than :data:`WINDOW_DIGITS` digits takes the form whose
-    window is a scratch tensor of ``N * (v_len + 1)`` int32, allocated
-    here for the call."""
+    (:data:`DIGIT_WINDOW`, to time it).
+    Where :func:`scratch_form` says so, the division takes the form whose
+    window is a scratch tensor of ``N * (v_len + 1)`` int32, allocated here
+    for the call."""
     _check_digits(base, dividend, divisor)
     d_len, v_len = dividend.shape[-1], divisor.shape[-1]
     _check_device(dividend, divisor)
@@ -148,7 +201,7 @@ def limb_division(dividend, divisor, base, flags=()):
     else:
         v, v_stride = dividend.expand(batch + (d_len,)).contiguous(), d_len
     n = q.numel() // d_len
-    if v_len <= WINDOW_DIGITS:
+    if not scratch_form(d_len, v_len, base, flags):
         _launch("limb_division", v.data_ptr(), v_stride, d.data_ptr(), q.data_ptr(),
                 n, d_len, v_len, base, device=d.device, flags=flags)
         return q

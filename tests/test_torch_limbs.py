@@ -15,9 +15,16 @@ computes, ``tests/test_limbs.py``).
 host C++ without ``__CUDACC__``: the same per-number functions, K7's staging
 through its block buffer phase by phase.  Built here with g++, they are held
 against the plain versions and JAX on the same cases, and against the plain
-versions on any base 2-16 and lengths 1-64 that hypothesis picks; K6 also
-as built with ``-DLIMB_RUNTIME_WINDOW``, the form the card times against,
-and its form with the window in global scratch at a 300-digit divisor.
+versions on any base 2-16 and lengths 1-64 that hypothesis picks.  K6 keeps
+its remainder window in 64-bit words, a compile-time instance for each
+count of words: it is held at every word-count boundary of bases 2, 3, 7,
+10, 16 and 1,000 to Python's floor division (and to JAX's where the window
+first needs two words), on the divisors and windows that test its estimate
+of a digit, and in the limb inversions' own calls, whose digits are checked
+to lie in ``[0, p)``, the range the word window takes.  K6 also as built
+with ``-DLIMB_DIGIT_WINDOW`` (its first design, which the card times
+against), and its form with the window in global scratch at a 300-digit
+divisor.
 """
 
 import ctypes
@@ -134,12 +141,11 @@ def jax_division(p):
 
 @pytest.fixture(scope="module")
 def host(tmp_path_factory):
-    """One g++ build of each kernel's source, and of K6 with its run-time
-    window at every width (``limb_kernels.RUNTIME_WINDOW``), all at once;
-    the host entry points."""
+    """One g++ build of each kernel's source, and of K6 as first designed
+    (``limb_kernels.DIGIT_WINDOW``), all at once; the host entry points."""
     root = tmp_path_factory.mktemp("limb_host")
     builds = {"division": ("limb_division", ()), "tidy": ("limb_tidy", ()),
-              "division_runtime": ("limb_division", limb_kernels.RUNTIME_WINDOW)}
+              "division_digit_window": ("limb_division", limb_kernels.DIGIT_WINDOW)}
     procs = {}
     for key, (name, flags) in builds.items():
         cmd = ["g++", "-O1", "-std=c++17", "-shared", "-fPIC", *flags, "-x", "c++",
@@ -158,7 +164,7 @@ def host(tmp_path_factory):
                        else [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int])
         fn.restype = ctypes.c_int
         out[key] = fn
-    # K6's form with its window in global scratch, past 256 digits of divisor
+    # K6's form with its window in global scratch, past its staged widths
     wide = ctypes.CDLL(str(root / "division.so")).limb_division_wide_host
     wide.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -317,23 +323,52 @@ def test_k6_host_at_preset_widths(host, name, d_len, v_len):
     np.testing.assert_array_equal(host_division(host, v, d, 2), floor_quotient(v, d, 2))
 
 
+def widest_divisor(p):
+    """The widest divisor whose window takes at most ``MAX_WORDS`` words at
+    base ``p``."""
+    v_len = 1
+    while limb_kernels.window_words(p, v_len + 1) <= limb_kernels.MAX_WORDS:
+        v_len += 1
+    return v_len
+
+
 def test_k6_host_window_forms(host):
-    """Every compile-time window (8 to 64 digits), the run-time form past
-    it (divisors of 64 to 256 digits), and the cap."""
+    """Every compile-time window, one to eight 64-bit words (divisors of 1
+    to 256 digits at bases 2 and 7; past eight words the scratch form, as
+    the wrapper sends them), and the caps: the entry takes every width the
+    wrapper sends it and refuses a window of nine words and rows past the
+    staged width."""
     rng = np.random.RandomState(11)
-    for v_len in (1, 7, 8, 15, 16, 33, 40, 55, 62, 63, 64, 100, 256):
+    words = set()
+    for v_len in (1, 7, 8, 15, 16, 33, 40, 55, 62, 63, 64, 80, 100, 120, 140, 150, 170, 256):
         for p in (2, 7):
             d = divisor_set(rng, 12, v_len, p)
             v = digits(rng, (12, v_len + 3), p)
-            np.testing.assert_array_equal(host_division(host, v, d, p), floor_quotient(v, d, p))
-    bad = np.zeros((1, 257), np.int32)
-    q = np.empty((1, 4), np.int32)
-    assert host["division"](q.ctypes.data, 4, bad.ctypes.data, q.ctypes.data, 1, 4, 257, 2) == 1
+            if limb_kernels.scratch_form(v_len + 3, v_len, p):
+                got = host_division_wide(host, v, d, p)
+            else:
+                got = host_division(host, v, d, p)
+                words.add(limb_kernels.window_words(p, v_len))
+            np.testing.assert_array_equal(got, floor_quotient(v, d, p))
+    assert words == set(range(1, limb_kernels.MAX_WORDS + 1))
+    q = np.empty((1, 460), np.int32)
+    for p in (2, 3, 7, 10, 16, 1000, 2 ** 16 + 1):  # the entry takes what the wrapper sends it
+        for v_len in range(1, widest_divisor(p) + 2):
+            d = np.zeros((1, v_len), np.int32)
+            taken = not limb_kernels.scratch_form(4, v_len, p)
+            assert host["division"](q.ctypes.data, 4, d.ctypes.data, q.ctypes.data, 1, 4, v_len,
+                                    p) == (0 if taken else 1), (p, v_len)
+    widest = widest_divisor(10)  # eight words at base 10: taken; nine: refused
+    for d_len, v_len, p, err in ((4, widest + 1, 10, 1), (4, 450, 2, 1), (450, 4, 2, 1),
+                                 (4, widest, 10, 0)):
+        bad = np.zeros((1, v_len), np.int32)
+        assert host["division"](q.ctypes.data, d_len, bad.ctypes.data, q.ctypes.data, 1, d_len,
+                                v_len, p) == err
 
 
 def test_k6_host_wide_form_at_300_digits(host):
     """The form whose window lives in global scratch, at a 300-digit divisor
-    (past the 256 digits of the run-time window): against JAX's
+    (where the first design's window took it): against JAX's
     ``base_p_division`` and Python's floor division at base 2, full
     dividends and a reciprocal's one row; against floor division at base
     7."""
@@ -356,31 +391,175 @@ def test_k6_host_wide_form_at_300_digits(host):
 
 
 def test_k6_wide_divisors_take_the_scratch_form(monkeypatch):
-    """The wrapper sends a divisor past ``WINDOW_DIGITS`` digits to the wide
-    entry (with a scratch window for its N numbers), and narrower ones to
-    the register and local-memory forms (the launch recorded, not run)."""
+    """The wrapper sends a division whose window passes ``MAX_WORDS`` words,
+    or whose rows pass ``MAX_STAGED_DIGITS``, to the wide entry (with a
+    scratch window for its N numbers), and the others to the word window;
+    the first design's build past 256 digits of divisor (the launch
+    recorded, not run)."""
     launched = []
     monkeypatch.setattr(limb_kernels, "_check_device", lambda *tensors: None)
     monkeypatch.setattr(limb_kernels, "_launch",
                         lambda name, *args, device, flags=(), entry=None:
                         launched.append((entry, args[5] if entry else None)))
     v = torch.zeros(5, 260, dtype=torch.int32)
-    limb_kernels.limb_division(v, torch.ones(5, 257, dtype=torch.int32), 2)
-    limb_kernels.limb_division(v, torch.ones(5, 256, dtype=torch.int32), 2)
-    assert launched == [("limb_division_wide", 5), (None, None)]
+    widest = widest_divisor(10)
+    cases = [(v, widest + 1, 10, ()), (v, widest, 10, ()),  # nine words, eight
+             (v, 450, 2, ()), (v, 449, 2, ()),  # past the staged rows, at them
+             (torch.zeros(5, 450, dtype=torch.int32), 40, 2, ()),
+             (v, 257, 2, limb_kernels.DIGIT_WINDOW), (v, 256, 2, limb_kernels.DIGIT_WINDOW)]
+    for dividend, v_len, p, flags in cases:
+        limb_kernels.limb_division(dividend, torch.ones(5, v_len, dtype=torch.int32), p, flags)
+    wide, word = ("limb_division_wide", 5), (None, None)
+    assert launched == [wide, word, wide, word, wide, wide, word]
 
 
 @pytest.mark.parametrize("p", BASES)
 def test_k6_host_runtime_window_build(host, p):
-    """K6 built with its run-time window at every width (the form the card
-    times against the compile-time windows) at every preset's division
-    widths and past 64 digits."""
+    """K6 as first designed (``-DLIMB_DIGIT_WINDOW``: its digit window in
+    registers up to 64 digits, at run time in local memory past them; the
+    form the card times the word window against) at every preset's
+    division widths and past 64 digits, equal to floor division and to the
+    word window."""
     rng = np.random.RandomState(90 + p)
     for _, d_len, v_len in DIVISION_WIDTHS + [("wide", 70, 66)]:
         d = divisor_set(rng, 16, v_len, p)
         for v in (digits(rng, (16, d_len), p), digits(rng, (d_len,), p)):
-            np.testing.assert_array_equal(host_division(host, v, d, p, "division_runtime"),
-                                          floor_quotient(v, d, p))
+            got = host_division(host, v, d, p, "division_digit_window")
+            np.testing.assert_array_equal(got, floor_quotient(v, d, p))
+            np.testing.assert_array_equal(got, host_division(host, v, d, p))
+
+
+def word_boundaries(p):
+    """``(d_len, v_len)`` on both sides of every window-word boundary at
+    base ``p`` up to the cap: the widest divisor of ``k`` words and the
+    narrowest of ``k + 1``, a dividend three digits wider (at most the
+    staged width); the last pair takes nine words, past the cap."""
+    out, v_len = [], 1
+    while len(out) < 2 * limb_kernels.MAX_WORDS:
+        while limb_kernels.window_words(p, v_len + 1) == limb_kernels.window_words(p, v_len):
+            v_len += 1
+        out += [(min(w + 3, limb_kernels.MAX_STAGED_DIGITS), w) for w in (v_len, v_len + 1)]
+        v_len += 1
+    return out
+
+
+@pytest.mark.parametrize("p", (2, 3, 7, 10, 16, 1000))
+def test_k6_host_at_word_boundaries(host, p):
+    """On both sides of every boundary where the window's (v_len + 1) log2 p
+    bits cross 64, 128, ... 512 and the cap: the word window (or past the
+    cap, or past the staged rows, the wrapper's scratch form) against
+    Python's floor division, full dividends and a reciprocal's one row, by
+    divisors with zeros, leading zero digits and all digits p - 1; where the
+    window first takes two words, against JAX's ``base_p_division`` too
+    (its jit unrolls p - 1 rounds a digit: bases up to 16)."""
+    rng = np.random.RandomState(1300 + p)
+    for k, (d_len, v_len) in enumerate(word_boundaries(p)):
+        assert limb_kernels.window_words(p, v_len) == k // 2 + 1 + (k % 2)
+        d = divisor_set(rng, 10 if p == 1000 else 14, v_len, p)
+        d[-1] = p - 1
+        for v in (digits(rng, (d.shape[0], d_len), p), np.eye(1, d_len, 0, np.int32)[0]):
+            if limb_kernels.scratch_form(d_len, v_len, p):
+                got = host_division_wide(host, v, d, p)
+            else:
+                got = host_division(host, v, d, p)
+            np.testing.assert_array_equal(got, floor_quotient(v, d, p))
+            if k == 1 and p <= 16:
+                ref = jax_division(p)(jnp.asarray(np.broadcast_to(v, (d.shape[0], d_len))),
+                                      jnp.asarray(d))
+                same(t(got), ref)
+
+
+@pytest.mark.parametrize("p", (2, 3, 10, 16, 1000, 2 ** 31 - 1))
+def test_k6_host_estimate_edges(host, p):
+    """The digit estimate where it is tightest: divisors 1, p**v_len - 1 (all
+    digits p - 1) and a power of p; dividends all p - 1 and exact multiples
+    of the divisor (a zero remainder, where x = r / d is an integer); every
+    digit p - 1; the largest base an int32 digit takes.  Against Python's
+    floor division; at bases up to 1,000 also against its first design
+    (``-DLIMB_DIGIT_WINDOW``), which has no estimate."""
+    rng = np.random.RandomState(p % 1000)
+    for d_len, v_len in ((9, 4), (30, 12), (44, 40)):
+        if limb_kernels.window_words(p, v_len) > limb_kernels.MAX_WORDS:
+            continue
+        d = digits(rng, (12, v_len), p)
+        d[0] = 0
+        d[0, -1] = 1
+        d[1] = p - 1
+        d[2] = 0
+        d[2, v_len // 2] = 1
+        v = digits(rng, (12, d_len), p)
+        v[:3] = p - 1
+        for i in range(3, 8):  # exact multiples: v = d * m
+            m = int("".join(str(x) for x in rng.randint(0, 2, size=d_len - v_len)), 2) + 1
+            value_ = (value(d[i:i + 1], p)[0] * m) % p ** d_len
+            for j in range(d_len - 1, -1, -1):
+                v[i, j] = value_ % p
+                value_ //= p
+        want = floor_quotient(v, d, p)
+        np.testing.assert_array_equal(host_division(host, v, d, p), want)
+        if p <= 1000:
+            np.testing.assert_array_equal(
+                host_division(host, v, d, p, "division_digit_window"), want)
+
+
+@hypothesis.settings(max_examples=40, deadline=None, derandomize=True)
+@hypothesis.given(p=st.one_of(st.integers(2, 16), st.integers(17, 1000)), d_len=st.integers(1, 64),
+                  v_len=st.integers(1, 48), n=st.integers(1, 140),
+                  seed=st.integers(0, 2 ** 31 - 1), one_row=st.booleans())
+def test_k6_host_builds_agree(host, p, d_len, v_len, n, seed, one_row):
+    """The word window and its first design (digit window) give the same
+    quotients, and Python's floor division's, at any base to 1,000, over
+    blocks of 128 numbers and their ragged ends."""
+    rng = np.random.RandomState(seed)
+    d = digits(rng, (n, v_len), p)
+    d[: n // 4] = 0
+    d[n // 4: n // 2, : rng.randint(0, v_len + 1)] = 0
+    v = digits(rng, (d_len,) if one_row else (n, d_len), p)
+    got = host_division(host, v, d, p)
+    np.testing.assert_array_equal(got, floor_quotient(v, d, p))
+    np.testing.assert_array_equal(host_division(host, v, d, p, "division_digit_window"), got)
+
+
+# limb inversions whose K6 calls are checked: LOW's precision in bases 2, 3
+# and 10 (the integer and fraction ranges of LOW's 9 and 14 binary digits),
+# and HIGH at n = 2 (the closed form's reciprocal) and n = 3 (true division)
+LIMB_INVERSIONS = {
+    "low_n3_base2": (mt.LOW.replace(n=3), 3),
+    "low_n3_base3": (mt.LOW.replace(n=3, qfloat_base=3, qfloat_len=15, qfloat_ints=6), 3),
+    "low_n3_base10": (mt.LOW.replace(n=3, qfloat_base=10, qfloat_len=8, qfloat_ints=3), 3),
+    "high_n2_base2": (mt.HIGH.replace(n=2), 2),
+    "high_n3_base2": (mt.HIGH.replace(n=3), 3),
+}
+
+
+@pytest.mark.parametrize("name", LIMB_INVERSIONS)
+def test_k6_calls_in_limb_inversions_get_tidy_digits(monkeypatch, name):
+    """The word window's premise: every long division of a limb inversion
+    (``BatchedMatrixInversion(..., backend="limb", device="cpu")``) gets
+    dividend and divisor digits in ``[0, p)``, on matrices that are random,
+    all zero (zero divisors) and singular.  (``QFloat.base_tidy`` alone
+    leaves digits in ``]-p, p[``, where a window in words would not give
+    the digit chain's quotient; no division sees one.)"""
+    params, n = LIMB_INVERSIONS[name]
+    seen = []
+    divide = limbs.base_p_division
+
+    def division(dividend, divisor, p):
+        seen.append((p, int(min(dividend.min(), divisor.min())),
+                     int(max(dividend.max(), divisor.max()))))
+        return divide(dividend, divisor, p)
+
+    monkeypatch.setattr(limbs, "base_p_division", division)
+    rng = np.random.RandomState(130 + n)
+    M = rng.standard_normal((6, n, n)) * 4
+    M[1] = 0
+    M[2, 1] = 2 * M[2, 0]
+    inv = mt.BatchedMatrixInversion(params, 6, backend="limb", device="cpu")
+    assert inv.backend == "limb"
+    inv.run(M)
+    assert seen
+    for p, low, high in seen:
+        assert p == params.qfloat_base and 0 <= low and high < p, (p, low, high)
 
 
 @pytest.mark.parametrize("p", BASES)
