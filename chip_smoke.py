@@ -86,16 +86,23 @@ first design.  The limb ``run_raw`` is timed in turns
 with the packed one and with its plain version, the base-10 one with the
 base-2 one, and K6 and K7 beside their bounds.
 
-Then K1 past n = 5, which ``lowering="auto"`` sends to it up to n = 12:
-HIGH n = 6..12, untracked and tracked, and LOW n = 10 (the CLI's default
-size), built from the start in the background (minutes of nvcc each) and
-checked after the other phases, each through ``run_raw`` on a ragged batch
-against its plain version on the card and the CPU, with its build time,
-registers, spills and block size; the eight recorded outlier matrices
+Then K1 past n = 5, which ``lowering="auto"`` sends to it up to n = 12 and
+``lowering="fused"`` at any n, in its lanes design
+(``csrc/fused_inverse_lanes.cu``) from ``LANES_MIN_N``: HIGH n = 6..16,
+untracked and tracked, and LOW n = 10 (the CLI's default size), built from
+the start in the background with the straight-line design at n = 6..12,
+tracked to 9 (minutes of nvcc each, for timing only), and checked after
+the other phases, each through ``run_raw`` on a ragged batch against its
+plain version on the card and the CPU, with its build time, registers,
+spills, block size and shared memory; the two designs in turns at HIGH n =
+3..12, tracked 3..9 (== each other bit for bit), and the lanes design to
+n = 16, each beside the function's bound, and at n = 16 the ``run_raw`` of
+``lowering="fused"`` in turns with the op-by-op one; the eight recorded outlier matrices
 (``benchmarks/results/outliers.json``) through K1 against the CPU and their
 recorded errors and flags; the CLI at its default sizes; the ``lowering``,
-``fused`` and ``rooflines`` drivers over n = 2..12 (K1 must beat the op-by-op
-path at every n it serves), and K1's per-n rows of the ``kernels`` line.
+``fused`` and ``rooflines`` drivers over n = 2..16 (K1 must beat the
+op-by-op path at every n ``lowering="auto"`` sends to it), and K1's rows
+past n = 5 in the ``kernels`` line.
 After the limb phase, K6 at a 300-digit divisor against its plain
 version, timed in turns against its first design, whose window lies in
 global scratch at that width; and K6's own form with its window in global
@@ -269,7 +276,7 @@ K6_PYTHON_CHECK = 256
 # batch in 4 batches of 2 passes a leg (the JAX benchmark's defaults are 8 and
 # 3: cut to keep the phase near a minute), the reference's 10,000-inversion
 # sweep, whose first batch is held to the CPU.  The CLI at its default sizes
-# runs after K1's check at n = 6..12, which its LOW n=10 needs.
+# runs after K1's check past n = 5, which its LOW n=10 needs.
 SERVE_BATCHES = 6
 SERVE_TRACKED_BATCHES = 3
 SERVE_DIGIT_BATCHES = 3
@@ -361,22 +368,36 @@ MUL_FORMATS = [
 ]
 HIGH_MUL = (40, 20, 40, 20, 40, 20)  # the High dot product's multiply, as the wrapper takes it
 
-# K1 past n = 5, which lowering="auto" sends to it up to n = 12: HIGH
-# n = 6..12, untracked and tracked, and LOW n = 10, the CLI's default size.
-# A build takes nvcc seconds to six minutes (straight-line bodies of 0.1-1 MB), so
-# they start first, in the background, largest first, K1_SIZE_BUILDS at a
-# time and at nice BUILD_NICE below the other phases, and are checked after
-# them.
-K1_SIZES = ([(f"HIGH n={n}", HIGH.replace(n=n), False) for n in range(6, 13)]
-            + [(f"HIGH n={n} tracked", HIGH.replace(n=n), True) for n in range(6, 13)]
-            + [("LOW n=10", LOW.replace(n=10), False)])
+# K1 past n = 5.  The lanes design (csrc/fused_inverse_lanes.cu) serves n >=
+# LANES_MIN_N: every size of LANES_SIZES goes through run_raw (lowering
+# "auto" up to FUSED_MAX_N, "fused" past it), HIGH n = 6..16, untracked and
+# tracked, and LOW n = 10, the CLI's default size.  TURN_SIZES time the two
+# designs in turns where both exist, and at n = 16 the lanes design against
+# the op-by-op run_raw.  The straight-line design's builds past n = 5
+# (K1_SIZES, for the turns only) take nvcc seconds to minutes
+# (straight-line bodies of 0.1-1 MB), so every build past n = 5 starts
+# first, in the background, the lanes design's (seconds each) first, then the
+# others largest first, K1_SIZE_BUILDS at a time and at nice BUILD_NICE below
+# the other phases.  ROW_SIZES are the kernels line's rows past n = 5, each
+# with its plain version timed at FUSED_BATCH.
+LANES_SIZES = ([(f"HIGH n={n}", HIGH.replace(n=n), False) for n in range(6, 17)]
+               + [(f"HIGH n={n} tracked", HIGH.replace(n=n), True) for n in range(6, 17)]
+               + [("LOW n=10", LOW.replace(n=10), False)])
+TURN_SIZES = tuple(range(3, 17))
+# The straight-line builds stop at n = 9 tracked: its tracked bodies at n =
+# 10-12 take 2-7 minutes of nvcc each, beside the host-bound phases.
+K1_SIZES = [(f"HIGH n={n}{' tracked' if track else ''}", HIGH.replace(n=n), track)
+            for track, last in ((False, fused_inverse.STRAIGHT_LINE_MAX_N), (True, 9))
+            for n in range(6, last + 1)]
+ROW_SIZES = (6, 8, 12, 16)
 K1_SIZE_BUILDS = 6
 BUILD_NICE = 10
 K1_CPU_ROWS = 64  # of each size's check, held to the CPU run too
 # The drivers: lowering at LOWERING_BATCH, fused and rooflines at
 # FUSED_BATCH, over DRIVER_SIZES; the tracked op-by-op path, which has no
 # multiply kernel (ROADMAP R3), only at UNROLL_TRACKED_SIZES
-DRIVER_SIZES = tuple(range(2, 13))
+DRIVER_SIZES = tuple(range(2, 17))
+LOWERING_SIZES = tuple(range(2, 13)) + (16,)
 LOWERING_BATCH = 65_536
 FUSED_BATCH = 262_144
 UNROLL_TRACKED_SIZES = (2, 3, 4)
@@ -471,6 +492,7 @@ def replay_of(launch, count):
 
 def reset_counts():
     fused_inverse.LAUNCHES = fused_inverse.TRACKED_LAUNCHES = 0
+    fused_inverse.LANES_LAUNCHES = fused_inverse.LANES_TRACKED_LAUNCHES = 0
     for launches in (long_division.LAUNCHES, limb_kernels.LAUNCHES):
         for name in launches:
             launches[name] = 0
@@ -479,7 +501,16 @@ def reset_counts():
 def counts():
     return {"fused_inverse": fused_inverse.LAUNCHES,
             "fused_inverse_tracked": fused_inverse.TRACKED_LAUNCHES,
+            "fused_inverse_lanes": fused_inverse.LANES_LAUNCHES,
+            "fused_inverse_lanes_tracked": fused_inverse.LANES_TRACKED_LAUNCHES,
             **long_division.LAUNCHES, **limb_kernels.LAUNCHES}
+
+
+def k1_counter(n, track):
+    """The name in ``counts()`` of the K1 design that serves n."""
+    stem = ("fused_inverse_lanes" if fused_inverse.design_of(n, track) == "lanes"
+            else "fused_inverse")
+    return stem + ("_tracked" if track else "")
 
 
 def timed_s(fn, *args):
@@ -2008,7 +2039,8 @@ def roofline_path(dev, card, rates, op_times, op_issued, batch=MAIN_BATCH, elems
             assert share <= 105.0, (
                 f"K1 HIGH n={n} track={track}: {ms:.3f} ms is under its bound {bound_ms:.3f} ms "
                 f"({share:.2f}%): the count of operations is too high or a rate too low")
-            as_written = roofline.kernel_roofline(batch / ms * 1e3, n, "high", cell_rates(rates), track)
+            as_written = roofline.kernel_roofline(batch / ms * 1e3, n, "high", cell_rates(rates), track,
+                                                  as_emitted=True)
             written_ms = batch / as_written["roofline_inversions_per_s_measured_rates"] * 1e3
             instrs, calls = static_sass(
                 fused_inverse.build_dir(config_of(p) + ((True,) if track else ())) / "libfused_inverse.so")
@@ -2062,51 +2094,87 @@ def published_bound(bytes_moved, instructions, *times):
     return bound, "operations" if by_ops > by_bytes else "bytes"
 
 
+def lanes_configs():
+    """The configs (with ``track``) the lanes design is built at: every size
+    of LANES_SIZES, and HIGH n in TURN_SIZES untracked and tracked."""
+    configs = {config_of(p) + (track,) for _, p, track in LANES_SIZES}
+    configs |= {config_of(HIGH.replace(n=n)) + (track,)
+                for n in TURN_SIZES for track in (False, True)}
+    return sorted(configs, key=lambda c: (-c[0], c[5]))
+
+
 def start_k1_size_builds():
-    """Start the nvcc builds of K1_SIZES in the background, largest first,
-    K1_SIZE_BUILDS at a time; the pool's threads, and the nvcc processes
-    they start, run at nice BUILD_NICE (on Linux a thread's own).  Returns
-    the pool and ``{label: future of the build's seconds}``."""
+    """Start the nvcc builds past n = 5 in the background, K1_SIZE_BUILDS at
+    a time: the lanes design at every config of :func:`lanes_configs`, then
+    the straight-line design at K1_SIZES, largest first.  The pool's
+    threads, and the nvcc processes they start, run at nice BUILD_NICE (on
+    Linux a thread's own).  Returns the pool and ``{(design, config):
+    future of the build's seconds}``."""
     def lower_priority():
         os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), BUILD_NICE)
 
     pool = concurrent.futures.ThreadPoolExecutor(K1_SIZE_BUILDS, initializer=lower_priority)
-    order = sorted(K1_SIZES, key=lambda size: (-size[1].n, not size[2]))
-    return pool, {label: pool.submit(timed_s, fused_inverse.build_dir, config_of(p) + (track,))
-                  for label, p, track in order}
+    jobs = [("lanes", c) for c in lanes_configs()]
+    jobs += [("straight_line", config_of(p) + (track,))
+             for _, p, track in sorted(K1_SIZES, key=lambda size: (-size[1].n, not size[2]))]
+    return pool, {(design, config): pool.submit(timed_s, fused_inverse.build_dir, config,
+                                                (), design)
+                  for design, config in jobs}
 
 
-def k1_ptxas(config):
-    """``(registers, spill stores, spill loads, stack frame)`` of K1's kernel
-    in one config's library, bytes a thread, from ptxas's lines."""
-    log = (fused_inverse.build_dir(config) / "nvcc.log").read_text()
-    (regs,) = [r for name, r in sass.ptxas_registers(log).items() if "fused_inverse_kernel" in name]
-    (line,) = [v for name, v in sass.ptxas_spills(log).items() if "fused_inverse_kernel" in name]
+def k1_ptxas(config, design):
+    """``(registers, spill stores, spill loads, stack frame)`` of one
+    design's kernel in one config's library, bytes a thread, from ptxas's
+    lines."""
+    log = (fused_inverse.build_dir(config, design=design) / "nvcc.log").read_text()
+    kernel = "lanes_kernel" if design == "lanes" else "fused_inverse_kernel"
+    (regs,) = [r for name, r in sass.ptxas_registers(log).items() if kernel in name]
+    (line,) = [v for name, v in sass.ptxas_spills(log).items() if kernel in name]
     stack, stores, loads = (int(re.search(rf"(\d+) bytes {what}", line).group(1))
                             for what in ("stack frame", "spill stores", "spill loads"))
     return regs, stores, loads, stack
 
 
-def k1_sizes(dev, card, build_s, batch=CHECK_BATCH, cpu_rows=K1_CPU_ROWS):
-    """K1 at every size of K1_SIZES through ``BatchedMatrixInversion(...,
-    io="packed")`` on a ragged batch of x100 matrices, one singular and,
-    tracked, one near-singular and one all-zero: exactly one K1 launch a
-    ``run_raw`` and nothing else, == its plain version on the card bit for
-    bit (flags included), the first ``cpu_rows`` == the CPU run.  Prints each
-    size's build seconds, registers, spills and block size; returns
-    ``{label: that row}``."""
+def k1_build_info(config, design, build_s):
+    """One design's build of one config: ptxas's registers and spills, the
+    threads and dynamic shared memory of a block, the nvcc seconds (None
+    where it was built in the main parallel step), as a dict and a phrase."""
+    regs, stores, loads, stack = k1_ptxas(config, design)
+    threads = fused_inverse.block_threads(config, design)
+    smem = fused_inverse.lanes_smem_bytes(config) if design == "lanes" else None
+    nvcc_s = build_s.get((design, config))
+    info = {"registers": regs, "spill_stores": stores, "spill_loads": loads, "stack": stack,
+            "threads": threads, "smem_bytes": smem, "build_s": nvcc_s}
+    text = (f"{regs} registers, spill stores {stores} and loads {loads} bytes, stack frame "
+            f"{stack} bytes a thread; {threads} threads a block"
+            + (f", {smem} bytes of dynamic shared memory" if smem is not None else
+               ", a static 48 KB staging buffer at most")
+            + (f"; nvcc {nvcc_s:.1f} s" if nvcc_s is not None else "; built in the main step"))
+    return info, text
+
+
+def k1_lanes(dev, card, build_s, batch=CHECK_BATCH, cpu_rows=K1_CPU_ROWS):
+    """K1 at every size of LANES_SIZES through ``BatchedMatrixInversion(...,
+    io="packed")`` (lowering "auto" up to FUSED_MAX_N, "fused" past it) on a
+    ragged batch of x100 matrices, one singular and, tracked, one
+    near-singular and one all-zero: exactly one launch a ``run_raw`` of the
+    design that serves n and nothing else, == its plain version on the card
+    bit for bit (flags included), the first ``cpu_rows`` == the CPU run.
+    Prints each size's registers, spills, block, shared memory and nvcc
+    seconds; returns ``{label: that row}``."""
     rows = {}
-    for i, (label, p, track) in enumerate(K1_SIZES):
+    for i, (label, p, track) in enumerate(LANES_SIZES):
         n, config = p.n, config_of(p)
+        design = fused_inverse.design_of(n, track)
         rng = np.random.RandomState(700 + i)
         M = overflowy(rng, batch, n, rows=1) if track else rng.randn(batch, n, n) * 100
         M[5, 2] = M[5, 0] + M[5, 1]  # singular
-        inv = BatchedMatrixInversion(p, batch, device=dev, backend="packed", io="packed",
-                                     track_overflow=track)
+        lowering = "auto" if n <= fused_inverse.FUSED_MAX_N else "fused"
+        inv = BatchedMatrixInversion(p.replace(lowering=lowering), batch, device=dev,
+                                     backend="packed", io="packed", track_overflow=track)
         m, s = inv.quantize(M)
         got, launched = launches_of(lambda: inv.run_raw(m, s))
-        expect_launches(f"K1 {label}", launched,
-                        **{"fused_inverse_tracked" if track else "fused_inverse": 1})
+        expect_launches(f"K1 {label}", launched, **{k1_counter(n, track): 1})
         ref = fused_inverse.fused_matrix_inverse_reference(m, s, *config, track=track)
         err = max_abs_diff(got, ref)
         assert err == 0, f"K1 {label}: differs from the plain version on the card (max {err})"
@@ -2118,20 +2186,85 @@ def k1_sizes(dev, card, build_s, batch=CHECK_BATCH, cpu_rows=K1_CPU_ROWS):
             flags = got[2]
             assert int(flags[0]) == 1 and int(flags[1]) == 1 and not bool(flags.all()), \
                 f"K1 {label}: the overflowing matrices were not flagged alone"
-        regs, stores, loads, stack = k1_ptxas(config + (track,))
-        threads = fused_inverse.block_threads(config + (track,))
-        rows[label] = {"launches": 1, "max_abs_err": err, "build_s": build_s[label],
-                       "registers": regs, "spill_stores": stores, "spill_loads": loads,
-                       "stack": stack, "threads": threads}
-        print(f"check K1 {label}: B={batch} (ragged; a singular matrix"
-              f"{', a near-singular and an all-zero one, both flagged' if track else ''}): one "
-              f"K1 launch a run_raw and nothing else; == plain version on the card bit for bit "
+        cm = fused_inverse.fused_inverse_cell_major(m.t().contiguous(), s.t().contiguous(),
+                                                    *config, track=track)
+        assert all(torch.equal(a, b) for a, b in zip((cm[0].t(), cm[1].t(), *cm[2:]), got)), \
+            f"K1 {label}: the cell-major entry differs from the (B, n*n) one"
+        info, text = k1_build_info(config + (track,), design, build_s)
+        rows[label] = {"launches": 1, "max_abs_err": err, "design": design, **info}
+        print(f"check K1 {label} ({design} design, lowering {lowering!r}): B={batch} (ragged; a "
+              f"singular matrix{', a near-singular and an all-zero one, both flagged' if track else ''}"
+              f"): one launch a run_raw and nothing else; == plain version on the card bit for bit "
               f"(tolerance 0 on magnitudes, signs{' and flags' if track else ''}), the first "
-              f"{cpu_rows} == the CPU run; nvcc {build_s[label]:.1f} s (in the background, "
-              f"{K1_SIZE_BUILDS} at a time), {regs} registers, spill stores {stores} and loads "
-              f"{loads} bytes, stack frame {stack} bytes a thread; {threads} threads a block "
+              f"{cpu_rows} == the CPU run, the cell-major entry == the (B, n*n) one; {text} "
               f"({card})")
     return rows
+
+
+def k1_design_turns(dev, card, build_s, batch=FUSED_BATCH, rounds=REPS):
+    """K1's two designs in turns at HIGH n of TURN_SIZES, untracked and
+    tracked, on one batch of x100 matrices quantized on the card: the lanes
+    design, and the straight-line one where it is built (n < 6 and
+    K1_SIZES), == each other bit for bit (flags included); each
+    time the median of ``rounds`` rounds.  At n = 16 also the lanes
+    design's ``run_raw`` (lowering "fused") in turns with the op-by-op
+    ``run_raw``, == each other.  The bound is the function's (the least
+    work known, ``kernel_roofline``), beside the straight-line body's own
+    count (the bound before the P.M gather was proven).  Prints a line a
+    size and variant; returns ``{(n, track): {design: ms, "bound_ms", ...}}``."""
+    out = {}
+    for n in TURN_SIZES:
+        p = HIGH.replace(n=n)
+        config = config_of(p)
+        m, s = fused_steps.random_cells(batch, dev, n)
+        for track in (False, True):
+            designs = ["lanes"] + (["straight_line"] if n < 6 or any(
+                q.n == n and t == track for _, q, t in K1_SIZES) else [])
+            fns = {d: functools.partial(fused_inverse.fused_matrix_inverse, m, s, *config,
+                                        track=track, design=d) for d in designs}
+            results = {d: fn() for d, fn in fns.items()}
+            for d in designs[1:]:
+                assert all(torch.equal(a, b) for a, b in zip(results[d], results["lanes"])), \
+                    f"K1 HIGH n={n} track={track}: the {d} design differs from the lanes design"
+            del results
+            ms = timed_in_turns(fns, dev, rounds=rounds, warm_up=False)
+            roof = roofline.kernel_roofline(None, n, "high", None, track)
+            bound, by = published_bound(
+                k1_bytes(n, batch, track), batch * roof["nominal_instructions_per_inversion"],
+                *ms.values())
+            before, _ = published_bound(
+                k1_bytes(n, batch, track),
+                batch * roof["nominal_instructions_per_inversion_as_emitted"])
+            infos = {d: k1_build_info(config + (track,), d, build_s) for d in designs}
+            out[(n, track)] = {**ms, "bound_ms": bound, "bound_by": by,
+                               "bound_before_ms": before,
+                               **{f"{d}_build": info for d, (info, _) in infos.items()}}
+            versus = (f", straight-line {ms['straight_line']:.3f} ms (lanes / straight-line "
+                      f"{ms['lanes'] / ms['straight_line']:.3f})" if "straight_line" in ms else "")
+            print(f"K1 turns HIGH n={n}{' tracked' if track else ''} at B={batch}: lanes "
+                  f"{ms['lanes']:.3f} ms{versus}; == bit for bit; bound {bound:.3f} ms by {by} "
+                  f"({roof['nominal_instructions_per_inversion']:.0f} nominal instructions an "
+                  f"inversion; {before:.3f} ms at the straight-line body's "
+                  f"{roof['nominal_instructions_per_inversion_as_emitted']:.0f}), lanes "
+                  f"{ms['lanes'] / bound:.1f}x the bound; "
+                  + "; ".join(f"{d}: {text}" for d, (_, text) in infos.items()) + f" ({card})")
+        if n == LARGE_N:
+            runs = {lowering: BatchedMatrixInversion(p.replace(lowering=lowering), batch,
+                                                     device=dev, backend="packed", io="packed")
+                    for lowering in ("fused", "unroll")}
+            fns = {f"{k} run_raw": functools.partial(inv.run_raw, m, s)
+                   for k, inv in runs.items()}
+            got = [fn() for fn in fns.values()]
+            assert all(torch.equal(a, b) for a, b in zip(*got)), \
+                f"n={n}: the fused run_raw differs from the op-by-op run_raw"
+            del got
+            run_ms = timed_in_turns(fns, dev, rounds=LARGE_REPS, warm_up=False)
+            out["run_raw n=16"] = run_ms
+            print(f"K1 turns HIGH n={n} at B={batch}: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in run_ms.items())
+                  + f"; == bit for bit; op-by-op / fused "
+                  f"{run_ms['unroll run_raw'] / run_ms['fused run_raw']:.1f}x ({card})")
+    return out
 
 
 def outliers_on_card(dev):
@@ -2150,8 +2283,8 @@ def outliers_on_card(dev):
             M = np.asarray(o["matrix"])[None]
             mags, signs = float_matrix_to_mags_and_signs(M, *fmt)
             m, s = torch.from_numpy(mags).to(dev), torch.from_numpy(signs).to(dev)
-            for fn, kernel in ((qfloat_matrix_inverse_packed_io, "fused_inverse"),
-                               (qfloat_matrix_inverse_with_overflow, "fused_inverse_tracked")):
+            for fn, kernel in ((qfloat_matrix_inverse_packed_io, k1_counter(n, False)),
+                               (qfloat_matrix_inverse_with_overflow, k1_counter(n, True))):
                 got, launched = launches_of(lambda: fn(m, s, *config))
                 expect_launches(f"outlier {key}", launched, **{kernel: 1})
                 cpu = fn(m.cpu(), s.cpu(), *config)
@@ -2263,15 +2396,16 @@ def drivers(dev, card, rates):
     than the op-by-op path at every n that ``lowering="auto"`` sends to it.
     Returns the ``fused`` dict."""
     t0 = time.perf_counter()
-    lowered = run_benchmarks.lowering(DRIVER_SIZES, batch=LOWERING_BATCH, reps=5, repeats=1,
+    lowered = run_benchmarks.lowering(LOWERING_SIZES, batch=LOWERING_BATCH, reps=5, repeats=1,
                                       device=dev)
     print(f"lowering ({card}; host clock {time.perf_counter() - t0:.1f} s): "
           f"{json.dumps(lowered)}")
-    for n in range(2, fused_inverse.FUSED_MAX_N + 1):
+    for n in LOWERING_SIZES:
         k1, op = (lowered[f"n={n}/{name}"]["inversions_per_s"] for name in ("fused", "unroll"))
-        assert k1 > op, f"n={n}: K1 {k1:.4e} inversions/s is not faster than unroll {op:.4e}"
-        print(f"lowering n={n}: K1 {k1:.4e} inversions/s, unroll {op:.4e}, {k1 / op:.1f}x "
-              f"(B={LOWERING_BATCH}; {card})")
+        assert k1 > op or n > fused_inverse.FUSED_MAX_N, \
+            f"n={n}: K1 {k1:.4e} inversions/s is not faster than unroll {op:.4e}"
+        print(f"lowering n={n}: K1 ({lowered[f'n={n}/fused']['design']} design) {k1:.4e} "
+              f"inversions/s, unroll {op:.4e}, {k1 / op:.1f}x (B={LOWERING_BATCH}; {card})")
     t0 = time.perf_counter()
     per_n = run_benchmarks.fused(DRIVER_SIZES, batch=FUSED_BATCH, tracked=True,
                                  unroll_sizes=UNROLL_TRACKED_SIZES,
@@ -2283,43 +2417,45 @@ def drivers(dev, card, rates):
     return per_n
 
 
-def k1_size_rows(dev, card, checks, per_n, batch=FUSED_BATCH):
-    """The ``kernels`` line's rows of K1 at HIGH n = 6..12, untracked and
-    tracked: the time from ``fused`` at ``batch``, the plain version's on
-    the same matrices (one call), the launches and error of the check, and
-    the bound from this run's shapes (``published_bound``, which raises if
-    it passes 105% of either time)."""
+def k1_size_rows(dev, card, checks, turns, batch=FUSED_BATCH):
+    """The ``kernels`` line's rows of K1 past n = 5, at HIGH n of ROW_SIZES,
+    untracked and tracked, each in the design that serves n: the time from
+    the turns at ``batch``, the plain version's on the same matrices (one
+    call), the launches and error of the check, and the bound from this
+    run's shapes (``published_bound``, which raises if it passes 105% of
+    either time)."""
     rows = []
-    for label, p, track in K1_SIZES:
-        if not label.startswith("HIGH"):
-            continue
-        n, config = p.n, config_of(p)
-        entry = per_n[f"high/n={n}/{'fused_tracked' if track else 'fused'}"]
-        ms = batch / entry["inversions_per_s"] * 1e3
-        inv = BatchedMatrixInversion(p, batch, device=dev, backend="packed", io="packed")
-        m, s = inv.quantize(np.random.RandomState(0).randn(batch, n, n) * 100)
-        plain_ms = timed_ms(lambda: fused_inverse.fused_matrix_inverse_reference(
-            m, s, *config, track=track), dev, passes=1, warm_up=False)
-        nominal = roofline.kernel_roofline(None, n, "high", None, track)[
-            "nominal_instructions_per_inversion"]
-        bound, by = published_bound(k1_bytes(n, batch, track), batch * nominal, ms, plain_ms)
-        print(f"K1 {label} at B={batch}: {ms:.3f} ms ({batch / ms * 1e3:.4e} inversions/s), plain "
-              f"version {plain_ms:.3f} ms, bound {bound:.3f} ms by {by} ({nominal:.0f} nominal "
-              f"instructions an inversion), {ms / bound:.1f}x the bound ({card})")
-        rows.append({
-            "name": f"fused_inverse{'_tracked' if track else ''} HIGH n={n}",
-            "route": "cuda",
-            "source": "matrix_inversion_tpu_torch/csrc/fused_inverse.cu",
-            "replaces": "matrix_inversion_tpu/ops/fused_inverse.py:152"
-                        + (" (track=True)" if track else ""),
-            "launches": checks[label]["launches"],
-            "max_abs_err": checks[label]["max_abs_err"],
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": by,
-            "library_ms": None,
-        })
+    for n in ROW_SIZES:
+        config = config_of(HIGH.replace(n=n))
+        m, s = fused_steps.random_cells(batch, dev, n)
+        for track in (False, True):
+            design = fused_inverse.design_of(n, track)
+            label = f"HIGH n={n}{' tracked' if track else ''}"
+            ms = turns[(n, track)][design]
+            plain_ms = timed_ms(lambda: fused_inverse.fused_matrix_inverse_reference(
+                m, s, *config, track=track), dev, passes=1, warm_up=False)
+            nominal = roofline.kernel_roofline(None, n, "high", None, track)[
+                "nominal_instructions_per_inversion"]
+            bound, by = published_bound(k1_bytes(n, batch, track), batch * nominal, ms, plain_ms)
+            print(f"K1 {label} ({design} design) at B={batch}: {ms:.3f} ms "
+                  f"({batch / ms * 1e3:.4e} inversions/s), plain version {plain_ms:.3f} ms, bound "
+                  f"{bound:.3f} ms by {by} ({nominal:.0f} nominal instructions an inversion), "
+                  f"{ms / bound:.1f}x the bound ({card})")
+            rows.append({
+                "name": f"{k1_counter(n, track)} HIGH n={n}",
+                "route": "cuda",
+                "source": "matrix_inversion_tpu_torch/csrc/"
+                          + ("fused_inverse_lanes.cu" if design == "lanes" else "fused_inverse.cu"),
+                "replaces": "matrix_inversion_tpu/ops/fused_inverse.py:152"
+                            + (" (track=True)" if track else ""),
+                "launches": checks[label]["launches"],
+                "max_abs_err": checks[label]["max_abs_err"],
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound,
+                "bound_by": by,
+                "library_ms": None,
+            })
     return rows
 
 
@@ -2548,6 +2684,21 @@ def worker(argv):
     return 0
 
 
+def wait_for_builds(pool, builds):
+    """``{(design, config): nvcc seconds}`` of the background builds, once
+    all have ended; prints how long the wait took."""
+    t0 = time.perf_counter()
+    build_s = {key: future.result() for key, future in builds.items()}
+    pool.shutdown()
+    for design in fused_inverse.DESIGNS:
+        times = [v for (d, _), v in build_s.items() if d == design]
+        if times:
+            print(f"nvcc, K1's {design} design past n = 5 and for the turns: {len(times)} "
+                  f"libraries, {sum(times):.1f} s in all, {min(times):.1f}-{max(times):.1f} s each")
+    print(f"host clock: waited {time.perf_counter() - t0:.1f} s for the K1 builds past n = 5")
+    return build_s
+
+
 def main():
     if sys.argv[1:2] == ["--worker"]:
         return worker(sys.argv[2:])
@@ -2561,13 +2712,13 @@ def main():
     dev = torch.device("cuda")
 
     # -- build every kernel of every path from the sources in the checkout,
-    # one nvcc per library, all started together; K1 past n = 5 in the
-    # background, checked after the other phases
+    # one nvcc per library, all started together; K1 past n = 5 (both
+    # designs) in the background, checked after the other phases
     t0 = time.perf_counter()
     size_pool, size_builds = start_k1_size_builds()
     tracked_configs = [config_of(p) + (True,) for _, p in TRACKED_CHECKS]
     # K1 at the CLI's LOW sizes too, which its subprocesses then load (n=10
-    # with K1_SIZES)
+    # with the lanes builds)
     cli_configs = [config_of(LOW.replace(n=n)) for n in CLI_SIZES if n <= 5]
     with concurrent.futures.ThreadPoolExecutor(max_workers=6) as pool:
         fused_build = pool.submit(
@@ -2592,7 +2743,7 @@ def main():
           f"{k1_steps_s:.1f} s; the native marshaller ({native.SOURCE}) with g++ "
           f"{' '.join(cuda_build.HOST_FLAGS)} in {native_s:.1f} s; limb_division + limb_tidy "
           f"libraries and K6's digit-window build in {limb_s:.1f} s; all in "
-          f"{time.perf_counter() - t0:.1f} s, beside the {len(K1_SIZES)} K1 builds past n = 5 "
+          f"{time.perf_counter() - t0:.1f} s, beside the {len(size_builds)} K1 builds past n = 5 "
           f"in the background")
     main_config = config_of(HIGH.replace(n=4))
     for label, c in (("fused_inverse", main_config), ("fused_inverse_tracked", main_config + (True,))):
@@ -2841,20 +2992,17 @@ def main():
     print(f"host clock: the roofline path, its check and timings, {time.perf_counter() - t0:.1f} s")
 
     # -- K1 past n = 5: the builds started first, each size against its
-    # plain version on the card through run_raw, the recorded outliers, the
-    # CLI at its default sizes, the lowering, fused and rooflines drivers
+    # plain version on the card through run_raw, the two designs in turns,
+    # the recorded outliers, the CLI at its default sizes, the lowering,
+    # fused and rooflines drivers
+    build_s = wait_for_builds(size_pool, size_builds)
     t0 = time.perf_counter()
-    build_s = {label: future.result() for label, future in size_builds.items()}
-    size_pool.shutdown()
-    print(f"host clock: waited {time.perf_counter() - t0:.1f} s for the K1 builds past n = 5 "
-          f"({sum(build_s.values()):.1f} s of nvcc in all, the longest "
-          f"{max(build_s.values()):.1f} s)")
-    t0 = time.perf_counter()
-    size_checks = k1_sizes(dev, card, build_s)
+    size_checks = k1_lanes(dev, card, build_s)
+    turns = k1_design_turns(dev, card, build_s)
     outliers_on_card(dev)
     cli_runs()
-    per_n = drivers(dev, card, rates)
-    size_rows = k1_size_rows(dev, card, size_checks, per_n)
+    drivers(dev, card, rates)
+    size_rows = k1_size_rows(dev, card, size_checks, turns)
     print(f"host clock: K1 past n = 5, the outliers, the CLI and the drivers, "
           f"{time.perf_counter() - t0:.1f} s")
 

@@ -32,7 +32,7 @@ class QFloatParams:
                      "limb" (digit arrays, any base) or "auto" (packed
                      whenever the encoding fits in int64, else limb).
       lowering:      "fused" runs the whole inversion as one CUDA kernel
-                     (ops/fused_inverse.py, n <= 12); "unroll", "vec" and
+                     (ops/fused_inverse.py, any n); "unroll", "vec" and
                      "scan" run the op-by-op path (the circuit as eager
                      PyTorch ops, divisions and base-2 multiplies on the
                      card through the K2/K3/K4 kernels; JAX's "vec" and

@@ -88,10 +88,12 @@
 //                          registers).  Up to n = 5 four blocks of 128
 //                          threads, 128 registers: measured faster than
 //                          one, two, three or five at n = 4 and 5 for both
-//                          variants, and no slower at n = 2 and 3; at
-//                          n = 6 the untracked body is fastest with all
-//                          255 registers (PERF.md), and beyond nothing is
-//                          measured.
+//                          variants, and no slower at n = 2 and 3.  This
+//                          design serves n below LANES_MIN_N
+//                          (ops/fused_inverse.py); from there
+//                          fused_inverse_lanes.cu does, and this one is
+//                          built past n = 5 only to be timed beside it
+//                          (one block of all 255 registers, PERF.md).
 //   FUSED_THREADS          threads of a block
 //   FUSED_CELL_MAJOR_ONLY  1: the kernel as first ported, which took the
 //                          cell-major layout and nothing else

@@ -3,7 +3,8 @@ without overflow flags, and the partial pivot/L/U circuits.
 
 Port of ``matrix_inversion_tpu/models/inverse.py:32-126,161-365``.  On the
 packed backend two paths give bit-identical results: "fused" runs the
-whole inversion as one CUDA kernel (ops/fused_inverse.py, n <= 12); the
+whole inversion as one CUDA kernel (ops/fused_inverse.py, any n; "auto"
+takes it up to n = 12, ``FUSED_MAX_N``); the
 op-by-op path (``models.qfloat_lu.qfloat_matrix_inverse_op_by_op``) runs
 the circuit as eager PyTorch ops on int64 tensors, at any n, its divisions
 on the card through the division kernels K2/K3 and its untracked base-2

@@ -1,26 +1,40 @@
-"""The fused whole-inversion kernel (K1): CUDA build, wrapper, plain version.
+"""The fused whole-inversion kernel (K1): CUDA builds, wrapper, plain version.
 
 Replaces ``matrix_inversion_tpu/ops/fused_inverse.py::_fused_kernel``.  The
-kernel (``csrc/fused_inverse.cu``) runs the entire batched QFloat inversion,
-one thread per matrix, on cells in registers; its body is emitted per
-configuration from the circuit by :mod:`.emit`.  Without it the eager
-PyTorch circuit makes thousands of passes of batch-sized int64 tensors
-through device memory.  The kernel reads and writes the callers'
-``(B, n*n)`` layout itself, a block's matrices staged through shared
-memory, so a call is one launch and moves its bytes once; a caller that
-holds cell-major ``(n*n, B)`` data has :func:`fused_inverse_cell_major`.
+kernel runs the entire batched QFloat inversion in one launch; without it
+the eager PyTorch circuit makes thousands of passes of batch-sized int64
+tensors through device memory.  It has two designs, one library per
+configuration each:
+
+- the straight-line design (``csrc/fused_inverse.cu``), for n below
+  :data:`LANES_MIN_N` (tracked: :data:`LANES_MIN_N_TRACKED`): one thread a
+  matrix, every cell in registers, the body emitted per configuration from
+  the circuit by :mod:`.emit` (n = 2's closed form included).  Its body
+  grows as n^3 and spills past n = 5, so from there on it is built only to
+  be timed beside the other (up to ``STRAIGHT_LINE_MAX_N``);
+- the lanes design (``csrc/fused_inverse_lanes.cu``), from
+  :data:`LANES_MIN_N`, any n as JAX's kernel: a group of lanes a matrix,
+  one row a lane, the matrix and L/U in shared memory, the circuit in
+  loops over compile-time bounds, the configuration in ``-D`` macros.
+
+Both read and write the callers' ``(B, n*n)`` layout themselves, a
+block's matrices staged through shared memory, so a call is one launch
+and moves its bytes once; a caller that holds cell-major ``(n*n, B)`` data
+has :func:`fused_inverse_cell_major`.  Both give the circuit's bits.
 
 :func:`fused_matrix_inverse` keeps the contract of the JAX wrapper:
-``(..., n*n)`` int64 magnitudes and signs in, the same out, and with
-``track=True`` also an int32 overflow flag per matrix (the tracked
+``(..., n*n)`` int64 magnitudes and signs in, the same out, any n >= 2,
+and with ``track=True`` also an int32 overflow flag per matrix (the tracked
 variant, ``ops/fused_inverse.py:186-189`` of the JAX package).  A CUDA
-tensor goes through the kernel, and a CPU tensor through the plain version
-:func:`fused_matrix_inverse_reference`.
+tensor goes through the kernel of its n's design, and a CPU tensor through
+the plain version :func:`fused_matrix_inverse_reference`.  ``FUSED_MAX_N``
+is JAX's value: it bounds only ``lowering="auto"``'s choice of this kernel
+(``models/inverse.py``), not what the kernel takes.
 
-The kernel is built at first use with ``nvcc`` from the sources in
-``csrc/`` and the emitted body, into ``_build/<hash>/`` beside this
-package (:mod:`.cuda_build`), keyed by a hash of the sources, the emitted
-text, the flags and ``track``.
+The kernels are built at first use with ``nvcc`` from the sources in
+``csrc/`` (and, straight-line, the emitted body) into ``_build/<hash>/``
+beside this package (:mod:`.cuda_build`), keyed by a hash of the sources,
+the emitted text, the flags and ``track``.
 """
 
 from __future__ import annotations
@@ -33,14 +47,26 @@ import torch
 from ..models.qfloat_lu import qfloat_matrix_inverse_op_by_op
 from .cuda_build import CSRC, NVCC_FLAGS, build_library, library_path, run_parallel
 from .emit import emit_body
-from .packed import plain_arithmetic
+from .packed import digit_bits, plain_arithmetic
 
 FUSED_MAX_N = 12
+# The smallest n that the lanes design serves, untracked and tracked; below
+# it the straight-line design does.  Set from the two designs timed in turns
+# on the card (chip_smoke.py's k1_design_turns, PERF.md): at n = 6 the untracked
+# designs tie, the tracked lanes design is faster; from n = 7 it is in both.
+LANES_MIN_N = 7
+LANES_MIN_N_TRACKED = 6
+DESIGNS = ("straight_line", "lanes")
+# The largest n the straight-line design is built at, for timing beside the
+# lanes design: its nvcc takes minutes there (3-8 at n = 12) and grows as n^3.
+STRAIGHT_LINE_MAX_N = 12
 
-# Launches of the untracked and of the tracked kernel, for checks that a
+# Launches of each design's untracked and tracked kernel, for checks that a
 # run went through them.
 LAUNCHES = 0
 TRACKED_LAUNCHES = 0
+LANES_LAUNCHES = 0
+LANES_TRACKED_LAUNCHES = 0
 
 
 def _key(config):
@@ -51,62 +77,115 @@ def _key(config):
             bool(true_division), bool(track and track[0]))
 
 
-def build_dir(config, defines=()):
+def design_of(n, track=False):
+    """The design that serves n on the card: "lanes" from
+    :data:`LANES_MIN_N` (tracked :data:`LANES_MIN_N_TRACKED`), else
+    "straight_line"."""
+    return "lanes" if n >= (LANES_MIN_N_TRACKED if track else LANES_MIN_N) else "straight_line"
+
+
+def _design(key, design):
+    """``design``, or the one that serves the key's n; raises for a name
+    that is not a design and for the lanes design at n = 2, which is the
+    closed form."""
+    design = design_of(key[0], key[5]) if design is None else design
+    if design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}: expected one of {DESIGNS}")
+    if design == "lanes" and key[0] < 3:
+        raise ValueError(f"the lanes design takes n >= 3, got {key[0]}")
+    return design
+
+
+def build_dir(config, defines=(), design=None):
     """The build directory of one config (as for :func:`build`): the
-    library, its emitted body, and ``nvcc.log`` with ptxas's registers and
-    spills.  Builds first if needed."""
-    return _build_one(_key(config), tuple(defines)).parent
+    library, the straight-line design's emitted body, and ``nvcc.log`` with
+    ptxas's registers and spills.  Builds first if needed."""
+    key = _key(config)
+    return _build_one(key, tuple(defines), _design(key, design)).parent
 
 
 def _hashed(key, defines, body):
-    """The texts that key the library of one config: the sources, the
-    emitted body, the flags, ``track`` and the build switches."""
+    """The texts that key the straight-line library of one config: the
+    sources, the emitted body, the flags, ``track`` and the build
+    switches."""
     return ((CSRC / "qfloat_cell.cuh").read_text(), (CSRC / "fused_inverse.cu").read_text(),
             body, " ".join(NVCC_FLAGS), f"track={key[5]}", *defines)
 
 
-def built(config, defines=()):
+def lanes_defines(key):
+    """The ``-D`` macros that make ``csrc/fused_inverse_lanes.cu`` one
+    configuration's kernel."""
+    n, qfloat_len, qfloat_ints, qfloat_base, true_division, track = key
+    bits = digit_bits(qfloat_base)
+    if bits * qfloat_len > 62:
+        raise ValueError("encoding too wide for the packed backend")
+    return (f"LANES_N={n}", f"LANES_BITS={bits}", f"LANES_LEN={qfloat_len}",
+            f"LANES_INTS={qfloat_ints}", f"LANES_TRUE_DIV={int(true_division)}",
+            f"LANES_TRACK={int(track)}")
+
+
+def _lanes_hashed(key, defines):
+    return ((CSRC / "qfloat_cell.cuh").read_text(),
+            (CSRC / "fused_inverse_lanes.cu").read_text(), " ".join(NVCC_FLAGS),
+            *lanes_defines(key), *defines)
+
+
+_LIB_NAMES = {"straight_line": "libfused_inverse.so", "lanes": "libfused_inverse_lanes.so"}
+
+
+def built(config, defines=(), design=None):
     """Whether the library of one config (as for :func:`build`) is in
     ``_build/`` already; builds nothing."""
     key = _key(config)
-    return library_path("libfused_inverse.so", _hashed(key, defines, emit_body(*key))).exists()
+    design = _design(key, design)
+    hashed = (_lanes_hashed(key, defines) if design == "lanes"
+              else _hashed(key, defines, emit_body(*key)))
+    return library_path(_LIB_NAMES[design], hashed).exists()
 
 
-def _build_one(key, defines=()):
-    """Compile the kernel for one ``(n, len, ints, base, true_division,
-    track)``; returns the library path.  Reuses a library already built
-    from the same sources, body, flags and ``track``.  ``defines`` are
-    ``NAME=value`` macros for the compiler, the build switches of
-    ``csrc/qfloat_cell.cuh`` and ``csrc/fused_inverse.cu``: the port builds
-    with none, :mod:`..utils.fused_steps` with others, for timing."""
+def _build_one(key, defines=(), design="straight_line"):
+    """Compile one design's kernel for one ``(n, len, ints, base,
+    true_division, track)``; returns the library path.  Reuses a library
+    already built from the same sources, body, flags and ``track``.
+    ``defines`` are ``NAME=value`` macros for the compiler, the build
+    switches of ``csrc/qfloat_cell.cuh`` and the design's source: the port
+    builds with none, :mod:`..utils.fused_steps` with others, for timing."""
+    if design == "lanes":
+        return build_library(
+            "fused_inverse_lanes.cu", _LIB_NAMES[design], _lanes_hashed(key, defines),
+            what=f"config {key} {' '.join(defines)}",
+            flags=tuple(f"-D{d}" for d in lanes_defines(key) + tuple(defines)),
+        )
     body = emit_body(*key)
     return build_library(
-        "fused_inverse.cu", "libfused_inverse.so", _hashed(key, defines, body),
+        "fused_inverse.cu", _LIB_NAMES[design], _hashed(key, defines, body),
         files={"fused_body.inc": body},
         what=f"config {key} {' '.join(defines)}",
         flags=tuple(f"-D{d}" for d in defines),
     )
 
 
-def build(configs):
+def build(configs, design=None):
     """Build (in parallel, one nvcc each) the kernels of ``configs``, each
     a tuple ``(n, qfloat_len, qfloat_ints, qfloat_base, true_division)``
-    with an optional trailing ``track``, and load them."""
-    keys = [_key(c) for c in configs]
-    run_parallel([functools.partial(_build_one, k) for k in keys])
-    for k in keys:
-        _library(k)
+    with an optional trailing ``track``, in ``design`` (by default the one
+    that serves each n), and load them."""
+    jobs = [(k, _design(k, design)) for k in map(_key, configs)]
+    run_parallel([functools.partial(_build_one, k, (), d) for k, d in jobs])
+    for k, d in jobs:
+        _library(k, (), d)
 
 
 @functools.lru_cache(maxsize=None)
-def _library(key, defines=()):
+def _library(key, defines=(), design="straight_line"):
     """``(cell_major, rows)``: the two launch functions of one built
     library.  Both take the four array pointers (five tracked: the flags),
     the batch and the stream; ``rows`` takes the fetch mode before the
-    stream (-1: the arrays' own)."""
-    lib = ctypes.CDLL(str(_build_one(key, defines)))
+    stream (-1: the arrays' own, the only mode of the lanes design)."""
+    lib = ctypes.CDLL(str(_build_one(key, defines, design)))
     pointers = [ctypes.c_void_p] * (5 if key[5] else 4)
-    stem = "fused_inverse_tracked" if key[5] else "fused_inverse"
+    stem = ("fused_inverse_lanes" if design == "lanes" else "fused_inverse") \
+        + ("_tracked" if key[5] else "")
     cell_major = getattr(lib, f"{stem}_launch")
     cell_major.argtypes = pointers + [ctypes.c_int64, ctypes.c_void_p]
     rows = getattr(lib, f"{stem}_rows_launch")
@@ -115,13 +194,28 @@ def _library(key, defines=()):
     return cell_major, rows
 
 
-def block_threads(config):
-    """The threads of a block of one config's kernel (the most of 128, 64
-    and 32 whose staging buffer fits 48 KB, ``csrc/fused_inverse.cu``), read
-    from its library; builds first if needed."""
-    fn = ctypes.CDLL(str(_build_one(_key(config)))).fused_inverse_block_threads
+def _library_int(config, design, name):
+    key = _key(config)
+    fn = getattr(ctypes.CDLL(str(_build_one(key, (), _design(key, design)))), name)
     fn.restype = ctypes.c_int
     return fn()
+
+
+def block_threads(config, design=None):
+    """The threads of a block of one config's kernel, read from its
+    library (straight-line: the most of 128, 64 and 32 whose staging buffer
+    fits 48 KB, ``csrc/fused_inverse.cu``; lanes: 128, or one group past
+    n = 32); builds first if needed."""
+    key = _key(config)
+    design = _design(key, design)
+    stem = "fused_inverse_lanes" if design == "lanes" else "fused_inverse"
+    return _library_int(config, design, f"{stem}_block_threads")
+
+
+def lanes_smem_bytes(config):
+    """The dynamic shared memory a block of one config's lanes kernel
+    takes; builds first if needed."""
+    return _library_int(config, "lanes", "fused_inverse_lanes_smem_bytes")
 
 
 def _check_pair(m, s, what):
@@ -135,9 +229,10 @@ def _check_pair(m, s, what):
         raise ValueError(f"mags and signs must both have shape {what}")
 
 
-def _launch(fn, m, s, batch, track, *mode):
+def _launch(fn, m, s, batch, track, design, *mode):
     """Allocate the outputs like ``m``, launch ``fn`` on the current stream
-    and count the launch; raises if the launch is refused."""
+    and count the launch under its design; raises if the launch is
+    refused."""
     om = torch.empty_like(m)
     os_ = torch.empty_like(s)
     ptrs = [m.data_ptr(), s.data_ptr(), om.data_ptr(), os_.data_ptr()]
@@ -147,30 +242,40 @@ def _launch(fn, m, s, batch, track, *mode):
     with torch.cuda.device(m.device):
         err = fn(*ptrs, batch, *mode, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"fused_inverse kernel launch failed: cudaError {err}")
-    global LAUNCHES, TRACKED_LAUNCHES
-    if track:
+        raise RuntimeError(f"fused_inverse ({design}) kernel launch failed: cudaError {err}")
+    global LAUNCHES, TRACKED_LAUNCHES, LANES_LAUNCHES, LANES_TRACKED_LAUNCHES
+    if design == "lanes":
+        if track:
+            LANES_TRACKED_LAUNCHES += 1
+        else:
+            LANES_LAUNCHES += 1
+    elif track:
         TRACKED_LAUNCHES += 1
-        return om, os_, flag
-    LAUNCHES += 1
-    return om, os_
+    else:
+        LAUNCHES += 1
+    return (om, os_, flag) if track else (om, os_)
+
+
+def _check_n(n):
+    if n < 2:
+        raise ValueError(f"the fused kernel takes n >= 2, got {n}")
 
 
 def fused_matrix_inverse(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base,
-                         true_division, track=False):
+                         true_division, track=False, design=None):
     """Whole batched inversion: ``(..., n*n)`` int64 magnitudes and signs in,
     the same out (contract of ``matrix_inversion_tpu/ops/fused_inverse.py``
-    ``fused_matrix_inverse``).  ``track=True`` returns ``(mags, signs,
-    flag)`` with ``flag`` int32 of the batch shape.
+    ``fused_matrix_inverse``), any n >= 2.  ``track=True`` returns ``(mags,
+    signs, flag)`` with ``flag`` int32 of the batch shape.
 
-    A CUDA tensor launches the kernel, once, on the tensors as they lie:
+    A CUDA tensor launches the kernel of ``design`` (by default the one
+    that serves n, :func:`design_of`, tracked or not), once, on the tensors as they lie:
     the kernel takes the ``(B, n*n)`` layout, any batch size, and storage
     that is 8- but not 16-byte aligned (through 64-bit accesses).  Only an
     input that is not contiguous is copied first (``.contiguous()``).  A CPU
-    tensor runs the plain version.
+    tensor runs the plain version, whatever ``design`` says.
     """
-    if not 2 <= n <= FUSED_MAX_N:
-        raise ValueError(f"the fused kernel takes n in [2, {FUSED_MAX_N}], got {n}")
+    _check_n(n)
     if mags.device.type == "cpu" and signs.device.type == "cpu":
         return fused_matrix_inverse_reference(
             mags, signs, n, qfloat_len, qfloat_ints, qfloat_base, true_division,
@@ -182,25 +287,29 @@ def fused_matrix_inverse(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base,
         raise ValueError(f"mags and signs must both have shape (..., {n2})")
     bshape = mags.shape[:-1]
     key = _key((n, qfloat_len, qfloat_ints, qfloat_base, true_division, track))
-    out = _launch(_library(key)[1], mags.contiguous(), signs.contiguous(),
-                  bshape.numel(), track, -1)
+    design = _design(key, design)
+    out = _launch(_library(key, (), design)[1], mags.contiguous(), signs.contiguous(),
+                  bshape.numel(), track, design, -1)
     if track:
         return out[0], out[1], out[2].reshape(bshape)
     return out
 
 
 def fused_inverse_cell_major(cm, cs, n, qfloat_len, qfloat_ints, qfloat_base,
-                             true_division, track=False):
-    """One kernel launch on cell-major ``(n*n, B)`` contiguous int64 CUDA
-    tensors; returns the ``(n*n, B)`` output magnitudes and signs, and with
-    ``track=True`` also the ``(B,)`` int32 overflow flags."""
+                             true_division, track=False, design=None):
+    """One kernel launch (of ``design``, by default the one that serves n)
+    on cell-major ``(n*n, B)`` contiguous int64 CUDA tensors; returns the
+    ``(n*n, B)`` output magnitudes and signs, and with ``track=True`` also
+    the ``(B,)`` int32 overflow flags."""
+    _check_n(n)
     _check_pair(cm, cs, f"({n * n}, B)")
     if not (cm.is_contiguous() and cs.is_contiguous()):
         raise ValueError("cell-major inputs must be contiguous")
     if cm.dim() != 2 or cm.shape[0] != n * n:
         raise ValueError(f"cell-major inputs must both have shape ({n * n}, B)")
     key = _key((n, qfloat_len, qfloat_ints, qfloat_base, true_division, track))
-    return _launch(_library(key)[0], cm, cs, cm.shape[1], track)
+    design = _design(key, design)
+    return _launch(_library(key, (), design)[0], cm, cs, cm.shape[1], track, design)
 
 
 def fused_matrix_inverse_reference(mags, signs, n, qfloat_len, qfloat_ints,

@@ -124,7 +124,7 @@ def build_info(track, defines, config=CONFIG):
     built step: ptxas's registers of the kernel and its spill lines (the
     called functions' too), and the static SASS instructions of the whole
     library (a function that is called counted once)."""
-    directory = fused_inverse.build_dir(config + (track,), defines)
+    directory = fused_inverse.build_dir(config + (track,), defines, "straight_line")
     log = (directory / "nvcc.log").read_text()
     registers = [r for name, r in sass.ptxas_registers(log).items()
                  if "fused_inverse_kernel" in name]

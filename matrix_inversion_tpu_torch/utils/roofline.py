@@ -296,9 +296,41 @@ def _emitted(n, preset, track):
     return hist, len(em.mul_operands[0]), len(em.mul_operands[1])
 
 
+def function_savings(n, true_division, track=False):
+    """``{primitive: count}`` that the emitted straight-line body makes and
+    the inversion's function does not need, per inversion, as the lanes
+    design (``csrc/fused_inverse_lanes.cu``) shows: P.M's one-hot chains
+    make n - 1 signed adds a cell where the selected cell and one add give
+    the same bits (n*n*(n-2) fewer), and the reciprocals of U's diagonal
+    are computed twice (n fewer, without true division); tracked, each of
+    them ORs a flag.  None at n = 2, the closed form."""
+    if n < 3:
+        return {}
+    out = {"sadd_t" if track else "sadd": n * n * (n - 2)}
+    if not true_division:
+        out["invert_t" if track else "invert"] = n
+    if track:
+        out["flag_or"] = sum(out.values())
+    return out
+
+
+def function_op_histogram(n: int = 4, preset: str = "high", track: bool = False):
+    """The least work known for the inversion's function, by primitive: the
+    emitted body's histogram (:func:`kernel_op_histogram`) less
+    :func:`function_savings`.  The bound of either design of K1."""
+    from ..config import PRESETS
+
+    saved = function_savings(n, PRESETS[preset].true_division, track)
+    hist = {k: v - saved.get(k, 0) for k, v in _emitted(n, preset, track)[0].items()}
+    return dict(sorted(hist.items(), key=lambda kv: -kv[1]))
+
+
 def kernel_roofline(measured_inversions_per_s=None, n=4, preset="high",
-                    measured_rates=None, track=False):
-    """Roofline for the fused kernel from its real op histogram.
+                    measured_rates=None, track=False, as_emitted=False):
+    """Roofline for the fused kernel from the op histogram of its function
+    (:func:`function_op_histogram`, the bound of both designs), or with
+    ``as_emitted`` from the straight-line body's own (its count is
+    ``nominal_instructions_per_inversion_as_emitted`` either way).
 
     ``measured_rates``: {primitive name: primitives/s on the whole card},
     measured with ``utils/ubench.py``.  A primitive without an entry is
@@ -312,13 +344,16 @@ def kernel_roofline(measured_inversions_per_s=None, n=4, preset="high",
     ``measured_rates`` there is no bound: the function returns the
     histogram and the counts with ``rate_source`` ``"none"``.
     """
-    hist, first_operands, second_operands = _emitted(n, preset, track)
+    emitted, first_operands, second_operands = _emitted(n, preset, track)
+    hist = emitted if as_emitted else function_op_histogram(n, preset, track)
     nominal = _nominal_instructions(hist, first_operands, second_operands)
     out = {
         "ops_per_inversion_kernel": round(float(sum(hist.values())), 1),
         "kernel_op_histogram": {k: round(float(v), 1) for k, v in hist.items()},
         "distinct_mul_operands": [first_operands, second_operands],
         "nominal_instructions_per_inversion": round(sum(nominal.values()), 1),
+        "nominal_instructions_per_inversion_as_emitted": round(sum(
+            _nominal_instructions(emitted, first_operands, second_operands).values()), 1),
         "rate_source": "measured" if measured_rates else "none",
     }
     if not measured_rates:

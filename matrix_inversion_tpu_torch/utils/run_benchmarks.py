@@ -116,14 +116,16 @@ def _libraries_built(p, lowering, track=False):
     return long_division.built()
 
 
-def lowering(sizes=(4, 5, 6, 8, 10, 11, 12), lowerings=("fused", "unroll"), batch=65536, reps=5,
-             preset="high", repeats=3, *, device="cuda"):
+def lowering(sizes=(4, 5, 6, 8, 10, 11, 12, 16), lowerings=("fused", "unroll"), batch=65536,
+             reps=5, preset="high", repeats=3, *, device="cuda"):
     """Per n and lowering (``benchmarks/run_benchmarks.py:98-147``): the
     first call's wall seconds (``first_call_s``: the kernels' build, or
     their load where ``libraries_built`` says they were in ``_build/``
     already, and one ``run_raw``) and the inversions/s of the packed
     ``run_raw`` chained ``reps`` times (``utils/timing.py::timed_chain``,
-    CUDA events on the card, median of ``repeats`` passes).  Raises if two
+    CUDA events on the card, median of ``repeats`` passes).  "fused" takes
+    any n, past ``FUSED_MAX_N`` too (where "auto" does not take it); its
+    entry names the design of K1 that served n (``design``).  Raises if two
     lowerings' outputs at one n differ by a bit."""
     device = _target(device, "lowering")
     results = {}
@@ -147,6 +149,7 @@ def lowering(sizes=(4, 5, 6, 8, 10, 11, 12), lowerings=("fused", "unroll"), batc
                 "libraries_built": cached,
                 "inversions_per_s": batch * reps / elapsed,
                 "batch": batch,
+                **({"design": fused_inverse.design_of(n)} if name == "fused" else {}),
                 **stats,
             }
             print(f"n={n}/{name}", results[f"n={n}/{name}"], flush=True)
@@ -163,14 +166,19 @@ def _kernelmix_rate(device):
     return {"u32_kernelmix": ubench.measure("u32_kernelmix")} if device.type == "cuda" else None
 
 
-def fused(sizes=tuple(range(2, 13)), batch=262144, reps=5, repeats=3, preset="high", tracked=False,
-          unroll_sizes=None, rates=None, *, device="cuda"):
+def fused(sizes=tuple(range(2, 17)), batch=262144, reps=5, repeats=3, preset="high", tracked=False,
+          unroll_sizes=None, rates=None, designs=(), *, device="cuda"):
     """Per-n rates of the fused kernel K1 at one batch for every n, with
     their spread (``benchmarks/run_benchmarks.py:150-265``).
 
-    Variants: ``fused``; with ``tracked`` also ``fused_tracked`` and
+    Variants: ``fused`` (the design of K1 that serves n, named in its
+    ``design``); with ``tracked`` also ``fused_tracked`` and
     ``unroll_tracked`` (the tracked op-by-op path; only at the n of
-    ``unroll_sizes``, default every size).  Each is the packed-I/O circuit
+    ``unroll_sizes``, default every size); for each design of ``designs``
+    where it exists at n (the lanes design from n = 3, the straight-line
+    one up to ``STRAIGHT_LINE_MAX_N``) ``fused_<design>`` and, with
+    ``tracked``, ``fused_<design>_tracked``: K1 in that design, whatever
+    serves n.  Each is the packed-I/O circuit
     chained on its own output, timed by ``timed_marginal`` (chains of
     ``reps`` and ``2 * reps`` calls, ``repeats`` passes each): the marginal
     rate where it clears the passes' jitter, else the chain's.  ``fused``
@@ -187,16 +195,28 @@ def fused(sizes=tuple(range(2, 13)), batch=262144, reps=5, repeats=3, preset="hi
         M = np.random.RandomState(0).randn(batch, n, n) * 100
         inv = BatchedMatrixInversion(p, batch, backend="packed", io="packed", device=device)
         m, s = inv.quantize(M)
-        variants = {"fused": ("fused", False)}
+        variants = {"fused": ("fused", False, None)}
         if tracked:
-            variants["fused_tracked"] = ("fused", True)
+            variants["fused_tracked"] = ("fused", True, None)
             if unroll_sizes is None or n in unroll_sizes:
-                variants["unroll_tracked"] = ("unroll", True)
-        for vname, (name, track) in variants.items():
-            body = qfloat_matrix_inverse_with_overflow if track else qfloat_matrix_inverse_packed_io
-            fn = functools.partial(body, n=n, qfloat_len=p.qfloat_len, qfloat_ints=p.qfloat_ints,
-                                   qfloat_base=p.qfloat_base, true_division=p.true_division,
-                                   lowering=name)
+                variants["unroll_tracked"] = ("unroll", True, None)
+        for design in designs:
+            if n >= 3 and (design != "straight_line" or n <= fused_inverse.STRAIGHT_LINE_MAX_N):
+                variants[f"fused_{design}"] = ("fused", False, design)
+                if tracked:
+                    variants[f"fused_{design}_tracked"] = ("fused", True, design)
+        for vname, (name, track, design) in variants.items():
+            if design is not None:
+                fn = functools.partial(fused_inverse.fused_matrix_inverse, n=n,
+                                       qfloat_len=p.qfloat_len, qfloat_ints=p.qfloat_ints,
+                                       qfloat_base=p.qfloat_base,
+                                       true_division=p.true_division, track=track, design=design)
+            else:
+                body = (qfloat_matrix_inverse_with_overflow if track
+                        else qfloat_matrix_inverse_packed_io)
+                fn = functools.partial(body, n=n, qfloat_len=p.qfloat_len,
+                                       qfloat_ints=p.qfloat_ints, qfloat_base=p.qfloat_base,
+                                       true_division=p.true_division, lowering=name)
             t0 = time.perf_counter()
             fn(m, s)
             _sync(device)
@@ -207,6 +227,8 @@ def fused(sizes=tuple(range(2, 13)), batch=262144, reps=5, repeats=3, preset="hi
             rate = batch / per_rep if stats["marginal_reliable"] else chain_rate
             entry = {"inversions_per_s": rate, "chain_inversions_per_s": chain_rate,
                      "batch": batch, "first_call_s": first_s, **stats}
+            if name == "fused":
+                entry["design"] = design or fused_inverse.design_of(n, track)
             if vname == "fused":
                 roof = roofline.kernel_roofline(
                     rate, n, preset, {"default": rates["u32_kernelmix"]} if rates else None)
@@ -221,14 +243,16 @@ def fused(sizes=tuple(range(2, 13)), batch=262144, reps=5, repeats=3, preset="hi
     return results
 
 
-def rooflines(fused_results, preset="high", rates=None, track=False):
+def rooflines(fused_results, preset="high", rates=None, track=False, design=None):
     """The per-n table of ``utils/roofline.py::rooflines`` from the dict of
     :func:`fused` (``benchmarks/run_benchmarks.py:457-565``): each n's
-    ``fused`` (or with ``track``, ``fused_tracked``) rate against its bound
-    over ``rates["u32_kernelmix"]`` (by default the rate ``fused`` used).
-    Unlike the JAX table the share is not capped at 100%: a rate over 105%
-    of its bound raises.  No device work."""
-    variant = "fused_tracked" if track else "fused"
+    ``fused`` (or with ``track``, ``fused_tracked``; with ``design``, the
+    variants of that design) rate against its bound over
+    ``rates["u32_kernelmix"]`` (by default the rate ``fused`` used): the
+    bound of the function, the same for both designs.  Unlike the JAX
+    table the share is not capped at 100%: a rate over 105% of its bound
+    raises.  No device work."""
+    variant = "fused" + (f"_{design}" if design else "") + ("_tracked" if track else "")
     measured = {}
     for key, entry in fused_results.items():
         name, size, vname = key.split("/")
@@ -510,19 +534,22 @@ def main(argv=None):
     th.add_argument("--batch", type=int, default=262144)
     th.add_argument("--reps", type=int, default=10)
     lo = sub.add_parser("lowering")
-    lo.add_argument("--sizes", default="4,5,6,8,10,11,12")
+    lo.add_argument("--sizes", default="4,5,6,8,10,11,12,16")
     lo.add_argument("--lowerings", default="fused,unroll")
     lo.add_argument("--batch", type=int, default=65536)
     lo.add_argument("--reps", type=int, default=5)
     lo.add_argument("--preset", default="high")
     for name in ("fused", "rooflines"):
         fu = sub.add_parser(name)
-        fu.add_argument("--sizes", default=",".join(str(n) for n in range(2, 13)))
+        fu.add_argument("--sizes", default=",".join(str(n) for n in range(2, 17)))
         fu.add_argument("--batch", type=int, default=262144)
         fu.add_argument("--reps", type=int, default=5)
         fu.add_argument("--repeats", type=int, default=3)
         fu.add_argument("--preset", default="high")
         fu.add_argument("--tracked", action="store_true")
+        fu.add_argument("--designs", default="",
+                        help="comma-separated designs of K1 to time beside the one that serves n "
+                             "(straight_line, lanes)")
     ee = sub.add_parser("e2e")
     ee.add_argument("--n", type=int, default=4)
     ee.add_argument("--preset", default="high")
@@ -547,9 +574,13 @@ def main(argv=None):
         out = lowering([int(s) for s in args.sizes.split(",")], args.lowerings.split(","),
                        args.batch, args.reps, args.preset, device=args.device)
     elif args.cmd in ("fused", "rooflines"):
+        designs = tuple(d for d in args.designs.split(",") if d)
         out = fused([int(s) for s in args.sizes.split(",")], args.batch, args.reps, args.repeats,
-                    args.preset, args.tracked, device=args.device)
-        if args.cmd == "rooflines":
+                    args.preset, args.tracked, designs=designs, device=args.device)
+        if args.cmd == "rooflines" and designs:
+            out = {"fused": rooflines(out, args.preset),
+                   **{f"fused_{d}": rooflines(out, args.preset, design=d) for d in designs}}
+        elif args.cmd == "rooflines":
             out = rooflines(out, args.preset)
     elif args.cmd == "scaling":
         out = scaling(args.per_card, [int(k) for k in args.sizes.split(",")], args.reps,

@@ -154,7 +154,10 @@ def test_kernel_roofline_without_rates_has_no_bound():
 
 
 def test_kernel_roofline_with_rates_is_count_over_rate():
-    hist = kernel_op_histogram(4, "high")
+    """Over the function's histogram: the emitted body's less P.M's chains
+    (16 * 2 signed adds at n = 4, tests/test_torch_k1_lanes.py)."""
+    hist = roofline.function_op_histogram(4, "high")
+    assert hist["sadd"] == kernel_op_histogram(4, "high")["sadd"] - 32 == 78
     rates = {prim: 1e9 * (i + 1) for i, prim in enumerate(hist)}
     r = kernel_roofline(measured_inversions_per_s=1e5, n=4, preset="high",
                         measured_rates=rates)
@@ -166,7 +169,7 @@ def test_kernel_roofline_with_rates_is_count_over_rate():
     partial = {"mul": 2e11, "sadd": 8e11, "divide": 1e11, "default": 2e13}
     r = kernel_roofline(n=4, preset="high", measured_rates=partial)
     nominal = roofline._PRIM_NOMINAL_INSTR
-    want = 1.0 / (50 / 2e11 + 110 / 8e11 + 22 / 1e11 + sum(
+    want = 1.0 / (50 / 2e11 + 78 / 8e11 + 22 / 1e11 + sum(
         cnt * nominal[prim] / 2e13 for prim, cnt in hist.items() if prim not in partial))
     assert r["roofline_inversions_per_s_measured_rates"] == round(want, 1)
     assert r["int_issue_rate"] == 2e13 and "mfu_pct_vs_measured_roofline" not in r
