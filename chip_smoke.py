@@ -198,6 +198,7 @@ from matrix_inversion_tpu_torch.utils import (
     division_steps,
     fused_steps,
     precision,
+    profiling,
     roofline,
     run_benchmarks,
     samplers,
@@ -490,20 +491,18 @@ def replay_of(launch, count):
     return graph.replay
 
 
+# the kernels whose launches counts() reads (``launch.<kernel>`` counters)
+KERNELS = ("fused_inverse", "fused_inverse_tracked", "fused_inverse_lanes",
+           "fused_inverse_lanes_tracked", "long_division_float", "long_division_classic",
+           "mul_window", "limb_division", "limb_tidy")
+
+
 def reset_counts():
-    fused_inverse.LAUNCHES = fused_inverse.TRACKED_LAUNCHES = 0
-    fused_inverse.LANES_LAUNCHES = fused_inverse.LANES_TRACKED_LAUNCHES = 0
-    for launches in (long_division.LAUNCHES, limb_kernels.LAUNCHES):
-        for name in launches:
-            launches[name] = 0
+    profiling.reset()
 
 
 def counts():
-    return {"fused_inverse": fused_inverse.LAUNCHES,
-            "fused_inverse_tracked": fused_inverse.TRACKED_LAUNCHES,
-            "fused_inverse_lanes": fused_inverse.LANES_LAUNCHES,
-            "fused_inverse_lanes_tracked": fused_inverse.LANES_TRACKED_LAUNCHES,
-            **long_division.LAUNCHES, **limb_kernels.LAUNCHES}
+    return {name: profiling.launches(name) for name in KERNELS}
 
 
 def k1_counter(n, track):
@@ -662,7 +661,7 @@ def check_launches_under_profiler(dev, inv, mags, signs, tinv, tmags, tsigns, dp
     x.invert(1, 40, 0)  # the constant word is filled once, here at the latest
     inv.run_raw(mags, signs)
     tinv.run_raw(tmags, tsigns)
-    before = long_division.LAUNCHES["long_division_float"]
+    before = profiling.launches("long_division_float")
     got = []
     dp_inv, dp_mags, dp_signs = dp
     dp_inv.run_raw(dp_mags, dp_signs)
@@ -702,7 +701,7 @@ def check_launches_under_profiler(dev, inv, mags, signs, tinv, tmags, tsigns, dp
     ref = packed.packed_long_division_reference(
         torch.tensor(1 << 60, device=dev), x.mag, 61) & ((1 << 40) - 1)
     assert torch.equal(got[0].mag, ref), "invert differs from the plain version"
-    assert long_division.LAUNCHES["long_division_float"] == before + 1
+    assert profiling.launches("long_division_float") == before + 1
     names = ran["reciprocal"]
     division = [n for n in names if "stream_kernel" in n]
     assert dev.type != "cuda" or (len(division) == 1 and names[division[0]] == 1), \
@@ -1845,8 +1844,7 @@ def check_ubench(dev, rows=UBENCH_ROWS):
     K = 64 on a ragged (33, 128) input, and C = 8 at the measurement's own
     width (``rows``, 128), whose grid the rates come from, at a K that runs
     the unrolled loop's remainder; returns the differing bytes (0)."""
-    for name in ubench.LAUNCHES:
-        ubench.LAUNCHES[name] = 0
+    before = profiling.counters("launch.ubench.")
     worst = 0
     for name, (_, dtype, _) in ubench.MIXES.items():
         full_k = UBENCH_CELL_CHECK_K if dtype == torch.int64 else UBENCH_CHECK_K
@@ -1860,7 +1858,8 @@ def check_ubench(dev, rows=UBENCH_ROWS):
             worst = max(worst, err)
             assert err == 0, (f"ubench {name} ({shape_rows}, 128) K={K} C={C}: kernel differs "
                               "from the plain version")
-        assert ubench.LAUNCHES[name] == 3, f"ubench {name}: {ubench.LAUNCHES[name]} launches"
+        launched = profiling.launches("ubench." + name) - before.get("launch.ubench." + name, 0)
+        assert launched == 3, f"ubench {name}: {launched} launches"
         print(f"check ubench {name}: (33, 128) {dtype}, K=64, C={UBENCH_C} and C=1, and "
               f"({rows}, 128), K={full_k}, C={UBENCH_C}: kernel == plain version bit for bit "
               "(tolerance 0)")
@@ -2574,14 +2573,14 @@ def stats_worker(rank, world, port):
     d, offset = global_batch_arrays(digits[start:start + size], mesh, P("data", None, None))
     s, _ = global_batch_arrays(signs[start:start + size], mesh, P("data", None))
     assert offset == start
-    before = fused_inverse.LAUNCHES
+    before = profiling.launches("fused_inverse")
     out, stat = sharded_inverse_with_stats(p, mesh)(d, s)
     per = 16 // world
     cells = slice(rank * per, (rank + 1) * per)
     cell_out = cell_sharded_pipeline(p, Mesh([[card]], ("data", "cell")))(
         torch.from_numpy(digits[:, cells]).to(card), torch.from_numpy(signs[:, cells]).to(card))
     torch.cuda.synchronize()
-    launches = fused_inverse.LAUNCHES - before
+    launches = profiling.launches("fused_inverse") - before
     assert torch.equal(out.cpu(), cpu_out[start:start + size]), "stats: output != the CPU"
     assert stat.item() == cpu_stat.item(), f"stats: {stat.item()} != the CPU's {cpu_stat.item()}"
     assert torch.equal(cell_out.cpu(), cpu_out), "cell pipeline: output != the CPU"
@@ -2611,9 +2610,9 @@ def halves_worker(rank, world, port, backend):
     start, size = host_local_slice(DP_TWO_PROCESS_BATCH, mesh)
     m, offset = global_batch_arrays(mags[start:start + size], mesh, P("data", None))
     s, _ = global_batch_arrays(signs[start:start + size], mesh, P("data", None))
-    before = fused_inverse.LAUNCHES
+    before = profiling.launches("fused_inverse")
     out = data_parallel_inverse_fused(p, mesh)(m, s)
-    launches = fused_inverse.LAUNCHES - before
+    launches = profiling.launches("fused_inverse") - before
     joined = [_all_gather(x, 0) for x in out]
     ref = fused_inverse.fused_matrix_inverse(torch.from_numpy(mags).to(card),
                                              torch.from_numpy(signs).to(card), *config_of(p))
@@ -2802,9 +2801,9 @@ def main():
     reset_counts()
     out = inv.run_raw(mags, signs)
     torch.cuda.synchronize()
-    launches = fused_inverse.LAUNCHES
+    launches = profiling.launches("fused_inverse")
     assert launches == 1, f"the main path launched the fused kernel {launches} times, not once"
-    assert fused_inverse.TRACKED_LAUNCHES == 0, "the untracked path launched the tracked kernel"
+    assert profiling.launches("fused_inverse_tracked") == 0, "the untracked path launched the tracked kernel"
     t0 = time.perf_counter()
     res = inv.dequantize(out)
     dequantize_s = time.perf_counter() - t0
@@ -2837,10 +2836,10 @@ def main():
     reset_counts()
     tout = tinv.run_raw(tmags, tsigns)
     torch.cuda.synchronize()
-    tracked_launches = fused_inverse.TRACKED_LAUNCHES
+    tracked_launches = profiling.launches("fused_inverse_tracked")
     assert tracked_launches == 1, \
         f"the tracked main path launched the tracked kernel {tracked_launches} times, not once"
-    assert fused_inverse.LAUNCHES == 0, "the tracked main path launched the untracked kernel"
+    assert profiling.launches("fused_inverse") == 0, "the tracked main path launched the untracked kernel"
     tres, tflags = tinv.dequantize(tout)
     assert len(tout) == 3 and tout[2].shape == (MAIN_BATCH,) and tout[2].dtype == torch.int32
     assert tres.shape == (MAIN_BATCH, 4, 4) and np.isfinite(tres).all()
@@ -2981,13 +2980,14 @@ def main():
     # rates at full width, and kernel_roofline over K1's emitted body
     t0 = time.perf_counter()
     ubench_err = check_ubench(dev)
-    for name in ubench.LAUNCHES:
-        ubench.LAUNCHES[name] = 0
+    before = profiling.counters("launch.ubench.")
     rates, kernelmix_ms = measure_ubench(dev, card)
     rooflines = roofline_path(dev, card, rates, op_times, op_kernel_sass())
-    ubench_launches = sum(ubench.LAUNCHES.values())
-    assert all(count > 0 for count in ubench.LAUNCHES.values()), \
-        f"the roofline path did not launch every mix: {ubench.LAUNCHES}"
+    ubench_counts = {name: profiling.launches("ubench." + name)
+                     - before.get("launch.ubench." + name, 0) for name in ubench.MIXES}
+    ubench_launches = sum(ubench_counts.values())
+    assert all(count > 0 for count in ubench_counts.values()), \
+        f"the roofline path did not launch every mix: {ubench_counts}"
     ubench_plain_ms = time_ubench_plain(dev, card)
     print(f"host clock: the roofline path, its check and timings, {time.perf_counter() - t0:.1f} s")
 

@@ -27,6 +27,7 @@ import torch
 
 from ..ops.fused_inverse import FUSED_MAX_N, fused_matrix_inverse
 from ..ops.packed import digit_bits, digits_to_mags, mags_to_digits
+from ..utils import profiling
 from .marshal import qfloat_arrays_to_qfloat_matrix, qfloat_matrix_to_arrays_and_signs
 from .qfloat_lu import (
     qfloat_lu_decomposition,
@@ -150,11 +151,13 @@ def qfloat_matrix_inverse(qfloat_arrays, qfloat_signs, n, qfloat_len, qfloat_int
         M = qfloat_arrays_to_qfloat_matrix(digits, signs, qfloat_ints, qfloat_base, backend)
         Minv = qfloat_matrix_inverse_cells(M, qfloat_len, qfloat_ints, true_division, tensorize)
         return qfloat_matrix_to_arrays_and_signs(Minv, qfloat_len, qfloat_ints, qfloat_base)
+    with profiling.span("digits.pack"):
+        mags = digits_to_mags(digits, digit_bits(qfloat_base))
     mags, out_signs = qfloat_matrix_inverse_packed_io(
-        digits_to_mags(digits, digit_bits(qfloat_base)), signs, n, qfloat_len, qfloat_ints,
-        qfloat_base, true_division, lowering=lowering,
+        mags, signs, n, qfloat_len, qfloat_ints, qfloat_base, true_division, lowering=lowering,
     )
-    return digit_output(mags, out_signs, qfloat_len, qfloat_base)
+    with profiling.span("digits.unpack"):
+        return digit_output(mags, out_signs, qfloat_len, qfloat_base)
 
 
 def digit_output(mags, signs, qfloat_len, qfloat_base):

@@ -5,7 +5,9 @@ A library is built at first use from ``csrc/`` into ``_build/<hash>/``
 beside this package, where the hash covers the texts its caller names
 (sources, generated files, flags).  A library already built from the same
 texts is reused.  ``nvcc.log`` beside each CUDA library holds ptxas's
-registers and spills (``g++.log`` the host compiler's output).
+registers and spills (``g++.log`` the host compiler's output).  Each call
+counts ``library.built`` or ``library.loaded`` (``utils/profiling.py``) and,
+unless its caller times the whole load, ``library.ns``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from ..utils import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -53,10 +57,17 @@ def build_library(source, lib_name, hashed, files=None, what="", flags=(), host=
     (found there by ``#include``); ``flags`` follow ``NVCC_FLAGS``, or
     ``HOST_FLAGS`` for a host library (``host=True``, built with g++); the
     caller hashes them.  A failed build raises with the compiler's output."""
+    with profiling.library(lib_name):
+        return _build(source, lib_name, hashed, files, what, flags, host)
+
+
+def _build(source, lib_name, hashed, files, what, flags, host):
     lib = library_path(lib_name, hashed)
     out_dir = lib.parent
     if lib.exists():
+        profiling.count("library.loaded")
         return lib
+    profiling.count("library.built")
     out_dir.mkdir(parents=True, exist_ok=True)
     for name, text in (files or {}).items():
         (out_dir / name).write_text(text)

@@ -45,6 +45,7 @@ import functools
 import torch
 
 from ..models.qfloat_lu import qfloat_matrix_inverse_op_by_op
+from ..utils import profiling
 from .cuda_build import CSRC, NVCC_FLAGS, build_library, library_path, run_parallel
 from .emit import emit_body
 from .packed import digit_bits, plain_arithmetic
@@ -60,13 +61,6 @@ DESIGNS = ("straight_line", "lanes")
 # The largest n the straight-line design is built at, for timing beside the
 # lanes design: its nvcc takes minutes there (3-8 at n = 12) and grows as n^3.
 STRAIGHT_LINE_MAX_N = 12
-
-# Launches of each design's untracked and tracked kernel, for checks that a
-# run went through them.
-LAUNCHES = 0
-TRACKED_LAUNCHES = 0
-LANES_LAUNCHES = 0
-LANES_TRACKED_LAUNCHES = 0
 
 
 def _key(config):
@@ -131,6 +125,9 @@ def _lanes_hashed(key, defines):
 
 
 _LIB_NAMES = {"straight_line": "libfused_inverse.so", "lanes": "libfused_inverse_lanes.so"}
+# the launch counter of each design, untracked and tracked (``utils/profiling.py``)
+_COUNTERS = {(d, t): f"launch.fused_inverse{'_lanes' * (d == 'lanes')}{'_tracked' * t}"
+             for d in DESIGNS for t in (False, True)}
 
 
 def built(config, defines=(), design=None):
@@ -149,20 +146,22 @@ def _build_one(key, defines=(), design="straight_line"):
     already built from the same sources, body, flags and ``track``.
     ``defines`` are ``NAME=value`` macros for the compiler, the build
     switches of ``csrc/qfloat_cell.cuh`` and the design's source: the port
-    builds with none, :mod:`..utils.fused_steps` with others, for timing."""
-    if design == "lanes":
+    builds with none, :mod:`..utils.fused_steps` with others, for timing.
+    The emitter and the hash count in ``library.ns``."""
+    with profiling.library(_LIB_NAMES[design]):
+        if design == "lanes":
+            return build_library(
+                "fused_inverse_lanes.cu", _LIB_NAMES[design], _lanes_hashed(key, defines),
+                what=f"config {key} {' '.join(defines)}",
+                flags=tuple(f"-D{d}" for d in lanes_defines(key) + tuple(defines)),
+            )
+        body = emit_body(*key)
         return build_library(
-            "fused_inverse_lanes.cu", _LIB_NAMES[design], _lanes_hashed(key, defines),
+            "fused_inverse.cu", _LIB_NAMES[design], _hashed(key, defines, body),
+            files={"fused_body.inc": body},
             what=f"config {key} {' '.join(defines)}",
-            flags=tuple(f"-D{d}" for d in lanes_defines(key) + tuple(defines)),
+            flags=tuple(f"-D{d}" for d in defines),
         )
-    body = emit_body(*key)
-    return build_library(
-        "fused_inverse.cu", _LIB_NAMES[design], _hashed(key, defines, body),
-        files={"fused_body.inc": body},
-        what=f"config {key} {' '.join(defines)}",
-        flags=tuple(f"-D{d}" for d in defines),
-    )
 
 
 def build(configs, design=None):
@@ -182,7 +181,8 @@ def _library(key, defines=(), design="straight_line"):
     library.  Both take the four array pointers (five tracked: the flags),
     the batch and the stream; ``rows`` takes the fetch mode before the
     stream (-1: the arrays' own, the only mode of the lanes design)."""
-    lib = ctypes.CDLL(str(_build_one(key, defines, design)))
+    with profiling.library(_LIB_NAMES[design]):
+        lib = ctypes.CDLL(str(_build_one(key, defines, design)))
     pointers = [ctypes.c_void_p] * (5 if key[5] else 4)
     stem = ("fused_inverse_lanes" if design == "lanes" else "fused_inverse") \
         + ("_tracked" if key[5] else "")
@@ -231,8 +231,8 @@ def _check_pair(m, s, what):
 
 def _launch(fn, m, s, batch, track, design, *mode):
     """Allocate the outputs like ``m``, launch ``fn`` on the current stream
-    and count the launch under its design; raises if the launch is
-    refused."""
+    and count the launch (``launch.fused_inverse[_lanes][_tracked]``); raises
+    if the launch is refused."""
     om = torch.empty_like(m)
     os_ = torch.empty_like(s)
     ptrs = [m.data_ptr(), s.data_ptr(), om.data_ptr(), os_.data_ptr()]
@@ -243,16 +243,7 @@ def _launch(fn, m, s, batch, track, design, *mode):
         err = fn(*ptrs, batch, *mode, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_inverse ({design}) kernel launch failed: cudaError {err}")
-    global LAUNCHES, TRACKED_LAUNCHES, LANES_LAUNCHES, LANES_TRACKED_LAUNCHES
-    if design == "lanes":
-        if track:
-            LANES_TRACKED_LAUNCHES += 1
-        else:
-            LANES_LAUNCHES += 1
-    elif track:
-        TRACKED_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
+    profiling.count(_COUNTERS[design, bool(track)])
     return (om, os_, flag) if track else (om, os_)
 
 
@@ -288,8 +279,9 @@ def fused_matrix_inverse(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base,
     bshape = mags.shape[:-1]
     key = _key((n, qfloat_len, qfloat_ints, qfloat_base, true_division, track))
     design = _design(key, design)
-    out = _launch(_library(key, (), design)[1], mags.contiguous(), signs.contiguous(),
-                  bshape.numel(), track, design, -1)
+    with profiling.span("k1"):
+        out = _launch(_library(key, (), design)[1], mags.contiguous(), signs.contiguous(),
+                      bshape.numel(), track, design, -1)
     if track:
         return out[0], out[1], out[2].reshape(bshape)
     return out

@@ -32,10 +32,8 @@ import functools
 
 import torch
 
+from ..utils import profiling
 from .cuda_build import CSRC, NVCC_FLAGS, build_library, run_parallel
-
-# Launches of each kernel, for checks that a run went through them.
-LAUNCHES = {"limb_division": 0, "limb_tidy": 0}
 
 # K6's widest window in words (csrc/limb_division.cu, kMaxWords) and its
 # widest staged row (kMaxStagedDigits); past either, a division takes the
@@ -143,7 +141,8 @@ def _library(name, flags=(), entry=None):
     """The launch function ``<entry>_launch`` (``entry`` defaults to
     ``name``) of library ``name`` built with ``flags``."""
     entry = entry or name
-    fn = getattr(ctypes.CDLL(str(_build_one(name, flags))), f"{entry}_launch")
+    with profiling.library(f"lib{name}.so"):
+        fn = getattr(ctypes.CDLL(str(_build_one(name, flags))), f"{entry}_launch")
     fn.argtypes = _ARGTYPES[entry]
     fn.restype = ctypes.c_int
     return fn
@@ -169,12 +168,14 @@ def _check_device(*tensors):
 
 
 def _launch(name, *args, device, flags=(), entry=None):
+    """One launch of ``entry`` of library ``name``, counted under
+    ``launch.<name>``."""
     fn = _library(name, flags, entry)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    profiling.count("launch." + name)
 
 
 def limb_division(dividend, divisor, base, flags=()):

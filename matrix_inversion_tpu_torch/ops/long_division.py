@@ -35,11 +35,9 @@ import functools
 
 import torch
 
+from ..utils import profiling
 from .cuda_build import CSRC, NVCC_FLAGS, build_library, library_path, run_parallel
 from .packed import mul_window_consts, mul_window_sum, packed_long_division_reference
-
-# Launches of each kernel, for checks that a run went through them.
-LAUNCHES = {"long_division_float": 0, "long_division_classic": 0, "mul_window": 0}
 
 _SOURCES = {"long_division": "long_division.cu", "mul_window": "mul_window.cu"}
 
@@ -87,8 +85,10 @@ def build():
 
 @functools.lru_cache(maxsize=None)
 def _libraries():
-    div = ctypes.CDLL(str(_build_one("long_division")))
-    mul = ctypes.CDLL(str(_build_one("mul_window")))
+    with profiling.library("liblong_division.so"):
+        div = ctypes.CDLL(str(_build_one("long_division")))
+    with profiling.library("libmul_window.so"):
+        mul = ctypes.CDLL(str(_build_one("mul_window")))
     fns = {
         "long_division_float": div.long_division_float_launch,
         "long_division_classic": div.long_division_classic_launch,
@@ -131,7 +131,7 @@ def _launch(name, x, y, *args):
     contiguous, ``x`` contiguous of the same shape or, with stride 0 first
     in ``args``, a single word; returns the output of ``y``'s shape.  (A
     call of an odd length is two kernels: the pairs, and the last
-    element.)"""
+    element.)  Counts the launch under ``launch.<name>``."""
     out = torch.empty_like(y)
     if y.numel() == 0:
         return out
@@ -141,7 +141,7 @@ def _launch(name, x, y, *args):
         err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), y.numel(), *args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    profiling.count("launch." + name)
     return out
 
 

@@ -17,6 +17,7 @@ caller who names it.
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import Callable, Optional
 
 import numpy as np
@@ -36,6 +37,9 @@ from ..models.marshal import (
     qfloat_and_signs_arrays_to_float_matrix,
 )
 from ..parallel.mesh import Mesh, ShardedProgram, data_parallel_inverse_fused, make_mesh
+from ..utils import profiling
+
+_CALLS = itertools.count()  # the ``call`` id of ``run_raw``'s span
 
 
 def _check_io(io, track_overflow, backend, packed_io_message):
@@ -364,16 +368,18 @@ class BatchedMatrixInversion:
 
     def run_raw(self, a, signs):
         """Device input tensors (digits or magnitudes, and signs) -> device
-        output tensors."""
-        a_shape, shape = self.input_shapes()
-        if a.shape != a_shape or signs.shape != shape:
-            raise ValueError(f"expected inputs of shapes {a_shape} and {shape}")
-        for t in (a, signs):
-            if t.device.type != self.device.type or self.device.index not in (
-                None, t.device.index
-            ):
-                raise ValueError(f"expected tensors on {self.device}, got {t.device}")
-        return self._circuit(a, signs)
+        output tensors.  Recorded as the span ``run_raw`` with ``call=`` a
+        number of the process's calls (``utils/profiling.py``)."""
+        with profiling.span("run_raw", call=next(_CALLS)):
+            a_shape, shape = self.input_shapes()
+            if a.shape != a_shape or signs.shape != shape:
+                raise ValueError(f"expected inputs of shapes {a_shape} and {shape}")
+            for t in (a, signs):
+                if t.device.type != self.device.type or self.device.index not in (
+                    None, t.device.index
+                ):
+                    raise ValueError(f"expected tensors on {self.device}, got {t.device}")
+            return self._circuit(a, signs)
 
     def run(self, matrices: np.ndarray):
         """Invert a (B, n, n) float batch; returns the (B, n, n) inverses,

@@ -29,6 +29,7 @@ import threading
 import numpy as np
 
 from ..ops import cuda_build
+from ..utils import profiling
 
 NATIVE_MIN_VALUES = 4096
 ABI_VERSION = 1
@@ -79,7 +80,8 @@ def _lib():
     global _LIB
     with _LOCK:
         if _LIB is None:
-            _LIB = _load(build())
+            with profiling.library("libqmarshal.so"):
+                _LIB = _load(build())
         return _LIB
 
 

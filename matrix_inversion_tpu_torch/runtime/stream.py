@@ -30,16 +30,29 @@ copy and dequantize; the native library (``runtime/native.py``) releases
 the GIL in each call, which is what lets them overlap.  On the CPU (a caller
 who names ``device="cpu"``) the same code runs without streams, events or
 pinned memory, each batch in arrays of its own.
+
+Each stage is a span (``utils/profiling.py``) with the batch's number as
+``batch=``: the producer's ``stream.slot_wait`` (a reused slot's last copy),
+``stream.quantize``, ``stream.h2d`` (the copies and their event enqueued)
+and ``stream.put_wait``; the consumer's ``stream.input_wait``, ``run_raw``
+and ``stream.output_wait`` (the oldest batch's finish job); a finish
+worker's ``stream.fetch`` (the wait, the copy back, its synchronize) and
+``stream.dequantize``.  A run begun where spans record (under a profiler
+session) has its producer and finish workers record for the whole run: the
+profiler does not see those threads.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from ..utils import profiling
 
 
 class _ProducerFailure:
@@ -80,7 +93,11 @@ class StreamingInverter:
         self.depth = max(1, depth)
         self.finish_workers = max(0, finish_workers)
 
-    def _producer(self, batches, q, stop, copy_stream):
+    def _producer(self, batches, q, stop, copy_stream, traced):
+        with profiling.following(traced):
+            self._produce(batches, q, stop, copy_stream)
+
+    def _produce(self, batches, q, stop, copy_stream):
         inv = self.inv
         n = inv.params.n
         shapes = inv.input_shapes()
@@ -94,7 +111,9 @@ class StreamingInverter:
                     raise ValueError(f"expected a batch of shape {(inv.batch_size, n, n)}, "
                                      f"got {M.shape}")
                 if copy_stream is None:
-                    item = (tuple(torch.from_numpy(a) for a in inv._host_quantize(M)), None)
+                    with profiling.span("stream.quantize", batch=k):
+                        host = inv._host_quantize(M)
+                    item = (tuple(torch.from_numpy(a) for a in host), None)
                 else:
                     slot = k % len(ring)
                     if ring[slot] is None:
@@ -102,14 +121,18 @@ class StreamingInverter:
                                      for s in shapes)
                     else:
                         host, copied = ring[slot]
-                        copied.synchronize()
-                    inv._host_quantize(M, out=tuple(h.numpy() for h in host))
-                    with torch.cuda.stream(copy_stream):
+                        with profiling.span("stream.slot_wait", batch=k):
+                            copied.synchronize()
+                    with profiling.span("stream.quantize", batch=k):
+                        inv._host_quantize(M, out=tuple(h.numpy() for h in host))
+                    with profiling.span("stream.h2d", batch=k), torch.cuda.stream(copy_stream):
                         args = tuple(h.to(inv.device, non_blocking=True) for h in host)
                         ready = copy_stream.record_event()
                     ring[slot] = (host, ready)
                     item = (args, ready)
-                if not _put(q, item, stop):
+                with profiling.span("stream.put_wait", batch=k):
+                    put = _put(q, item, stop)
+                if not put:
                     return
             _put(q, None, stop)  # clean end-of-stream
         except BaseException as exc:  # propagate to the consumer, never truncate
@@ -125,13 +148,14 @@ class StreamingInverter:
         """
         device = self.inv.device
         cuda = device.type == "cuda"
+        traced = profiling.tracing()  # the workers' spans follow the consumer's
         copy_stream = torch.cuda.Stream(device) if cuda else None
         fetch_stream = torch.cuda.Stream(device) if cuda else None
         free = queue.SimpleQueue()  # pinned output buffers not in use
         q = queue.Queue(maxsize=self.depth)
         stop = threading.Event()
         producer = threading.Thread(
-            target=self._producer, args=(batches, q, stop, copy_stream),
+            target=self._producer, args=(batches, q, stop, copy_stream, traced),
             name="StreamingInverter-producer", daemon=True,
         )
         producer.start()
@@ -142,16 +166,17 @@ class StreamingInverter:
             else None
         )
 
-        def finish(out, done):
+        def finish(out, done, k):
             if pool:
-                return pool.submit(self._finish, out, done, fetch_stream, free)
+                return pool.submit(self._followed, traced, out, done, fetch_stream, free, k)
             return out, done
 
         try:
-            in_flight = []  # finish futures, or (outputs, event) to finish inline
+            in_flight = []  # (batch, finish future or (outputs, event) to finish inline)
             failure = None
-            while True:
-                item = q.get()
+            for k in itertools.count():
+                with profiling.span("stream.input_wait", batch=k):
+                    item = q.get()
                 if item is None:
                     break
                 if isinstance(item, _ProducerFailure):
@@ -164,14 +189,15 @@ class StreamingInverter:
                     compute.wait_event(ready)
                     for t in args:
                         t.record_stream(compute)
-                out = self.inv.run_raw(*args)  # asynchronous on the card
+                with profiling.tagged(batch=k):
+                    out = self.inv.run_raw(*args)  # asynchronous on the card
                 if cuda:
                     done = compute.record_event()
-                in_flight.append(finish(out, done))
+                in_flight.append((k, finish(out, done, k)))
                 while len(in_flight) >= self.depth:
-                    yield self._result(in_flight.pop(0), pool, fetch_stream, free)
+                    yield self._result(*in_flight.pop(0), pool, fetch_stream, free)
             for job in in_flight:
-                yield self._result(job, pool, fetch_stream, free)
+                yield self._result(*job, pool, fetch_stream, free)
             producer.join()
             if failure is not None:
                 raise RuntimeError(
@@ -184,26 +210,38 @@ class StreamingInverter:
                 # doesn't keep fetching/dequantizing batches nobody will consume.
                 pool.shutdown(wait=False, cancel_futures=True)
 
-    def _result(self, job, pool, fetch_stream, free):
-        return job.result() if pool else self._finish(*job, fetch_stream, free)
+    def _result(self, batch, job, pool, fetch_stream, free):
+        if not pool:
+            return self._finish(*job, fetch_stream, free, batch)
+        with profiling.span("stream.output_wait", batch=batch):
+            return job.result()
 
-    def _finish(self, out, done, fetch_stream, free):
-        """Fetch one batch's outputs to the host and dequantize them."""
+    def _followed(self, traced, *job):
+        """:meth:`_finish` in a finish worker, its spans recording if the
+        run's consumer's do (``traced``)."""
+        with profiling.following(traced):
+            return self._finish(*job)
+
+    def _finish(self, out, done, fetch_stream, free, batch):
+        """Fetch batch ``batch``'s outputs to the host and dequantize them."""
         outs = out if isinstance(out, tuple) else (out,)
         if done is None:
-            host = tuple(o.numpy() for o in outs)
-            return self.inv._host_dequantize(host if isinstance(out, tuple) else host[0])
+            with profiling.span("stream.fetch", batch=batch):
+                host = tuple(o.numpy() for o in outs)
+            with profiling.span("stream.dequantize", batch=batch):
+                return self.inv._host_dequantize(host if isinstance(out, tuple) else host[0])
         try:
             pinned = free.get_nowait()
         except queue.Empty:
             pinned = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs)
         try:
-            with torch.cuda.stream(fetch_stream):
+            with profiling.span("stream.fetch", batch=batch), torch.cuda.stream(fetch_stream):
                 fetch_stream.wait_event(done)
                 for h, o in zip(pinned, outs):
                     h.copy_(o, non_blocking=True)
                 fetch_stream.record_event().synchronize()
             host = tuple(h.numpy() for h in pinned)
-            return self.inv._host_dequantize(host if isinstance(out, tuple) else host[0])
+            with profiling.span("stream.dequantize", batch=batch):
+                return self.inv._host_dequantize(host if isinstance(out, tuple) else host[0])
         finally:
             free.put(pinned)

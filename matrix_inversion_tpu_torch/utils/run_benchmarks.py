@@ -43,6 +43,7 @@ from ..runtime.api import BatchedMatrixInversion, _target
 from ..runtime.stream import StreamingInverter
 from . import roofline, ubench
 from .precision import precision_benchmark
+from . import profiling
 from .profiling import device_trace, device_work_by_range
 from .timing import card_name_and_limit, timed_chain, timed_marginal
 
@@ -402,7 +403,8 @@ def shardmap_check(per_card=65536, preset="high", n=4, cpu_rows=64, *, device="c
                **_run_info(device)}
     for track in (False, True):
         program = data_parallel_inverse_fused(p, mesh, track=track)
-        before = fused_inverse.TRACKED_LAUNCHES if track else fused_inverse.LAUNCHES
+        counter = "fused_inverse_tracked" if track else "fused_inverse"
+        before = profiling.launches(counter)
         t0 = time.perf_counter()
         shards = program.shards(m, s)
         for shard, card in zip(shards, program.grid[:, 0]):
@@ -411,7 +413,7 @@ def shardmap_check(per_card=65536, preset="high", n=4, cpu_rows=64, *, device="c
         got = program.gather(shards)
         _sync(device)
         first_s = time.perf_counter() - t0
-        launches = (fused_inverse.TRACKED_LAUNCHES if track else fused_inverse.LAUNCHES) - before
+        launches = profiling.launches(counter) - before
         ref = fused_inverse.fused_matrix_inverse(m, s, *config, track=track)
         cpu = fused_inverse.fused_matrix_inverse_reference(m[:cpu_rows].cpu(), s[:cpu_rows].cpu(),
                                                            *config, track=track)

@@ -58,7 +58,7 @@ import torch
 from ..ops import packed
 from ..ops.cuda_build import CSRC, NVCC_FLAGS, build_library
 from ..ops.packed import PackedQFloat
-from . import sass
+from . import profiling, sass
 from .timing import card_name_and_limit, synchronize, timed_chain
 
 U32 = torch.uint32
@@ -90,9 +90,6 @@ CHAIN_COUNTS = (1, 8)  # the C values csrc/ubench.cu instantiates for the card
 HOST_CHAIN_COUNTS = (1, 2, 8)  # those of its host build, and of the plain version
 UNROLL = {U32: 8, torch.float32: 8, torch.int64: 1}  # of the K loop, by dtype
 
-# Launches of the kernel by mix, for checks that a run went through it.
-LAUNCHES = {name: 0 for name in MIXES}
-
 
 def _build():
     return build_library(
@@ -110,7 +107,8 @@ def build_dir():
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    fn = ctypes.CDLL(str(_build())).ubench_chain_launch
+    with profiling.library("libubench.so"):
+        fn = ctypes.CDLL(str(_build())).ubench_chain_launch
     fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
     ]
@@ -141,8 +139,9 @@ def ubench_chain(name, x, y, K, C):
     """One launch of the probe kernel: ``C`` chains of ``K`` iterations of
     mix ``name`` per element of the CUDA tensors ``x`` and ``y`` (uint32,
     float32, or int64 words below 2**40 for a cell mix; any shape); returns
-    the XOR (float32: the sum) of the chains' ``x``.  A tensor that is not
-    on a CUDA device raises."""
+    the XOR (float32: the sum) of the chains' ``x``; counted under
+    ``launch.ubench.<name>``.  A tensor that is not on a CUDA device
+    raises."""
     _check_args(name, x, y, K, C, CHAIN_COUNTS)
     if x.device.type != "cuda":
         raise ValueError(
@@ -159,7 +158,7 @@ def ubench_chain(name, x, y, K, C):
                          x.numel(), K, stream)
     if err != 0:
         raise RuntimeError(f"ubench kernel launch failed for {name}: cudaError {err}")
-    LAUNCHES[name] += 1
+    profiling.count("launch.ubench." + name)
     return out
 
 

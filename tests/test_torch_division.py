@@ -39,7 +39,7 @@ from matrix_inversion_tpu_torch.core.qfloat import qf_from_mul
 from matrix_inversion_tpu_torch.ops import fused_inverse, long_division, packed
 from matrix_inversion_tpu_torch.ops.cuda_build import CSRC
 from matrix_inversion_tpu_torch.ops.packed import PackedQFloat, track_overflow
-from matrix_inversion_tpu_torch.utils import division_steps
+from matrix_inversion_tpu_torch.utils import division_steps, profiling
 
 torch.set_num_threads(2)
 
@@ -601,13 +601,13 @@ def _division_qfloats(seed=0):
 def test_cpu_tensors_reach_no_kernel(spies):
     """A CPU tensor divides and multiplies through the plain versions; no
     wrapper is called and no kernel launches."""
-    before = dict(long_division.LAUNCHES)
+    before = profiling.counters("launch.")
     a, b = _division_qfloats()
     a / b, b.invert(1, 40, 0), a * b
     for impl in (None, "classic"):
         with mt.set_division_impl(impl):
             a / b
-    assert spies == [] and long_division.LAUNCHES == before
+    assert spies == [] and profiling.counters("launch.") == before
 
 
 def test_division_routing(spies, kernel_route):
@@ -615,7 +615,7 @@ def test_division_routing(spies, kernel_route):
     _float_div_chunk_bits, to K3 under set_division_impl("classic") or
     where k < 4, and to no wrapper inside plain_arithmetic(); all give the
     same bits."""
-    before = dict(long_division.LAUNCHES)
+    before = profiling.counters("launch.")
     a, b = _division_qfloats()
     with packed.plain_arithmetic():
         ref_div, ref_inv = (a / b).mag, b.invert(1, 40, 0).mag
@@ -636,7 +636,7 @@ def test_division_routing(spies, kernel_route):
     q = wide.invert(1, 2, 0)
     assert spies[-1] == ("batched_long_division", (4, 1))
     assert q.mag.tolist() == [8 // 3, 3, 0]
-    assert long_division.LAUNCHES == before
+    assert profiling.counters("launch.") == before
 
 
 def test_switches_are_scoped_and_checked():

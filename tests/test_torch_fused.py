@@ -21,6 +21,7 @@ from matrix_inversion_tpu.runtime.api import BatchedMatrixInversion as JaxBatche
 import matrix_inversion_tpu_torch as mt
 from matrix_inversion_tpu_torch.ops import fused_inverse, packed
 from matrix_inversion_tpu_torch.parallel import NamedSharding, P, make_mesh
+from matrix_inversion_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -80,19 +81,19 @@ def test_plain_version_base_four():
 
 def test_wrapper_on_cpu_runs_plain_version():
     mags, signs, args, ref_m, ref_s = check_plain_version("high", 3)
-    before = fused_inverse.LAUNCHES
+    before = profiling.counters("launch.")
     tm, ts = torch.from_numpy(mags), torch.from_numpy(signs)
     for lowering in (None, "auto", "unroll", "fused"):
         got_m, got_s = mt.qfloat_matrix_inverse_packed_io(tm, ts, *args, lowering=lowering)
         assert torch.equal(got_m, ref_m) and torch.equal(got_s, ref_s)
     got_m, got_s = fused_inverse.fused_matrix_inverse(tm[:5].reshape(5, 1, 9), ts[:5].reshape(5, 1, 9), *args)
     assert got_m.shape == (5, 1, 9) and torch.equal(got_m.reshape(5, 9), ref_m[:5])
-    assert fused_inverse.LAUNCHES == before
+    assert profiling.counters("launch.") == before
 
 
 def test_tracked_wrapper_on_cpu_runs_plain_version():
     mags, signs, args, ref_m, ref_s = check_plain_version("high", 3)
-    before = (fused_inverse.LAUNCHES, fused_inverse.TRACKED_LAUNCHES)
+    before = profiling.counters("launch.")
     tm, ts = torch.from_numpy(mags), torch.from_numpy(signs)
     ref = fused_inverse.fused_matrix_inverse_reference(tm, ts, *args, track=True)
     assert torch.equal(ref[0], ref_m) and torch.equal(ref[1], ref_s)
@@ -105,7 +106,7 @@ def test_tracked_wrapper_on_cpu_runs_plain_version():
     )
     assert got[0].shape == (3, 2, 9) and got[2].shape == (3, 2)
     assert torch.equal(got[0].reshape(6, 9), ref_m[:6]) and torch.equal(got[2].reshape(6), ref[2][:6])
-    assert (fused_inverse.LAUNCHES, fused_inverse.TRACKED_LAUNCHES) == before
+    assert profiling.counters("launch.") == before
     meta = torch.zeros(9, 4, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         fused_inverse.fused_inverse_cell_major(meta, meta, *args, track=True)

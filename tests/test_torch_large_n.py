@@ -21,7 +21,7 @@ from matrix_inversion_tpu.runtime.api import BatchedMatrixInversion as JaxBatche
 
 import matrix_inversion_tpu_torch as mt
 from matrix_inversion_tpu_torch.models.marshal import float_matrix_to_mags_and_signs
-from matrix_inversion_tpu_torch.ops import long_division
+from matrix_inversion_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -61,9 +61,9 @@ def inputs():
 @pytest.fixture(scope="module")
 def port_untracked(inputs):
     mags, signs = map(torch.from_numpy, inputs)
-    before = dict(long_division.LAUNCHES)
+    before = profiling.counters("launch.")
     out = mt.qfloat_matrix_inverse_packed_io(mags, signs, *ARGS)
-    assert long_division.LAUNCHES == before
+    assert profiling.counters("launch.") == before
     return out
 
 

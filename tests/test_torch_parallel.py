@@ -22,7 +22,6 @@ from matrix_inversion_tpu.runtime.api import BatchedMatrixInversion as JaxBatche
 
 import matrix_inversion_tpu_torch as mt
 from matrix_inversion_tpu_torch.models.marshal import float_matrix_to_mags_and_signs
-from matrix_inversion_tpu_torch.ops import fused_inverse
 from matrix_inversion_tpu_torch.parallel import (
     Mesh,
     NamedSharding,
@@ -34,7 +33,7 @@ from matrix_inversion_tpu_torch.parallel import (
     make_mesh,
     sharded_inverse_with_stats,
 )
-from matrix_inversion_tpu_torch.utils import run_benchmarks
+from matrix_inversion_tpu_torch.utils import profiling, run_benchmarks
 
 torch.set_num_threads(2)
 
@@ -312,9 +311,9 @@ def test_drivers_default_to_the_card():
 def test_fused_shards_count_no_launch_on_the_cpu():
     """On CPU tensors each shard runs the plain version: K1's launch
     counters stay where they were."""
-    before = (fused_inverse.LAUNCHES, fused_inverse.TRACKED_LAUNCHES)
+    before = profiling.counters("launch.")
     p = mt.LOW.replace(n=2)
     m, s = port(*float_matrix_to_mags_and_signs(np.eye(2)[None].repeat(8, 0), p.qfloat_len,
                                                 p.qfloat_ints, p.qfloat_base))
     data_parallel_inverse_fused(p, make_mesh(device="cpu"), track=True)(m, s)
-    assert (fused_inverse.LAUNCHES, fused_inverse.TRACKED_LAUNCHES) == before
+    assert profiling.counters("launch.") == before

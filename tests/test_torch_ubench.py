@@ -31,7 +31,7 @@ from benchmarks import ubench_vpu  # noqa: E402
 
 from matrix_inversion_tpu_torch.ops.cuda_build import CSRC  # noqa: E402
 from matrix_inversion_tpu_torch.ops.packed import PackedQFloat, track_overflow  # noqa: E402
-from matrix_inversion_tpu_torch.utils import ubench  # noqa: E402
+from matrix_inversion_tpu_torch.utils import profiling, ubench  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -206,10 +206,10 @@ def test_tracked_multiply_flag_reaches_the_output(host):
 def test_chain_refuses_cpu_tensors(name):
     """No quiet fallback: the wrapper measures the card or raises."""
     x, y = ubench.make_inputs(name, 2, "cpu")
-    before = dict(ubench.LAUNCHES)
+    before = profiling.counters("launch.")
     with pytest.raises(ValueError, match="CUDA tensors only"):
         ubench.ubench_chain(name, x, y, 4, 1)
-    assert ubench.LAUNCHES == before
+    assert profiling.counters("launch.") == before
 
 
 def test_argument_checks():

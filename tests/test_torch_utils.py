@@ -84,22 +84,6 @@ def test_device_trace_writes_a_trace(tmp_path):
     assert any("mul" in e.key for e in prof.key_averages())
 
 
-def test_timed_and_dump_stats(tmp_path, capsys):
-    results = {}
-    with profiling.timed("step", results):
-        pass
-    assert results["step"] >= 0
-    with profiling.timed("printed"):
-        pass
-    assert "printed" in capsys.readouterr().out
-    path = tmp_path / "stats.jsonl"
-    line = profiling.dump_stats({"additions": 3}, str(path))
-    profiling.dump_stats({"additions": 4}, str(path))
-    assert json.loads(line) == {"additions": 3}
-    assert [json.loads(x) for x in path.read_text().splitlines()] == [
-        {"additions": 3}, {"additions": 4}]
-
-
 @pytest.mark.parametrize("name", ["Normal", "Uniform"])
 def test_samplers_give_jax_arrays(name):
     for make_rng in (np.random.RandomState, np.random.default_rng):
