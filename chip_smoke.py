@@ -25,8 +25,11 @@ and with ``track_overflow=True`` (K1); HIGH n=16 over 262,144 matrices,
 past K1's n <= 12, on the op-by-op path (K2 and K4), and that path on
 4,113 matrices under ``set_division_impl("classic")`` (K3) and tracked;
 and HIGH n=4 with ``lowering="unroll"`` (K2 and K4) against K1.  Digit I/O:
+the pack and unpack kernels (``csrc/digit_io.cu``) against their plain
+versions at bases 2, 4 and 16, timed beside their byte bounds;
 ``BatchedMatrixInversion(io="digits")`` at HIGH n=4 over 262,144 matrices
-(pack, K1 once, unpack) against the packed path and the CPU, and at n=16
+(the pack, K1 and the unpack once each) against the packed path and the
+CPU, and at n=16
 (K2 and K4); ``EncryptedMatrixInversion`` one matrix at a time, digit and
 packed io, untracked and tracked, ``run`` (K1) == ``run(simulate=True)``
 (K2 and K4) == the CPU run; and ``qfloat_pivot``, ``qfloat_lu_L`` and
@@ -172,6 +175,7 @@ from matrix_inversion_tpu_torch.models.marshal import (
 )
 from matrix_inversion_tpu_torch.ops import (
     cuda_build,
+    digit_io,
     fused_inverse,
     limb_kernels,
     limbs,
@@ -970,6 +974,138 @@ def launches_of(fn):
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     return out, counts()
+
+
+# the digit-I/O kernels' checks: (base, digits a row), the High format and
+# the widest packed rows at bases 4 and 16, and rows longer than 64 bits
+DIGIT_IO_FORMATS = ((2, 40), (4, 31), (16, 15), (16, 40))
+
+
+def digit_io_ptxas():
+    """Registers and spills of the four kernels of ``csrc/digit_io.cu``."""
+    log = (digit_io.build_dir() / "nvcc.log").read_text()
+    return (f"registers {sass.ptxas_registers(log)}; spills: "
+            f"{sass.ptxas_spill_lines(log) or 'none'}")
+
+
+def digit_io_inputs(gen, cells, length, base, dev, offset=0):
+    """``(cells, length)`` int64 digits in ``[0, base)`` from ``gen``, the
+    first row all ``base - 1`` and the second all 0; ``offset`` words into
+    their storage (8 bytes off 16-byte alignment where odd)."""
+    flat = torch.randint(0, base, (offset + cells * length,), generator=gen, device=dev,
+                         dtype=torch.int64)
+    digits = flat[offset:].view(cells, length)
+    digits[0] = base - 1
+    digits[1] = 0
+    return digits
+
+
+def digit_io_kernels(dev, card, batch=DIGIT_BATCH, check_batch=CHECK_BATCH, rounds=REPS):
+    """The pack and unpack kernels of digit I/O (``ops/digit_io.py``) on the
+    card, bit for bit against their plain versions (``packed.
+    digits_to_mags_reference``, ``packed.mags_to_digits_reference``, eager
+    PyTorch on the card): at HIGH n=4's ``batch * 16`` cells and at a ragged
+    ``check_batch * 16`` (no multiple of the 128-cell tile), each format of
+    :data:`DIGIT_IO_FORMATS`, random digits with a row of all ``base - 1``
+    and one of all 0, digits 8 bytes off 16-byte alignment, magnitudes over
+    all of int64 and signs in {-1, 0, 1}, ``out`` as a view of a wider
+    output (uniform rows) and as one whose rows are not; one launch each.
+    Then the digit ``run_raw`` (the pack, K1 and the unpack, once each)
+    against ``digit_output`` of the packed ``run_raw`` and its plain
+    version; and each kernel timed in turns with its plain version at the
+    main path's shapes, beside its byte bound.  Returns the timing rows."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    p = HIGH.replace(n=4)
+    config, L = config_of(p), p.qfloat_len
+    print(f"ptxas digit_io: {digit_io_ptxas()}")
+    for base, length in DIGIT_IO_FORMATS:
+        bits = packed.digit_bits(base)
+        for cells in (batch * 16, check_batch * 16):
+            for offset in (0, 1):
+                d = digit_io_inputs(gen, cells, length, base, dev, offset)
+                m, _ = launches_of(lambda: packed.digits_to_mags(d, bits))
+                assert profiling.launches("digits_pack") == 1, "pack: one launch"
+                assert torch.equal(m, packed.digits_to_mags_reference(d, bits)), \
+                    f"pack != plain: base {base}, {length} digits, {cells} cells, offset {offset}"
+                if length * bits <= 62:
+                    assert torch.equal(packed.mags_to_digits(m, length, bits), d.to(torch.int32))
+            mags = torch.randint(-2 ** 63, 2 ** 63 - 1, (cells,), generator=gen, device=dev,
+                                 dtype=torch.int64)
+            signs = torch.randint(-1, 2, (cells,), generator=gen, device=dev, dtype=torch.int64)
+            want = packed.mags_to_digits_reference(mags, length, bits, signs=signs)
+            reset_counts()
+            got = packed.mags_to_digits(mags, length, bits, signs=signs)
+            assert profiling.launches("digits_unpack") == 1, "unpack: one launch"
+            assert torch.equal(got, want), f"unpack != plain: base {base}, {length} digits"
+            wide = torch.full((cells, length + 3), -7, dtype=torch.int32, device=dev)
+            packed.mags_to_digits(mags, length, bits, out=wide[:, 1:length + 1])
+            assert torch.equal(wide[:, 1:length + 1], want[:, :length]) and \
+                bool((wide[:, 0] == -7).all()) and bool((wide[:, length + 1:] == -7).all()), \
+                "unpack into a view of uniform rows"
+            spread = torch.full((cells // 2, 2, length + 1), -7, dtype=torch.int32, device=dev)
+            half = spread[:, 0]  # rows 2 * (length + 1) apart: uniform
+            packed.mags_to_digits(mags[:cells // 2], length, bits, out=half,
+                                  signs=signs[:cells // 2])
+            assert torch.equal(half, want[:cells // 2]) and bool((spread[:, 1] == -7).all())
+            ragged = torch.full((cells // 4, 3, length + 2), -7, dtype=torch.int32,
+                                device=dev)[:, :2, :length]  # rows not a uniform stride apart
+            packed.mags_to_digits(mags[:cells // 2].view(-1, 2), length, bits, out=ragged)
+            assert torch.equal(ragged.reshape(-1, length), want[:cells // 2, :length])
+        print(f"digit I/O kernels, base {base}, {length} digits a row: pack and unpack == their "
+              f"plain versions bit for bit at {batch * 16} and {check_batch * 16} cells, aligned "
+              "and 8 bytes off, into views of uniform rows and not; one launch each")
+
+    # the digit run_raw: the pack, K1 and the unpack once each, == the packed
+    # run_raw's digit_output and its plain version
+    inv = BatchedMatrixInversion(p, batch, io="digits", device=dev)
+    pinv = BatchedMatrixInversion(p, batch, io="packed", device=dev)
+    M = np.random.RandomState(18).randn(batch, 4, 4) * 100
+    d, s = inv.quantize(M)
+    out, got = launches_of(lambda: inv.run_raw(d, s))
+    runs = {name: profiling.launches(name) for name in ("digits_pack", "digits_unpack")}
+    expect_launches("digit run_raw", got, fused_inverse=1)
+    assert runs == {"digits_pack": 1, "digits_unpack": 1}, f"digit run_raw: {runs}"
+    pm, ps = pinv.quantize(M)
+    pout = pinv.run_raw(pm, ps)
+    assert torch.equal(out, digit_output(pout[0], pout[1], L, 2)), "digit run_raw != packed"
+    assert torch.equal(out, packed.mags_to_digits_reference(pout[0], L, 1, signs=pout[1])), \
+        "digit run_raw != the plain unpack of the packed run_raw"
+    print(f"digit run_raw HIGH n=4 B={batch}: K1 {got['fused_inverse']}, pack "
+          f"{runs['digits_pack']}, unpack {runs['digits_unpack']} launch(es); == digit_output of "
+          "the packed run_raw and its plain version bit for bit")
+
+    # in turns at the main path's shapes: each kernel and its plain version,
+    # KERNEL_LAUNCHES calls a pass (the queue hides the host's part of a
+    # call); the digit run_raw also one call a pass, as a caller sees it
+    cells = batch * 16
+    mags, signs = pout
+    fns = {
+        "pack": lambda: packed.digits_to_mags(d, 1),
+        "pack, plain": lambda: packed.digits_to_mags_reference(d, 1),
+        "unpack": lambda: packed.mags_to_digits(mags, L, 1, signs=signs),
+        "unpack, plain": lambda: packed.mags_to_digits_reference(mags, L, 1, signs=signs),
+        "digit run_raw": lambda: inv.run_raw(d, s),
+        "K1 (B, n*n)": lambda: fused_inverse.fused_matrix_inverse(pm, ps, *config),
+    }
+    turns = timed_in_turns(fns, dev, rounds=rounds, launches=KERNEL_LAUNCHES)
+    single = timed_in_turns({"digit run_raw, one call a pass": fns["digit run_raw"]}, dev,
+                            rounds=rounds)
+    moved = {"pack": cells * L * 8 + cells * 8, "unpack": 2 * cells * 8 + cells * (L + 1) * 4}
+    rows = {}
+    for name, nbytes in moved.items():
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = {"ms": turns[name], "bound_ms": bound, "bound_by": "bytes",
+                      "bytes": nbytes, "plain_ms": turns[f"{name}, plain"],
+                      "roofline_pct": 100 * bound / turns[name]}
+        assert bound <= 1.05 * turns[name], f"{name}: bound {bound} ms past its time"
+    for label, ms in turns.items():
+        print(f"time digit I/O {label}, {KERNEL_LAUNCHES} calls a pass: {ms:.4f} ms (HIGH n=4, "
+              f"B={batch}; {card})")
+    for label, ms in single.items():
+        print(f"time digit I/O {label}: {ms:.4f} ms (HIGH n=4, B={batch}; {card})")
+    print("digit_io " + json.dumps({"card": card, "batch": batch, **rows}))
+    return rows
 
 
 def digit_paths(dev, card, batch=DIGIT_BATCH, check_batch=CHECK_BATCH, large_n=LARGE_N):
@@ -2729,9 +2865,11 @@ def main():
         k1_steps_build = pool.submit(timed_s, fused_steps.build)
         native_build = pool.submit(timed_s, native.build)
         limb_build = pool.submit(timed_s, limb_kernels.build)
+        digit_build = pool.submit(timed_s, digit_io.build_dir)
         fused_s, op_s, ubench_s = fused_build.result(), op_build.result(), ubench_build.result()
         steps_s, k1_steps_s = steps_build.result(), k1_steps_build.result()
         native_s, limb_s = native_build.result(), limb_build.result()
+        digit_s = digit_build.result()
     print(f"build: {len(CHECKS)} fused_inverse + {len(TRACKED_CHECKS)} tracked kernels + "
           f"{len(cli_configs)} at the CLI's sizes up to 5 (LOW) "
           f"from {fused_inverse.CSRC} with nvcc {' '.join(fused_inverse.NVCC_FLAGS)} "
@@ -2741,7 +2879,8 @@ def main():
           f"{len({(t, d) for _, t, d, _ in fused_steps.STEPS})} builds of K1's design steps in "
           f"{k1_steps_s:.1f} s; the native marshaller ({native.SOURCE}) with g++ "
           f"{' '.join(cuda_build.HOST_FLAGS)} in {native_s:.1f} s; limb_division + limb_tidy "
-          f"libraries and K6's digit-window build in {limb_s:.1f} s; all in "
+          f"libraries and K6's digit-window build in {limb_s:.1f} s; the digit-I/O library in "
+          f"{digit_s:.1f} s; all in "
           f"{time.perf_counter() - t0:.1f} s, beside the {len(size_builds)} K1 builds past n = 5 "
           f"in the background")
     main_config = config_of(HIGH.replace(n=4))
@@ -2892,9 +3031,10 @@ def main():
     op_launches = large_n_paths(dev, card)
     print(f"host clock: the op-by-op paths, checks and timings, {time.perf_counter() - t0:.1f} s")
 
-    # -- digit I/O: the digit path at n=4 and n=16, EncryptedMatrixInversion,
-    # the partial circuits
+    # -- digit I/O: the pack and unpack kernels, the digit path at n=4 and
+    # n=16, EncryptedMatrixInversion, the partial circuits
     t0 = time.perf_counter()
+    digit_io_kernels(dev, card)
     digit_paths(dev, card)
     print(f"host clock: the digit-I/O paths, checks and timings, {time.perf_counter() - t0:.1f} s")
 

@@ -163,13 +163,9 @@ def qfloat_matrix_inverse(qfloat_arrays, qfloat_signs, n, qfloat_len, qfloat_int
 def digit_output(mags, signs, qfloat_len, qfloat_base):
     """``(..., n*n)`` magnitudes and signs -> ``(..., n*n, len+1)`` int32
     digits with the sign appended, as the packed path of
-    ``matrix_inversion_tpu/models/inverse.py:98-106`` gives them: one shift,
-    then the mask and the cast into a preallocated output, and the sign
-    column."""
-    out = torch.empty(mags.shape + (qfloat_len + 1,), dtype=torch.int32, device=mags.device)
-    mags_to_digits(mags, qfloat_len, digit_bits(qfloat_base), out=out[..., :qfloat_len])
-    out[..., qfloat_len] = signs
-    return out
+    ``matrix_inversion_tpu/models/inverse.py:98-106`` gives them: on a card
+    one launch of the unpack kernel, which writes every column."""
+    return mags_to_digits(mags, qfloat_len, digit_bits(qfloat_base), signs=signs)
 
 
 def _digit_matrix(qfloat_arrays, qfloat_signs, params, backend):

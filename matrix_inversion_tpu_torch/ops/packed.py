@@ -22,7 +22,10 @@ the ``n_bits`` window to all ones, as the restoring loop does (reference
 base_p_arrays.py:189-201).  ``set_division_impl("classic")`` forces K3.
 Untracked base-2 multiplies of CUDA tensors go through the windowed-multiply
 kernel K4; CPU tensors take the truncated form.  Inside
-:func:`plain_arithmetic` every tensor takes the plain versions.
+:func:`plain_arithmetic` every tensor takes the plain versions.  The digit
+converters :func:`digits_to_mags` and :func:`mags_to_digits` launch the pack
+and unpack kernels (``ops/digit_io.py``) on a CUDA tensor, in any scope, and
+run their plain versions on a CPU tensor.
 
 Inside a ``track_overflow()`` scope every normalization records whether
 it dropped digits past the top of its window, and multiplies take the
@@ -42,7 +45,7 @@ import numpy as np
 import torch
 
 from ..core.qfloat import QFloat, QFloatBase, SignedBinary, Zero, check_invert_sign
-from . import radix
+from . import digit_io, radix
 
 MAG_DTYPE = torch.int64
 
@@ -159,23 +162,70 @@ def _digit_shifts(length, bits, device):
     return torch.arange(bits * (length - 1), -1, -bits, dtype=MAG_DTYPE, device=device)
 
 
+def _digit_kernel(t):
+    """Whether the digit converters take the kernels of ``ops/digit_io.py``
+    for ``t``: any tensor off the CPU (they raise on one off the card)."""
+    return t.device.type != "cpu"
+
+
 def digits_to_mags(digits, bits):
     """``(..., L)`` digits -> ``(...)`` int64 magnitudes
-    ``sum_j digit_j * 2**(bits*(L-1-j))``: one shift and one sum."""
+    ``sum_j digit_j * 2**(bits*(L-1-j))`` mod 2**64.  Digits of another
+    dtype are converted to int64 first.  A CPU tensor (or array) runs the
+    plain version :func:`digits_to_mags_reference`; a CUDA tensor launches
+    the pack kernel (``ops/digit_io.py``), on the digits made contiguous,
+    once; a tensor anywhere else raises."""
     digits = torch.as_tensor(digits).to(MAG_DTYPE)
+    if not _digit_kernel(digits):
+        return digits_to_mags_reference(digits, bits)
+    return digit_io.pack(digits.contiguous(), bits)
+
+
+def digits_to_mags_reference(digits, bits):
+    """The plain version of :func:`digits_to_mags` on int64 digits: one
+    shift and one sum."""
     return (digits << _digit_shifts(digits.shape[-1], bits, digits.device)).sum(-1)
 
 
-def mags_to_digits(mags, length, bits, out=None):
+def mags_to_digits(mags, length, bits, out=None, signs=None):
     """``(...)`` int64 magnitudes -> ``(..., length)`` int32 digits
-    ``(mag >> bits*(L-1-j)) & (2**bits - 1)``: one shift, then the mask
-    and the cast in one pass into ``out`` (allocated if None; it may be a
-    view, such as the digit columns of a wider output).  Magnitudes are
-    below 2**62, so int64 shifts equal the reference's uint64 ones."""
+    ``(mag >> bits*(L-1-j)) & (2**bits - 1)``, into ``out`` (allocated if
+    None; it may be a view, such as the digit columns of a wider output).
+    With ``signs`` (broadcastable to the magnitudes), ``(..., length + 1)``
+    with the sign in the last column.  Magnitudes are below 2**62, so int64
+    shifts equal the reference's uint64 ones.  A CPU tensor runs the plain
+    version :func:`mags_to_digits_reference`; a CUDA tensor launches the
+    unpack kernel (``ops/digit_io.py``) once, writing every column, and
+    once more a copy where ``out``'s rows are not a uniform stride apart; a
+    tensor anywhere else raises."""
+    if not _digit_kernel(mags):
+        return mags_to_digits_reference(mags, length, bits, out, signs)
+    width = length + (signs is not None)
     if out is None:
-        out = torch.empty(mags.shape + (length,), dtype=torch.int32, device=mags.device)
+        out = torch.empty(mags.shape + (width,), dtype=torch.int32, device=mags.device)
+    if out.shape[-1:] != (width,):
+        raise ValueError(f"out {tuple(out.shape)}: expected {width} columns")
+    if signs is not None:
+        signs = torch.broadcast_to(torch.as_tensor(signs, dtype=MAG_DTYPE, device=mags.device),
+                                   mags.shape).contiguous()
+    mags = mags.to(MAG_DTYPE).contiguous()
+    if out.numel() and digit_io.row_stride_of(out) is None:
+        rows = torch.empty(out.shape, dtype=torch.int32, device=mags.device)
+        return out.copy_(digit_io.unpack(mags, rows, bits, signs))
+    return digit_io.unpack(mags, out, bits, signs)
+
+
+def mags_to_digits_reference(mags, length, bits, out=None, signs=None):
+    """The plain version of :func:`mags_to_digits`: one shift, then the mask
+    and the cast in one pass into ``out``, and the sign column."""
+    if out is None:
+        width = length + (signs is not None)
+        out = torch.empty(mags.shape + (width,), dtype=torch.int32, device=mags.device)
     wide = mags.unsqueeze(-1) >> _digit_shifts(length, bits, mags.device)
-    return torch.bitwise_and(wide, (1 << bits) - 1, out=out)
+    torch.bitwise_and(wide, (1 << bits) - 1, out=out[..., :length])
+    if signs is not None:
+        out[..., length] = signs
+    return out
 
 
 @functools.lru_cache(maxsize=None)

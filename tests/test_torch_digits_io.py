@@ -6,7 +6,16 @@ are held bit for bit (int32 arrays equal) to the JAX package on the same
 numpy inputs.  On the CPU the JAX entry point takes its object path at
 n <= 8 and packs at n >= 9; the port always packs.  Both give the same bits
 because every output cell of the inverse is a QFloat.
+
+The pack and unpack kernels (``csrc/digit_io.cu``) are built with g++ (the
+file's host form runs each kernel's phases as loops over a block's threads)
+and held to the plain versions, alone and in place of the launch behind the
+converters' kernel route, which CPU tensors then take.
 """
+
+import contextlib
+import ctypes
+import subprocess
 
 import numpy as np
 import pytest
@@ -22,7 +31,9 @@ from matrix_inversion_tpu.runtime.api import EncryptedMatrixInversion as JaxEncr
 
 import matrix_inversion_tpu_torch as mt
 from matrix_inversion_tpu_torch.models import inverse, marshal
-from matrix_inversion_tpu_torch.ops import packed
+from matrix_inversion_tpu_torch.ops import digit_io, packed
+from matrix_inversion_tpu_torch.ops.cuda_build import CSRC
+from matrix_inversion_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -281,3 +292,295 @@ def test_new_exports_match_jax():
     assert mt.float_matrix_to_qfloat_arrays is marshal.float_matrix_to_qfloat_arrays
     assert mt.qfloat_and_signs_arrays_to_float_matrix is \
         marshal.qfloat_and_signs_arrays_to_float_matrix
+
+
+# ---- the digit converters: the plain versions, the kernels' host form -------
+
+# (base, digits a row): every base of the packed backend's tests, up to the
+# widest row of 62 bits
+FORMATS = [(2, 1), (2, 40), (2, 62), (4, 1), (4, 20), (4, 31), (16, 1), (16, 10), (16, 15)]
+
+
+def format_digits(base, length, shape, seed):
+    """int64 digits in ``[0, base)``, the first row all ``base - 1`` and the
+    second all 0."""
+    digits = np.random.RandomState(seed).randint(0, base, size=shape + (length,))
+    digits.reshape(-1, length)[:2] = [[base - 1], [0]]
+    return digits.astype(np.int64)
+
+
+@pytest.mark.parametrize("base,length", FORMATS)
+def test_digit_converters_match_jax(base, length):
+    """The CPU path of ``digits_to_mags``, ``mags_to_digits`` and
+    ``digit_output`` against the JAX package's pack and unpack (the jnp
+    expressions ``PackedQFloat.from_digits``/``to_digits``, which its digit
+    circuit inlines), signs -1, 0 and 1 in the last column."""
+    bits = packed.digit_bits(base)
+    digits = format_digits(base, length, (3, 5), seed=base * 100 + length)
+    signs = np.random.RandomState(length).choice([-1, 0, 1], size=(3, 5))
+    jq = mi.PackedQFloat.from_digits(jnp.asarray(digits), length // 2, base, jnp.asarray(signs))
+    mags = packed.digits_to_mags(torch.from_numpy(digits), bits)
+    assert mags.dtype == torch.int64 and mags.shape == (3, 5)
+    np.testing.assert_array_equal(mags.numpy(), np.asarray(jq.mag))
+    jdigits = np.asarray(jq.to_digits())
+    np.testing.assert_array_equal(jdigits, digits)
+    got = packed.mags_to_digits(mags, length, bits)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), jdigits)
+    out = inverse.digit_output(mags, torch.from_numpy(signs), length, base)
+    assert out.dtype == torch.int32 and out.shape == (3, 5, length + 1)
+    np.testing.assert_array_equal(
+        out.numpy(), np.concatenate([jdigits, signs[..., None].astype(np.int32)], -1))
+
+
+@pytest.fixture(scope="module")
+def host_kernels(tmp_path_factory):
+    """``csrc/digit_io.cu`` built with g++: ``{entry: its host function}``,
+    the arguments of the launch functions less the stream."""
+    lib = tmp_path_factory.mktemp("digit_io_host") / "digit_io.so"
+    proc = subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-x", "c++", "-o",
+                           str(lib), str(CSRC / "digit_io.cu")],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, f"g++ failed:\n{proc.stderr}"
+    dll = ctypes.CDLL(str(lib))
+    out = {}
+    for entry in ("digits_pack", "digits_unpack"):
+        fn = getattr(dll, f"{entry}_host")
+        fn.argtypes = digit_io._ARGTYPES[entry][:-1]
+        fn.restype = ctypes.c_int
+        out[entry] = fn
+    return out
+
+
+def unaligned(shape, dtype, fill=0):
+    """A contiguous tensor of ``shape`` one element into its storage: 8 (or
+    4) bytes off 16-byte alignment where the storage is aligned."""
+    flat = torch.full((1 + int(np.prod(shape)),), fill, dtype=dtype)
+    return flat[1:].view(shape)
+
+
+# (cells, digits a row, bits): ragged tiles, one cell, odd and even rows,
+# rows past 64 bits, a tile past 48 KB (the card's larger shared memory),
+# rows too wide to stage (the pack at 300 digits, the unpack at 500)
+HOST_CASES = [(1, 1, 1), (129, 40, 1), (300, 31, 2), (257, 15, 4), (130, 7, 3), (128, 100, 1),
+              (5, 300, 1), (3, 500, 1)]
+
+
+@pytest.mark.parametrize("cells,length,bits", HOST_CASES)
+def test_kernels_host_form_match_plain(host_kernels, cells, length, bits):
+    """Both kernels, through their tiles and their fallback past the
+    card's shared memory, against the plain versions bit for bit: digits in
+    range, and digits of any int64 (the sum wraps mod 2**64); magnitudes of
+    any int64 (the shift is arithmetic); rows contiguous and aligned, 8
+    bytes off 16-byte alignment, and a uniform stride apart in a wider
+    output; with and without the sign column."""
+    rng = np.random.RandomState(cells + length + bits)
+    for digits in (rng.randint(0, 1 << bits, size=(cells, length)),
+                   rng.randint(-2 ** 62, 2 ** 62, size=(cells, length))):
+        want = packed.digits_to_mags_reference(torch.from_numpy(digits), bits)
+        for d in (torch.from_numpy(digits), unaligned(digits.shape, torch.int64)):
+            d.copy_(torch.from_numpy(digits))
+            mags = torch.full((cells,), -1, dtype=torch.int64)
+            assert host_kernels["digits_pack"](d.data_ptr(), mags.data_ptr(), cells, length,
+                                               bits) == 0
+            assert torch.equal(mags, want)
+    mags = torch.from_numpy(rng.randint(-2 ** 63, 2 ** 63, size=cells, dtype=np.int64))
+    signs = torch.from_numpy(rng.randint(-1, 2, size=cells).astype(np.int64))
+    for sign in (None, signs):
+        want = packed.mags_to_digits_reference(mags, length, bits, signs=sign)
+        width = want.shape[-1]
+        for out in (torch.full((cells, width), -7, dtype=torch.int32),
+                    unaligned((cells, width), torch.int32, -7),
+                    torch.full((cells, width + 3), -7, dtype=torch.int32)[:, 1:width + 1]):
+            assert host_kernels["digits_unpack"](
+                mags.data_ptr(), None if sign is None else sign.data_ptr(), out.data_ptr(),
+                cells, length, digit_io.row_stride_of(out), bits) == 0
+            assert torch.equal(out, want)
+            base = out._base if out._base is not None else out
+            assert int((base == -7).sum()) == base.numel() - out.numel()
+
+
+@pytest.fixture
+def kernel_route(monkeypatch, host_kernels):
+    """The converters' kernel route on CPU tensors: ``ops/digit_io.py``'s
+    wrappers with the host build in place of the launch, which counts under
+    ``launch.<entry>`` as the launch does."""
+    def launch(entry, *args, device):
+        assert device.type == "cpu"
+        assert host_kernels[entry](*args) == 0
+        profiling.count("launch." + entry)
+
+    monkeypatch.setattr(packed, "_digit_kernel", lambda t: True)
+    monkeypatch.setattr(digit_io, "_check_device", lambda t, what: None)
+    monkeypatch.setattr(digit_io, "_launch", launch)
+    profiling.reset()
+
+
+def launch_counts():
+    return profiling.launches("digits_pack"), profiling.launches("digits_unpack")
+
+
+def route_inputs(case):
+    """``(digits, mags, signs, launches)`` of one kernel-route case at the
+    High format: the launches one pack and one unpack make (none for an
+    empty batch)."""
+    rng = np.random.RandomState(len(case))
+    digits = torch.from_numpy(format_digits(2, 40, (2, 3, 16), seed=11))
+    signs = torch.from_numpy(rng.choice([-1, 0, 1], size=(2, 3, 16)))
+    mags = packed.digits_to_mags_reference(digits, 1)
+    if case == "empty batch":
+        return digits[:0], mags[:0], signs[:0], (0, 0)
+    if case == "int32 digits and signs":
+        return digits.to(torch.int32), mags, signs.to(torch.int32), (1, 1)
+    if case == "views that are not contiguous":
+        wide = torch.zeros((2, 3, 32, 41), dtype=torch.int64)
+        wide[:, :, ::2, 1:] = digits
+        return wide[:, :, ::2, 1:], mags.transpose(0, 1), signs.transpose(0, 1), (1, 1)
+    if case == "signs broadcast":
+        return digits, mags, signs[..., :1], (1, 1)
+    return digits, mags, signs, (1, 1)
+
+
+@pytest.mark.parametrize("case", ["batch axes", "empty batch", "int32 digits and signs",
+                                  "views that are not contiguous", "signs broadcast"])
+def test_converters_kernel_route(kernel_route, case):
+    """``digits_to_mags``, ``mags_to_digits`` and ``digit_output`` on the
+    kernel route equal the plain versions, with one launch each (none for
+    an empty batch): leading batch axes, an empty batch, int32 digits and
+    signs, inputs that are not contiguous, signs broadcast over the cells."""
+    digits, mags, signs, launches = route_inputs(case)
+    want_mags = packed.digits_to_mags_reference(digits.to(torch.int64), 1)
+    want_out = packed.mags_to_digits_reference(mags, 40, 1, signs=signs)
+    got = packed.digits_to_mags(digits, 1)
+    assert launch_counts() == (launches[0], 0)
+    assert got.dtype == torch.int64 and torch.equal(got, want_mags)
+    out = inverse.digit_output(mags, signs, 40, 2)
+    assert launch_counts() == launches
+    assert out.dtype == torch.int32 and out.shape == mags.shape + (41,)
+    assert torch.equal(out, want_out)
+    assert torch.equal(packed.mags_to_digits(mags, 40, 1), want_out[..., :40])
+    # a run through the whole digit path at HIGH n=4 (K1's plain version on the CPU)
+    if case == "batch axes":
+        p = mt.HIGH.replace(n=4)
+        args = (4, p.qfloat_len, p.qfloat_ints, p.qfloat_base, p.true_division)
+        d, s = digits_of(p, np.random.RandomState(12).randn(5, 4, 4) * 100)
+        profiling.reset()
+        got = mt.qfloat_matrix_inverse(torch.from_numpy(d), torch.from_numpy(s), *args,
+                                       backend="packed")
+        assert launch_counts() == (1, 1)
+        ref = jax_inverse.qfloat_matrix_inverse(jnp.asarray(d), jnp.asarray(s), *args,
+                                                backend="packed")
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+@pytest.mark.parametrize("view", ["whole", "columns of a wider output", "rows spread apart",
+                                  "rows not a uniform stride apart"])
+def test_mags_to_digits_writes_into_out(request, route, view):
+    """``mags_to_digits(..., out=...)`` writes the digits (and, with signs,
+    the sign column) into ``out`` and nothing around it, on both routes:
+    ``out`` whole, the columns of a wider output, every other row of one
+    (rows a uniform stride apart), and rows that are not a uniform stride
+    apart (the kernel route unpacks into a fresh tensor and copies, one
+    launch)."""
+    if route == "kernel":
+        request.getfixturevalue("kernel_route")
+    mags = packed.digits_to_mags_reference(
+        torch.from_numpy(format_digits(4, 20, (6, 4), seed=13)), 2)
+    signs = torch.from_numpy(np.random.RandomState(13).choice([-1, 0, 1], size=(6, 4)))
+    for sign, width in ((None, 20), (signs, 21)):
+        base = torch.full((6, 8, width + 2), -7, dtype=torch.int32)
+        out = {"whole": base[:, :4, :width],
+               "columns of a wider output": base[:, :4, 1:width + 1],
+               "rows spread apart": base[:, ::2, :width],
+               "rows not a uniform stride apart": base[:, 2:6, 2:]}[view]
+        if view == "whole":
+            base = out = torch.full((6, 4, width), -7, dtype=torch.int32)
+        profiling.reset()
+        assert packed.mags_to_digits(mags, 20, 2, out=out, signs=sign) is out
+        assert torch.equal(out, packed.mags_to_digits_reference(mags, 20, 2, signs=sign))
+        assert int((base == -7).sum()) == base.numel() - out.numel()
+        assert launch_counts() == ((0, 1) if route == "kernel" else (0, 0))
+
+
+def test_row_stride_of():
+    t = torch.zeros((2, 3, 6, 5), dtype=torch.int32)
+    assert digit_io.row_stride_of(t) == 5
+    assert digit_io.row_stride_of(t[..., 1:4]) == 5
+    assert digit_io.row_stride_of(t[:, :, ::2]) == 10
+    assert digit_io.row_stride_of(t[:, 1:2, 3:4]) == 90
+    assert digit_io.row_stride_of(t[:, :, :3]) is None
+    assert digit_io.row_stride_of(t.transpose(-1, -2)) is None
+    assert digit_io.row_stride_of(torch.zeros((1, 5))[..., :1]) == 1
+    assert digit_io.row_stride_of(torch.zeros(())) is None
+
+
+def refused_launch(monkeypatch):
+    """``_launch`` as it is, on a library whose launches all return
+    cudaErrorInvalidValue, with the card's device scope and stream stubbed."""
+    monkeypatch.setattr(digit_io, "_library", lambda entry: lambda *args: 1)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("Stream", (), {"cuda_stream": 0})())
+
+
+RAISES = {
+    "pack on the CPU": (lambda: digit_io.pack(torch.zeros((2, 3), dtype=torch.int64), 1),
+                        ValueError, "CUDA tensor"),
+    "unpack on the CPU": (lambda: digit_io.unpack(torch.zeros(2, dtype=torch.int64),
+                                                  torch.zeros((2, 3), dtype=torch.int32), 1),
+                          ValueError, "CUDA tensor"),
+    "converters off the CPU and the card": (
+        lambda: packed.digits_to_mags(torch.zeros((2, 3), dtype=torch.int64, device="meta"), 1),
+        ValueError, "CUDA tensor"),
+    "bits 0": (lambda: packed.digits_to_mags(torch.zeros((2, 3), dtype=torch.int64), 0),
+               ValueError, "bits"),
+    "bits 64": (lambda: packed.mags_to_digits(torch.zeros(2, dtype=torch.int64), 1, 64),
+                ValueError, "bits"),
+    "no digit axis": (lambda: packed.digits_to_mags(torch.zeros((2, 0), dtype=torch.int64), 1),
+                      ValueError, "digit axis"),
+    "int32 magnitudes": (lambda: digit_io.unpack(torch.zeros(2, dtype=torch.int32),
+                                                 torch.zeros((2, 3), dtype=torch.int32), 1),
+                         TypeError, "int64"),
+    "digits not contiguous": (
+        lambda: digit_io.pack(torch.zeros((3, 2), dtype=torch.int64).t(), 1),
+        ValueError, "contiguous"),
+    "out not int32": (lambda: packed.mags_to_digits(torch.zeros(2, dtype=torch.int64), 3, 1,
+                                                    out=torch.zeros((2, 3), dtype=torch.int64)),
+                      ValueError, "int32"),
+    "out of another width": (
+        lambda: packed.mags_to_digits(torch.zeros(2, dtype=torch.int64), 3, 1,
+                                      out=torch.zeros((2, 4), dtype=torch.int32)),
+        ValueError, "columns"),
+    "out of another batch": (
+        lambda: packed.mags_to_digits(torch.zeros(2, dtype=torch.int64), 3, 1,
+                                      out=torch.zeros((3, 3), dtype=torch.int32)),
+        ValueError, "does not fit"),
+    "signs of another shape": (
+        lambda: digit_io.unpack(torch.zeros(2, dtype=torch.int64),
+                                torch.zeros((2, 4), dtype=torch.int32), 1,
+                                signs=torch.zeros(3, dtype=torch.int64)),
+        ValueError, "signs"),
+    "a refused launch": (lambda: digit_io.pack(torch.zeros((2, 3), dtype=torch.int64), 1),
+                         RuntimeError, "launch failed: cudaError 1"),
+}
+
+
+@pytest.mark.parametrize("case", list(RAISES))
+def test_converters_raise(request, monkeypatch, case):
+    """What the kernel route refuses raises, and launches nothing: tensors
+    off the card (on the CPU the wrappers of ``ops/digit_io.py`` refuse
+    them; the converters send them there from anywhere but the CPU), bits
+    outside 1..63, an empty digit axis, the wrong dtypes, a tensor that is
+    not contiguous where one must be, an ``out`` or signs that do not fit,
+    and a launch the card refuses (``cudaGetLastError``)."""
+    fn, error, match = RAISES[case]
+    if case == "a refused launch":
+        monkeypatch.setattr(digit_io, "_check_device", lambda t, what: None)
+        refused_launch(monkeypatch)
+    elif "CUDA tensor" not in match:
+        request.getfixturevalue("kernel_route")
+    profiling.reset()
+    with pytest.raises(error, match=match):
+        fn()
+    assert launch_counts() == (0, 0)
