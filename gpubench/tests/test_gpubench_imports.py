@@ -50,7 +50,7 @@ def test_a_process_holding_jax_prints_no_result(monkeypatch, capsys, small):
     monkeypatch.setitem(sys.modules, "jax", type(sys)("jax"))
     real_run = runner.run
     monkeypatch.setattr(runner, "run", lambda *a, **k: real_run(
-        *a, device=torch.device("cpu"), traffic=small["high_n4.device"], **k))
+        *a, device=torch.device("cpu"), traffic=small("high_n4.device"), **k))
     code = runner.main(["--workload", "high_n4.device", "--seed", "5", "--seconds", "0.2"], 0.0)
     out, err = capsys.readouterr()
     assert code != 0 and out == "" and "jax" in err
@@ -65,7 +65,7 @@ def test_a_forbidden_module_loaded_by_the_check_prints_no_result(monkeypatch, ca
 
     monkeypatch.setattr(runner, "compare", compare)
     monkeypatch.setattr(runner, "run", lambda *a, **k: real_run(
-        *a, device=torch.device("cpu"), traffic=small["high_n4.device"], **k))
+        *a, device=torch.device("cpu"), traffic=small("high_n4.device"), **k))
     code = runner.main(["--workload", "high_n4.device", "--seed", "5", "--seconds", "0.2"], 0.0)
     out, err = capsys.readouterr()
     assert code != 0 and out == "" and "matrix_inversion_tpu" in err

@@ -84,16 +84,26 @@ def test_configs_workloads_and_metrics_cross_reference():
 
 
 @pytest.mark.parametrize("name", CELLS)
-def test_cell_loads_with_its_files(name):
+def test_cell_loads_with_its_files(name, required_keys):
     cell = manifest.cell(name)
     assert (manifest.BENCH / "drivers" / f"{cell.traffic['driver']}.py").is_file()
     reported = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in reported and len(reported) >= 2
     assert cell.per_layer
-    for key in ("n", "qfloat_len", "qfloat_ints", "qfloat_base", "true_division", "sampler",
-                "roofline", "control", "k1_kernels", "source"):
-        assert key in cell.config
+    assert [k for k in required_keys(cell) if k not in cell.config] == []
     assert cell.config["control"]["qfloat_len"] < cell.config["qfloat_len"]
+
+
+def test_a_config_key_is_required_where_a_metric_reads_it(required_keys):
+    def cell(*metrics):
+        return manifest.Cell(name="x", config={}, traffic={}, end_to_end=[], chips=1,
+                             per_layer=[{"name": m} for m in metrics])
+
+    always = {"n", "qfloat_len", "qfloat_ints", "qfloat_base", "true_division", "sampler",
+              "control", "source"}
+    assert set(required_keys(cell("stream_idle_pct", "setup_library_s"))) == always
+    assert set(required_keys(cell("k1_roofline_pct"))) == always | {"roofline"}
+    assert set(required_keys(cell("digit_io_ms", "idle_pct"))) == always | {"k1_kernels"}
 
 
 def test_unknown_cell_raises():
