@@ -4,8 +4,12 @@ Set-up quantizes the pool's float batches with the program
 (``BatchedMatrixInversion.quantize``: packed or digit I/O, as the traffic's
 ``io`` says) and warms up ``warm_calls`` calls.  The window then calls
 ``run_raw`` on the pool's batches in turn, waiting for each call's outputs
-(``synchronize``) before the next call.  A call counts when its outputs are
-ready inside the window.
+(``synchronize``) before the next call, until a call's outputs are ready
+after the window's close.  The rate counts every call the loop made, that
+last one too, over the time from the window's start to its outputs: all the
+work over all the time the loop ran, so no fraction of a call is lost and a
+stall that the close cuts shows.  ``call_p95_ms`` and ``run_raw_host`` take
+the calls whose outputs were ready inside the window.
 
 Traffic parameters: ``io``, ``batch``, ``pool``, ``warm_calls``,
 ``keep_outputs`` (answers sampled from the window for the check),
@@ -71,13 +75,13 @@ def run(ctx):
         session.stop()
     while True:
         out, a, b, c = call(done % len(args), False)
+        kept.offer((done % len(args), out))
+        ends.append(c - t_start)
+        done += 1
         if c > t_end:
             break
         calls_ms.append((c - a) * 1e3)
         host_ms.append((b - a) * 1e3)
-        kept.offer((done % len(args), out))
-        ends.append(c - t_start)
-        done += 1
     notes = [cpu.line(), "calls by 5-s slice, shares of their mean: "
              + " ".join(f"{x:.4f}" for x in stats.slice_rates(ends, ctx.seconds))]
     if dev.type == "cuda":
@@ -86,8 +90,10 @@ def run(ctx):
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     samples = [(k, program.to_host(o)) for k, o in kept.items]
     values = {"setup_s": t_start - ctx.t0,
-              "inversions_per_s": stats.rate(done * tr["batch"], ctx.seconds)}
+              "inversions_per_s": stats.rate_of_calls(ends, tr["batch"])}
     notes.append(f"setup_s {values['setup_s']:.4f}: process start to the window")
+    notes.append(f"inversions_per_s over {len(ends)} calls, the last ready "
+                 f"{ends[-1]:.6f} s after the {ctx.seconds:g}-s window's start")
     if calls_ms:
         values["call_p95_ms"] = stats.percentile(calls_ms, 95)
         notes.append(f"call_p95_ms over {len(calls_ms)} calls; median "

@@ -25,6 +25,18 @@ def rate(count, seconds):
     return count / seconds
 
 
+def rate_of_calls(ends, per_call):
+    """``per_call`` items for each call whose outputs were ready at ``ends``
+    (s from the window's start, in order), per second of the time those
+    calls took: from the window's start to the last of them.  With the call
+    that ends past the window's close among ``ends``, that is all the work
+    over all the time: no fraction of a long call is lost, and a stall that
+    the close cuts lowers the rate.  No calls: 0."""
+    if not ends:
+        return 0.0
+    return rate(len(ends) * per_call, ends[-1])
+
+
 def slice_rates(ends, seconds, width=5.0):
     """The completions at times ``ends`` (s from the window's start) per
     second in each whole slice of ``width`` seconds of a window of

@@ -31,6 +31,24 @@ def test_rate():
         stats.rate(1, 0)
 
 
+def test_the_rate_of_calls_is_over_their_own_time():
+    batch = 262144
+    # twelve calls of 2.4 s, and a thirteenth whose outputs are ready after
+    # the window's close at 30 s: all thirteen over their 31.2 s
+    ends = [2.4 * k for k in range(1, 14)]
+    assert stats.rate_of_calls(ends, batch) == pytest.approx(batch / 2.4, rel=1e-12)
+    assert stats.rate(12 * batch, 30.0) == pytest.approx(0.96 * batch / 2.4, rel=1e-12)
+    # calls of 0.7 ms fill the window to within one call: the two agree
+    ends = [0.0007 * k for k in range(1, int(30 / 0.0007) + 2)]
+    old = stats.rate((len(ends) - 1) * batch, 30.0)
+    assert stats.rate_of_calls(ends, batch) == pytest.approx(old, rel=1e-4)
+    # a stall of 10.5 s from 20 s on, cut by the close, costs a third
+    ends = [0.001 * k for k in range(1, 20001)] + [30.5]
+    assert stats.rate_of_calls(ends, batch) == pytest.approx(20001 * batch / 30.5, rel=1e-12)
+    assert stats.rate_of_calls(ends, batch) < 0.67 * stats.rate_of_calls(ends[:-1], batch)
+    assert stats.rate_of_calls([], batch) == 0
+
+
 def test_busy_gaps_and_idle_share():
     iv = [(0, 2), (1, 3), (5, 6), (9, 12), (-3, -1)]
     assert stats.merged(iv, 0, 10) == [(0, 3), (5, 6), (9, 10)]

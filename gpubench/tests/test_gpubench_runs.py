@@ -7,6 +7,7 @@ the same checks, through the same functions, as the cells of the manifest."""
 
 import functools
 import json
+import re
 import shutil
 import time
 
@@ -72,6 +73,15 @@ def check_sound(name, trace, small, root=manifest.ROOT):
     assert set(result["metrics"]) <= {m["name"] for m in expected}
     if not trace:
         assert set(result["metrics"]) == {m["name"] for m in expected}
+    if not trace and cell.traffic["driver"] == "device_loop":
+        # every call the loop made, the last ready past the close, over its time
+        (note,) = [line for line in lines if line.startswith("inversions_per_s over ")]
+        calls, last = re.match(r"inversions_per_s over (\d+) calls, the last ready ([\d.]+) s ",
+                               note).groups()
+        assert int(calls) == result["attempted"]
+        assert float(last) > window_s(name, root, small, False) - 1e-6
+        assert result["metrics"]["inversions_per_s"]["value"] == pytest.approx(
+            result["attempted"] * small(name, root)["batch"] / float(last), rel=1e-5)
     json.dumps(result)
     return result
 
