@@ -59,9 +59,14 @@ kernel's own code issues is printed beside it, for K2, K3 and K4 too.
 Then the serving pipeline and the user's tools: the native marshaller
 (``csrc/qmarshal.cc``, built with g++ in the same parallel step) against
 the numpy route bit for bit on the main path's batch (packed) and at the
-digit path's (digits); ``StreamingInverter`` at HIGH n=4 over 1,048,576
-matrices a batch, packed (6 batches; 3 tracked) and digit I/O (3 batches of
-262,144), every batch equal to ``inv.run`` and K1 launched once a batch; a
+digit path's (digits); the float stream's quantize and dequantize kernels
+(``csrc/float_io.cu``) against the host route bit for bit at the edges of
+float64, timed beside their byte bounds at the two stream cells' batches;
+``StreamingInverter`` at HIGH n=4 over 1,048,576 matrices a batch, packed (6
+batches; 3 tracked: quantized and dequantized on the card) and digit I/O (3
+batches of 262,144, on the host), every batch equal to ``inv.run`` and K1
+launched once a batch, the float kernels once a packed batch; each stage of
+a streamed batch on both routes alone; a
 producer failure in the third batch raised after two results; the e2e
 benchmark (``utils/run_benchmarks.py::e2e``: the device alone, and the native
 and numpy routes, serial and streamed; its dict on one line); the CLI
@@ -176,6 +181,7 @@ from matrix_inversion_tpu_torch.models.marshal import (
 from matrix_inversion_tpu_torch.ops import (
     cuda_build,
     digit_io,
+    float_io,
     fused_inverse,
     limb_kernels,
     limbs,
@@ -277,7 +283,7 @@ K6_FIRST_DESIGN_CHECK = 65_536
 K6_PYTHON_CHECK = 256
 
 # The serving phase: the stream at the main path's batch (6 batches, 3
-# tracked) and at the digit path's (3), the e2e benchmark at the main path's
+# tracked), at the digit path's (3) and at HIGH n=10's (3), the e2e benchmark at the main path's
 # batch in 4 batches of 2 passes a leg (the JAX benchmark's defaults are 8 and
 # 3: cut to keep the phase near a minute), the reference's 10,000-inversion
 # sweep, whose first batch is held to the CPU.  The CLI at its default sizes
@@ -285,6 +291,7 @@ K6_PYTHON_CHECK = 256
 SERVE_BATCHES = 6
 SERVE_TRACKED_BATCHES = 3
 SERVE_DIGIT_BATCHES = 3
+SERVE_N10_BATCHES = 3
 E2E_BATCHES = 4
 E2E_REPEATS = 2
 STEADY_BATCHES = 16  # the stream once more, after a warm run, on the same batch
@@ -498,7 +505,7 @@ def replay_of(launch, count):
 # the kernels whose launches counts() reads (``launch.<kernel>`` counters)
 KERNELS = ("fused_inverse", "fused_inverse_tracked", "fused_inverse_lanes",
            "fused_inverse_lanes_tracked", "long_division_float", "long_division_classic",
-           "mul_window", "limb_division", "limb_tidy")
+           "mul_window", "limb_division", "limb_tidy", "float_quantize", "float_dequantize")
 
 
 def reset_counts():
@@ -1108,6 +1115,120 @@ def digit_io_kernels(dev, card, batch=DIGIT_BATCH, check_batch=CHECK_BATCH, roun
     return rows
 
 
+# the float stream's kernels (ops/float_io.py): the launch counters; the
+# formats they are checked at (length, ints, base: High, the control's
+# MEDIUM+, and the widest packed formats at bases 4 and 16); the values every
+# check starts with, which the host route converts through x86-64's
+# conversion (out of int64's range: -2**63) and the card's would saturate;
+# the values a batch holds at the stream cells' shapes, where they are timed
+FLOAT_IO_KERNELS = ("float_quantize", "float_dequantize")
+FLOAT_IO_FORMATS = ((40, 20, 2), (31, 16, 2), (31, 16, 4), (15, 7, 16))
+FLOAT_IO_EDGES = (
+    0.0, -0.0, 5e-324, -5e-324, 1e-310, 2.2250738585072014e-308, 1.0 - 2.0 ** -53, 2.0 ** -21,
+    2.0 ** 20 - 2.0 ** -20, 2.0 ** 20, -(2.0 ** 20 + 0.75), 3e6, 2.0 ** 52 + 1, -(2.0 ** 53),
+    2.0 ** 62, 2.0 ** 63 - 1024, -(2.0 ** 63 - 1024), 2.0 ** 63, -(2.0 ** 63), 2.0 ** 64, 1e300,
+    -np.finfo(np.float64).max, np.inf, -np.inf, np.nan, -np.nan,
+)
+FLOAT_IO_SHAPES = {"HIGH n=4": MAIN_BATCH * 16, "HIGH n=10": LARGE_BATCH * 100}
+
+
+def float_io_ptxas():
+    """Registers and spills of the four kernels of ``csrc/float_io.cu``."""
+    log = (float_io.build_dir() / "nvcc.log").read_text()
+    return (f"registers {sass.ptxas_registers(log)}; spills: "
+            f"{sass.ptxas_spill_lines(log) or 'none'}")
+
+
+def on_card(array, dev, offset=0):
+    """The numpy ``array`` flattened onto ``dev``, ``offset`` elements into
+    its storage (8 bytes off 16-byte alignment where odd)."""
+    flat = torch.empty(offset + array.size, dtype=torch.from_numpy(array).dtype, device=dev)
+    t = flat[offset:]
+    t.copy_(torch.from_numpy(np.ascontiguousarray(array).reshape(-1)))
+    return t
+
+
+def float_io_kernels(dev, card, check=CHECK_BATCH * 16 + 1, rounds=REPS):
+    """The float stream's quantize and dequantize kernels (``ops/float_io.py``)
+    on the card, bit for bit against the host route (``runtime/native.py``'s
+    ``quantize_packed`` and ``dequantize_packed``, ``csrc/qmarshal.cc``) and
+    their plain versions on the card: at each format of
+    :data:`FLOAT_IO_FORMATS` on ``check`` values (ragged) and at the High
+    format on the two stream cells' batches (:data:`FLOAT_IO_SHAPES`: n=4's
+    16,777,216 values and n=10's 26,214,400), normal(0, 100) values with
+    :data:`FLOAT_IO_EDGES` at their head, arrays aligned and 8 bytes off;
+    magnitudes from the quantize and over all of int64, signs in {-1, 0, 1}
+    and beyond; one launch each.  Then each kernel timed in turns with its
+    plain version at those batches, beside its byte bound, its outputs on the
+    timed inputs == the plain version's first.  Returns the timing rows."""
+    print(f"ptxas float_io: {float_io_ptxas()}")
+    rng = np.random.RandomState(22)
+    edges = np.array(FLOAT_IO_EDGES)
+    for fmt in FLOAT_IO_FORMATS:
+        counts_checked = (check, *FLOAT_IO_SHAPES.values()) if fmt == (40, 20, 2) else (check,)
+        for count in counts_checked:
+            values = np.concatenate([edges, rng.normal(0, 100, count - edges.size)])
+            want = native.quantize_packed(values, *fmt)
+            wild = rng.randint(-2 ** 63, 2 ** 63 - 1, size=count, dtype=np.int64)
+            mags = np.where(rng.rand(count) < 0.5, want[0], wild)
+            signs = np.where(rng.rand(count) < 0.9, want[1],
+                             rng.choice(np.array([0, 3, -2 ** 62]), size=count))
+            want_f = native.dequantize_packed(mags, signs, *fmt).view(np.int64)
+            for offset in (0, 1):
+                v = on_card(values, dev, offset)
+                (m, s), got = launches_of(lambda: float_io.quantize(v, *fmt))
+                expect_launches("float_quantize", got, float_quantize=1)
+                assert np.array_equal(m.cpu().numpy(), want[0]) and \
+                    np.array_equal(s.cpu().numpy(), want[1]), \
+                    f"float_quantize != the host route: {fmt}, {count} values, offset {offset}"
+                plain = float_io.quantize_reference(v, *fmt)
+                assert torch.equal(plain[0], m) and torch.equal(plain[1], s), \
+                    f"float_quantize != its plain version: {fmt}, {count} values"
+                dm, ds = on_card(mags, dev, offset), on_card(signs, dev, offset)
+                out, got = launches_of(lambda: float_io.dequantize(dm, ds, *fmt))
+                expect_launches("float_dequantize", got, float_dequantize=1)
+                assert np.array_equal(out.cpu().numpy().view(np.int64), want_f), \
+                    f"float_dequantize != the host route: {fmt}, {count} values, offset {offset}"
+                assert torch.equal(float_io.dequantize_reference(dm, ds, *fmt).view(torch.int64),
+                                   out.view(torch.int64)), \
+                    f"float_dequantize != its plain version: {fmt}, {count} values"
+        print(f"float I/O kernels, format {fmt}, {counts_checked} values: quantize and "
+              "dequantize == the host route (qmarshal.cc) and their plain versions bit for bit, "
+              "edges included, aligned and 8 bytes off; one launch each")
+
+    rows = {}
+    fmt = FLOAT_IO_FORMATS[0]
+    for shape, count in FLOAT_IO_SHAPES.items():
+        v = torch.randn(count, dtype=torch.float64, device=dev) * 100
+        m, s = float_io.quantize(v, *fmt)
+        plain = float_io.quantize_reference(v, *fmt)
+        assert torch.equal(plain[0], m) and torch.equal(plain[1], s), \
+            f"float_quantize != its plain version on the timed {shape} values"
+        assert torch.equal(float_io.dequantize(m, s, *fmt).view(torch.int64),
+                           float_io.dequantize_reference(m, s, *fmt).view(torch.int64)), \
+            f"float_dequantize != its plain version on the timed {shape} values"
+        del plain
+        turns = timed_in_turns({
+            "quantize": lambda: float_io.quantize(v, *fmt),
+            "quantize, plain": lambda: float_io.quantize_reference(v, *fmt),
+            "dequantize": lambda: float_io.dequantize(m, s, *fmt),
+            "dequantize, plain": lambda: float_io.dequantize_reference(m, s, *fmt),
+        }, dev, rounds=rounds, launches=KERNEL_LAUNCHES)
+        nbytes = count * (8 + 16)  # each: 8 bytes a value one way, 16 the other
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        for name in ("quantize", "dequantize"):
+            rows[f"{name} {shape}"] = {
+                "ms": turns[name], "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes,
+                "values": count, "plain_ms": turns[f"{name}, plain"],
+                "roofline_pct": 100 * bound / turns[name]}
+            assert bound <= 1.05 * turns[name], f"{name} {shape}: bound {bound} ms past its time"
+        for label, ms in turns.items():
+            print(f"time float I/O {label}, {KERNEL_LAUNCHES} calls a pass: {ms:.4f} ms "
+                  f"({shape}, {count} values; {card})")
+    print("float_io " + json.dumps({"card": card, **rows}))
+    return rows
+
+
 def digit_paths(dev, card, batch=DIGIT_BATCH, check_batch=CHECK_BATCH, large_n=LARGE_N):
     """Digit I/O on the card: ``BatchedMatrixInversion(io="digits")`` at HIGH
     n=4 (pack, K1 once, unpack) against the packed path on the same
@@ -1640,37 +1761,67 @@ def same_arrays(a, b):
         x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y) for x, y in zip(a, b))
 
 
-def streamed(label, inv, batches, expected, card):
+def streamed(label, inv, batches, card, *per_batch):
     """Drive ``StreamingInverter(inv)`` over ``batches`` with the launch
     counts set to 0 just before and read just after; raise unless every
-    yielded batch equals ``inv.run`` of it bit for bit and the kernel named
-    in ``expected`` ran once per batch.  Returns the results."""
+    yielded batch equals ``inv.run`` of it bit for bit (the host's route),
+    each kernel named in ``per_batch`` ran once per batch and no other, and
+    every batch took the route that ``inv`` calls for: the card's for packed
+    I/O (``stream.device_marshal``), the host's for digit I/O.  Prints the
+    pinned host memory held with every result kept.  Returns the results."""
     reset_counts()
     t0 = time.perf_counter()
     results = list(StreamingInverter(inv, depth=2, finish_workers=2).run(batches))
     if inv.device.type == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    pinned = pinned_bytes()
     got = counts()
-    expect_launches(f"stream {label}", got, **{expected: len(batches)})
+    routes = {name: profiling.counters(name).get(name, 0)
+              for name in ("stream.device_marshal", "stream.host_marshal")}
+    expect_launches(f"stream {label}", got, **{name: len(batches) for name in per_batch})
+    route = "stream.device_marshal" if inv.io == "packed" else "stream.host_marshal"
+    assert routes == {**dict.fromkeys(routes, 0), route: len(batches)}, \
+        f"stream {label}: batches by route {routes}"
     assert len(results) == len(batches)
     for k, (M, r) in enumerate(zip(batches, results)):
         assert same_arrays(r, inv.run(M)), f"stream {label}: batch {k} != inv.run"
     matrices = len(batches) * inv.batch_size
     print(f"stream {label}: {len(batches)} batches of {inv.batch_size}, depth 2, 2 finish "
-          f"workers: launches {got}; every batch == inv.run bit for bit; host clock "
+          f"workers: launches {got}; batches by route {routes}; every batch == inv.run bit for "
+          "bit; host clock "
           f"{seconds:.3f} s = {matrices / seconds:.4e} inversions/s, first batch's pinned "
-          f"allocations included ({card})")
+          f"allocations included; pinned host memory with all {len(results)} results kept: "
+          f"{pinned} ({card})")
     return results
+
+
+def pinned_bytes():
+    """torch's caching host allocator now: the bytes of pinned blocks it owns
+    (in use and cached) and of those in use, and its blocks."""
+    stats = torch.cuda.host_memory_stats()
+    return {key: stats.get(f"{key}.current") for key in
+            ("allocated_bytes", "active_bytes", "allocations")}
 
 
 def stream_stages(card, inv, M, passes=STAGE_PASSES, steady=STEADY_BATCHES):
     """Host-clock seconds of each stage of one streamed packed batch, alone
-    (median of ``passes``): quantize into pinned buffers and into new
-    arrays, the pinned H2D copy, ``run_raw``, the D2H copy into pinned
-    memory, dequantize; then the stream over ``steady`` copies of ``M``
-    after a warm run (its pinned buffers come from the caching allocator)."""
+    (median of ``passes``).  The card's route, which the stream takes: the
+    producer's staging copy of the floats into a pinned buffer and its
+    pinned float64 H2D, beside a pageable H2D straight from the caller's
+    array (the alternative with no staging); the consumer's quantize,
+    ``run_raw`` and dequantize on the card; the finish worker's D2H of the
+    float64 results into a new pinned buffer (the handover: the allocation
+    included) and into one reused, and the copy of a reused pinned result
+    into new pageable memory that a finish worker would make in place of the
+    handover.  The host's route, which digit I/O and the
+    CPU keep: quantize into pinned buffers and into new arrays, the pinned
+    int64 H2D, the D2H into pinned memory, dequantize.  Then the stream over
+    ``steady`` copies of ``M`` after a warm run (its pinned buffers come from
+    the caching allocator)."""
     dev = inv.device
+    p = inv.params
+    fmt = (p.qfloat_len, p.qfloat_ints, p.qfloat_base)
 
     def seconds(fn):
         samples = []
@@ -1684,31 +1835,56 @@ def stream_stages(card, inv, M, passes=STAGE_PASSES, steady=STEADY_BATCHES):
     t0 = time.perf_counter()
     ring = tuple(torch.empty(s, dtype=torch.int64, pin_memory=True) for s in inv.input_shapes())
     alloc_s = time.perf_counter() - t0
+    flat = M.reshape(M.shape[0], -1)
+    slot = torch.empty(flat.shape, dtype=torch.float64, pin_memory=True)
+    values = slot.to(dev)
+    quantized = float_io.quantize(values, *fmt)
+    result = float_io.dequantize(*inv.run_raw(*quantized), *fmt)
+    reused = torch.empty(result.shape, dtype=torch.float64, pin_memory=True)
+    card_stages = {
+        "staging copy into pinned float64": lambda: slot.copy_(torch.from_numpy(flat)),
+        "H2D float64, pinned": lambda: slot.to(dev, non_blocking=True),
+        "H2D float64, pageable (no staging)": lambda: torch.from_numpy(flat).to(dev),
+        "quantize + run_raw + dequantize on the card":
+            lambda: float_io.dequantize(*inv.run_raw(*float_io.quantize(values, *fmt)), *fmt),
+        "run_raw alone": lambda: inv.run_raw(*quantized),
+        "D2H float64 into a new pinned buffer (the handover)":
+            lambda: torch.empty(result.shape, dtype=torch.float64,
+                                pin_memory=True).copy_(result, non_blocking=True),
+        "D2H float64 into a reused pinned buffer": lambda: reused.copy_(result, non_blocking=True),
+        "copy of a pinned result into new pageable memory (instead of the handover)":
+            lambda: torch.empty(result.shape, dtype=torch.float64).copy_(reused),
+    }
     ring_np = tuple(h.numpy() for h in ring)
-    stages = {"quantize into pinned": lambda: inv._host_quantize(M, out=ring_np),
-              "quantize into new arrays": lambda: inv._host_quantize(M)}
+    host_stages = {"quantize into pinned": lambda: inv._host_quantize(M, out=ring_np),
+                   "quantize into new arrays": lambda: inv._host_quantize(M)}
     args = tuple(h.to(dev) for h in ring)
-    stages["H2D, pinned"] = lambda: [h.to(dev, non_blocking=True) for h in ring]
-    out = inv.run_raw(*args)
-    stages["run_raw"] = lambda: inv.run_raw(*args)
-    pinned_out = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in out)
-    stages["D2H, into pinned"] = lambda: [h.copy_(o, non_blocking=True)
-                                          for h, o in zip(pinned_out, out)]
+    host_stages["H2D int64, pinned"] = lambda: [h.to(dev, non_blocking=True) for h in ring]
+    host_stages["run_raw"] = lambda: inv.run_raw(*args)
+    raw = inv.run_raw(*args)
+    pinned_out = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in raw)
+    host_stages["D2H int64, into pinned"] = lambda: [h.copy_(o, non_blocking=True)
+                                                     for h, o in zip(pinned_out, raw)]
     host_out = tuple(h.numpy() for h in pinned_out)
-    stages["dequantize"] = lambda: inv._host_dequantize(host_out)
-    timed = {label: seconds(fn) for label, fn in stages.items()}
+    host_stages["dequantize"] = lambda: inv._host_dequantize(host_out)
+    timed = {label: seconds(fn) for label, fn in {**card_stages, **host_stages}.items()}
     list(StreamingInverter(inv).run([M] * 2))  # warm: the pinned pool holds the ring
+    reset_counts()
     t0 = time.perf_counter()
     count = sum(r.shape[0] for r in StreamingInverter(inv).run([M] * steady))
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
     assert count == steady * inv.batch_size
-    print(f"stream stages, HIGH n=4 packed, B={inv.batch_size}, host clock, median of {passes} "
-          f"(s): pinned allocation of one input slot {alloc_s:.4f} (first use); "
-          + ", ".join(f"{label} {s:.4f}" for label, s in timed.items())
+    routes = profiling.counters("stream.")
+    print(f"stream stages, HIGH n={p.n} packed, B={inv.batch_size}, host clock, median of "
+          f"{passes} (s): pinned allocation of one int64 input slot {alloc_s:.4f} (first use); "
+          "the card's route: " + ", ".join(f"{label} {timed[label]:.4f}" for label in card_stages)
+          + "; the host's route: "
+          + ", ".join(f"{label} {timed[label]:.4f}" for label in host_stages)
           + f"; the stream over {steady} batches after a warm run: {stream_s:.3f} s = "
-          f"{stream_s / steady:.4f} s a batch = {count / stream_s:.4e} inversions/s "
-          f"({os.cpu_count()} host cores; {card})")
+          f"{stream_s / steady:.4f} s a batch = {count / stream_s:.4e} inversions/s, batches by "
+          f"route {routes} ({os.cpu_count()} host cores; {card})")
+    return timed
 
 
 def run_cli(flags):
@@ -1744,7 +1920,8 @@ def serving_paths(dev, card, M, out, batch=MAIN_BATCH, digit_batch=DIGIT_BATCH,
     marshaller against the numpy route bit for bit (packed on the main
     path's matrices ``M`` and output ``out``, digits at ``digit_batch``);
     ``StreamingInverter`` at HIGH n=4, packed (untracked and tracked) and
-    digit I/O, each batch == ``inv.run`` and K1 once per batch, and a
+    digit I/O, and at HIGH n=10 packed, each batch == ``inv.run`` and K1
+    once per batch, and a
     producer failure raised after two results; the e2e benchmark; the
     reference's error sweep, its first batch == the
     CPU's; and the debug tools on one matrix == the CPU.  Returns the e2e
@@ -1774,13 +1951,19 @@ def serving_paths(dev, card, M, out, batch=MAIN_BATCH, digit_batch=DIGIT_BATCH,
     inv = BatchedMatrixInversion(p, batch, io="packed", device=dev)
     rng = np.random.RandomState(90)
     Ms = [rng.randn(batch, 4, 4) * 100 for _ in range(batches)]
-    results = streamed("HIGH n=4 packed", inv, Ms, "fused_inverse", card)
+    results = streamed("HIGH n=4 packed", inv, Ms, card, "fused_inverse", *FLOAT_IO_KERNELS)
     tinv = BatchedMatrixInversion(p, batch, io="packed", track_overflow=True, device=dev)
     TMs = [overflowy(rng, batch, 4, 1024) for _ in range(tracked_batches)]
-    tracked = streamed("HIGH n=4 packed tracked", tinv, TMs, "fused_inverse_tracked", card)
+    tracked = streamed("HIGH n=4 packed tracked", tinv, TMs, card, "fused_inverse_tracked",
+                       *FLOAT_IO_KERNELS)
     assert all(r[1][:2048].all() for r in tracked), "stream: overflowy rows not flagged"
+    inv10 = BatchedMatrixInversion(HIGH.replace(n=10), LARGE_BATCH, io="packed", device=dev)
+    streamed("HIGH n=10 packed", inv10, [rng.randn(LARGE_BATCH, 10, 10) * 100
+                                         for _ in range(SERVE_N10_BATCHES)],
+             card, "fused_inverse_lanes", *FLOAT_IO_KERNELS)
+    del inv10
     streamed("HIGH n=4 digits", dinv, [rng.randn(digit_batch, 4, 4) * 100
-                                       for _ in range(digit_batches)], "fused_inverse", card)
+                                       for _ in range(digit_batches)], card, "fused_inverse")
     got = []
     try:
         for r in StreamingInverter(inv, depth=2, finish_workers=2).run(
@@ -2866,10 +3049,11 @@ def main():
         native_build = pool.submit(timed_s, native.build)
         limb_build = pool.submit(timed_s, limb_kernels.build)
         digit_build = pool.submit(timed_s, digit_io.build_dir)
+        float_build = pool.submit(timed_s, float_io.build_dir)
         fused_s, op_s, ubench_s = fused_build.result(), op_build.result(), ubench_build.result()
         steps_s, k1_steps_s = steps_build.result(), k1_steps_build.result()
         native_s, limb_s = native_build.result(), limb_build.result()
-        digit_s = digit_build.result()
+        digit_s, float_s = digit_build.result(), float_build.result()
     print(f"build: {len(CHECKS)} fused_inverse + {len(TRACKED_CHECKS)} tracked kernels + "
           f"{len(cli_configs)} at the CLI's sizes up to 5 (LOW) "
           f"from {fused_inverse.CSRC} with nvcc {' '.join(fused_inverse.NVCC_FLAGS)} "
@@ -2880,7 +3064,7 @@ def main():
           f"{k1_steps_s:.1f} s; the native marshaller ({native.SOURCE}) with g++ "
           f"{' '.join(cuda_build.HOST_FLAGS)} in {native_s:.1f} s; limb_division + limb_tidy "
           f"libraries and K6's digit-window build in {limb_s:.1f} s; the digit-I/O library in "
-          f"{digit_s:.1f} s; all in "
+          f"{digit_s:.1f} s; the float-I/O library in {float_s:.1f} s; all in "
           f"{time.perf_counter() - t0:.1f} s, beside the {len(size_builds)} K1 builds past n = 5 "
           f"in the background")
     main_config = config_of(HIGH.replace(n=4))
@@ -3049,6 +3233,7 @@ def main():
     # StreamingInverter, the e2e benchmark, the CLI, the error sweep, the debug
     # tools
     t0 = time.perf_counter()
+    float_io_kernels(dev, card)
     e2e = serving_paths(dev, card, M, out)
     print(f"host clock: the serving paths and the user's tools, {time.perf_counter() - t0:.1f} s")
 

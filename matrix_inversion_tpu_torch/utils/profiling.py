@@ -26,7 +26,9 @@ device's timeline as an annotation over the work launched inside it.
 hand-written kernel, ``library.built`` and ``library.loaded`` (the misses
 and hits of ``ops/cuda_build.py``'s cache) and ``library.ns`` (ns spent in
 building or loading a library, the emitter and the hash included,
-:func:`library`).
+:func:`library`), and ``stream.device_marshal`` and ``stream.host_marshal``
+(``runtime/stream.py``'s batches by the route they took: quantized and
+dequantized on the card, or on the host).
 """
 
 from __future__ import annotations

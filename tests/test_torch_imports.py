@@ -29,9 +29,9 @@ def test_port_sources_found():
             "models/inverse.py", "runtime/stream.py", "runtime/native.py", "utils/debug.py",
             "utils/precision.py", "utils/run_benchmarks.py", "__main__.py", "ops/limbs.py",
             "ops/limb_kernels.py", "parallel/__init__.py", "parallel/mesh.py",
-            "parallel/distributed.py", "ops/digit_io.py"} <= names
+            "parallel/distributed.py", "ops/digit_io.py", "ops/float_io.py"} <= names
     for source in ("qmarshal.cc", "limb_division.cu", "limb_tidy.cu", "limb_frame.cuh",
-                   "digit_io.cu"):
+                   "digit_io.cu", "float_io.cu"):
         assert (PORT / "csrc" / source).is_file()
 
 

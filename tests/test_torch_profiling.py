@@ -67,7 +67,7 @@ def test_without_a_session_a_span_records_nothing_and_opens_no_range(monkeypatch
         profiling.count("launch.fused_inverse")
     _stream_run(2)
     assert opened == [] and profiling.spans() == []
-    assert profiling.counters() == {"launch.fused_inverse": 1}
+    assert profiling.counters() == {"launch.fused_inverse": 1, "stream.host_marshal": 2}
     assert profiling.launches("fused_inverse") == 1 and profiling.launches("mul_window") == 0
 
 

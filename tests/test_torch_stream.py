@@ -5,11 +5,17 @@ pipeline runs without CUDA streams, events or pinned memory), each held bit
 for bit to the JAX package's ``StreamingInverter`` on the same batches
 (LOW n=2 and n=3, packed I/O), and to the port's ``inv.run``; then a tracked
 stream (flags included), digit I/O, a stream abandoned after one result,
-a batch of the wrong shape, and an n=13 stream on the op-by-op path.  The
+a batch of the wrong shape, and an n=13 stream on the op-by-op path.  Then
+the same cases on the card's route (quantize and dequantize by
+``ops/float_io.py``), forced on for packed I/O on the CPU with the kernels'
+host form in place of their launches: HIGH n=3 and n=4 against the host
+route and JAX, tracked, every depth and finish pool, a producer failure, an
+abandoned stream, results the caller owns, and the counters by route.  The
 JAX inverters are module-scoped: their jit compiles are most of the time.
 """
 
 import threading
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -23,6 +29,9 @@ import matrix_inversion_tpu_torch as mt
 from matrix_inversion_tpu_torch.ops import packed
 from matrix_inversion_tpu_torch.runtime import stream as stream_module
 from matrix_inversion_tpu_torch.runtime.stream import StreamingInverter
+from matrix_inversion_tpu_torch.utils import profiling
+
+import float_io_host
 
 torch.set_num_threads(2)
 
@@ -204,3 +213,162 @@ def test_stream_order_under_thread_stress(n2):
     finally:
         sys.setswitchinterval(interval)
     assert_batches_equal(got, want)
+
+
+# -- the card's route (``ops/float_io.py``), run on the CPU: the route forced
+# on for packed I/O, the launches replaced by the kernels' host form
+
+
+@pytest.fixture(scope="module")
+def float_kernels(tmp_path_factory):
+    return float_io_host.build(tmp_path_factory.mktemp("float_io_host"))
+
+
+@pytest.fixture
+def device_route(monkeypatch, float_kernels):
+    """Packed-I/O streams on the CPU take the card's route, whose quantize
+    and dequantize run the kernels' host form; the counters start at 0."""
+    float_io_host.kernel_route(monkeypatch, float_kernels)
+    monkeypatch.setattr(stream_module, "_marshals_on_device", lambda inv: inv.io == "packed")
+    profiling.reset()
+
+
+def route_counts():
+    return (profiling.counters("stream.").get("stream.device_marshal", 0),
+            profiling.counters("stream.").get("stream.host_marshal", 0),
+            profiling.launches("float_quantize"), profiling.launches("float_dequantize"))
+
+
+@pytest.fixture(scope="module")
+def high3():
+    return pair_at(mi.HIGH, mt.HIGH, 3, 6)
+
+
+@pytest.fixture(scope="module")
+def high4():
+    return pair_at(mi.HIGH, mt.HIGH, 4, 5)
+
+
+def pair_at(jax_preset, preset, n, B):
+    """(JAX inverter, port inverter on the CPU) of ``preset`` at n, packed
+    I/O."""
+    return (JaxBatched(jax_preset.replace(n=n), B, backend="packed", io="packed"),
+            mt.BatchedMatrixInversion(preset.replace(n=n), B, backend="packed", io="packed",
+                                      device="cpu"))
+
+
+def with_edges(M, wide=False):
+    """``M`` with a -0.0, a +0.0 and a subnormal in its first matrix; with
+    ``wide``, integer parts past High's 20 integer digits in its second
+    (they keep their low digits: the JAX package's numpy route, which it
+    takes below 4,096 values, would not)."""
+    M = M.copy()
+    M[0].flat[:3] = [-0.0, 0.0, 1e-310]
+    if wide:
+        M[1].flat[:2] = [2.0 ** 21 + 0.5, -(2.0 ** 23 + 0.25)]
+    return M
+
+
+@pytest.mark.parametrize("fixture", ["high3", "high4"])
+def test_device_route_matches_host_route_and_jax(request, device_route, fixture):
+    """HIGH n=3 and n=4 through the card's route == the host route
+    (``inv.run``), and == JAX's stream where the integer parts fit, bit for
+    bit; every batch counts ``stream.device_marshal`` and launches the
+    quantize and the dequantize once."""
+    jax_inv, inv = request.getfixturevalue(fixture)
+    n, B = inv.params.n, inv.batch_size
+    rng = np.random.RandomState(20 + n)
+    batches = [with_edges(rng.randn(B, n, n) * 100) for _ in range(3)]
+    batches.append(with_edges(rng.randn(B, n, n) * 100, wide=True))
+    streamed = list(StreamingInverter(inv, depth=2).run(iter(batches)))
+    assert route_counts() == (4, 0, 4, 4)
+    assert all(s.dtype == np.float64 and s.shape == (B, n, n) for s in streamed)
+    assert_batches_equal(streamed, [inv.run(M) for M in batches])
+    assert_batches_equal(streamed[:3], list(JaxStream(jax_inv, depth=2).run(iter(batches[:3]))))
+
+
+def test_device_route_tracked_flags(device_route):
+    """A tracked stream on the card's route: the inverses and the int32 flags
+    == the host route's and JAX's."""
+    jax_inv, inv = pair(2, 4, track_overflow=True)
+    rng = np.random.RandomState(21)
+    batches = [overflowy(rng, 4, 2) for _ in range(3)]
+    streamed = list(StreamingInverter(inv, depth=2).run(batches))
+    assert route_counts() == (3, 0, 3, 3)
+    assert all(isinstance(s, tuple) and s[1].dtype == np.int32 for s in streamed)
+    assert all(s[1].tolist() == [1, 0, 1, 0] for s in streamed)
+    assert_batches_equal(streamed, [inv.run(M) for M in batches])
+    assert_batches_equal(streamed, list(JaxStream(jax_inv, depth=2).run(batches)))
+
+
+@pytest.mark.parametrize("depth,finish_workers", [(1, 2), (2, 0), (1, 0), (3, 3)])
+def test_device_route_depth_and_finish_workers(n3, device_route, depth, finish_workers):
+    _, inv = n3
+    rng = np.random.RandomState(22)
+    batches = [rng.randn(8, 3, 3) * 100 for _ in range(4)]
+    got = list(StreamingInverter(inv, depth=depth, finish_workers=finish_workers).run(batches))
+    assert route_counts() == (4, 0, 4, 4)
+    assert_batches_equal(got, [inv.run(M) for M in batches])
+
+
+def test_device_route_producer_failure_raises(n2, device_route):
+    """A failing batch raises in the consumer after the results in flight
+    drain, as on the host's route."""
+    _, inv = n2
+    rng = np.random.RandomState(23)
+    good = [rng.randn(4, 2, 2) * 100 for _ in range(2)]
+    got = []
+    with pytest.raises(RuntimeError, match="producer failed") as info:
+        for out in StreamingInverter(inv, depth=2).run([*good, "not a matrix"]):
+            got.append(out)
+    assert isinstance(info.value.__cause__, ValueError)
+    assert route_counts() == (2, 0, 2, 2)
+    assert_batches_equal(got, [inv.run(M) for M in good])
+
+
+def test_device_route_abandoned_stream_stops(n2, device_route, monkeypatch):
+    test_abandoned_stream_stops(n2, monkeypatch)
+    assert route_counts()[0] >= 1 and route_counts()[1] == 0
+
+
+def test_device_route_results_stay_the_callers(n2, device_route):
+    """A result is the caller's: later batches write neither it nor the
+    caller's batches, and no two results share memory."""
+    _, inv = n2
+    rng = np.random.RandomState(24)
+    batches = [rng.randn(4, 2, 2) * 100 for _ in range(6)]
+    kept = [M.copy() for M in batches]
+    results = StreamingInverter(inv, depth=2).run(iter(batches))
+    first = next(results)
+    snapshot = first.copy()
+    rest = list(results)
+    np.testing.assert_array_equal(first, snapshot)
+    np.testing.assert_array_equal(first, inv.run(kept[0]))
+    assert not any(np.shares_memory(a, b) for i, a in enumerate([first, *rest])
+                   for b in rest[i:])
+    assert all(np.array_equal(M, K) for M, K in zip(batches, kept))
+
+
+def test_stream_counts_batches_by_route(n2, float_kernels, monkeypatch):
+    """``stream.device_marshal`` and ``stream.host_marshal`` count every
+    batch by the route it took: packed I/O on a card takes the card's, digit
+    I/O and the CPU the host's."""
+    card = torch.device("cuda")
+    assert stream_module._marshals_on_device(SimpleNamespace(io="packed", device=card))
+    assert not stream_module._marshals_on_device(SimpleNamespace(io="digits", device=card))
+    _, inv = n2
+    assert not stream_module._marshals_on_device(inv)
+    rng = np.random.RandomState(25)
+    batches = [rng.randn(4, 2, 2) * 100 for _ in range(3)]
+    profiling.reset()
+    list(StreamingInverter(inv).run(batches))
+    assert route_counts() == (0, 3, 0, 0)
+    float_io_host.kernel_route(monkeypatch, float_kernels)
+    monkeypatch.setattr(stream_module, "_marshals_on_device", lambda inv: inv.io == "packed")
+    profiling.reset()
+    list(StreamingInverter(inv).run(batches))
+    assert route_counts() == (3, 0, 3, 3)
+    _, digits = pair(2, 4, io="digits")
+    profiling.reset()
+    list(StreamingInverter(digits).run(batches[:2]))
+    assert route_counts() == (0, 2, 0, 0)

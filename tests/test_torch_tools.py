@@ -7,7 +7,8 @@ same matrices; ``time_benchmark``'s keys and log file, the CLI's output
 lines (``python -m matrix_inversion_tpu_torch --device cpu``, with and
 without ``--simulate``), and the keys of the throughput, e2e, precision,
 lowering, fused and rooflines runners of ``utils/run_benchmarks.py`` at a
-tiny batch on the CPU.  Without
+tiny batch on the CPU (e2e also with the stream's card route forced on, the
+float-I/O kernels' host form in place of their launches).  Without
 a card, every entry point that defaults to it raises.
 """
 
@@ -25,7 +26,10 @@ from matrix_inversion_tpu.utils import precision as jax_precision
 import matrix_inversion_tpu_torch as mt
 from matrix_inversion_tpu_torch import __main__ as cli
 from matrix_inversion_tpu_torch.models import marshal, qfloat_lu
-from matrix_inversion_tpu_torch.utils import debug, precision, roofline, run_benchmarks
+from matrix_inversion_tpu_torch.runtime import stream as stream_module
+from matrix_inversion_tpu_torch.utils import debug, precision, profiling, roofline, run_benchmarks
+
+import float_io_host
 
 torch.set_num_threads(2)
 
@@ -179,6 +183,29 @@ def test_e2e_keys():
             assert len(got[f"{label}/{key}"]) == 2
     assert len(got["device_only_inversions_per_s_all"]) == 2
     assert got["streamed_fraction_of_device_rate"] > 0
+    json.dumps(got)
+
+
+def test_e2e_times_the_card_route_once(monkeypatch, tmp_path):
+    """Where the stream quantizes and dequantizes on the card (forced on here
+    for packed I/O on the CPU, the kernels' host form in place of their
+    launches), its rate is taken once, under ``card/``, and set against each
+    host route's serial pipeline; no host route claims a streamed rate."""
+    float_io_host.kernel_route(monkeypatch, float_io_host.build(tmp_path))
+    monkeypatch.setattr(stream_module, "_marshals_on_device", lambda inv: inv.io == "packed")
+    profiling.reset()
+    got = run_benchmarks.e2e(preset="high", n=2, batch=8, nbatches=2, repeats=2, device="cpu")
+    assert profiling.counters("stream.") == {"stream.device_marshal": 4}
+    card = got["card/streamed_inversions_per_s"]
+    assert card > 0 and len(got["card/streamed_inversions_per_s_all"]) == 2
+    assert got["streamed_fraction_of_device_rate"] == card / got["device_only_inversions_per_s"]
+    assert "not an overlap A/B" in got["methodology_note"]
+    for label in ("native", "numpy"):
+        serial = got[f"{label}/serial_measured_inversions_per_s"]
+        assert got[f"card/streamed_over_{label}_serial_measured"] == card / serial
+        for key in ("streamed_inversions_per_s", "streamed_inversions_per_s_all",
+                    "streamed_over_serial_measured"):
+            assert f"{label}/{key}" not in got
     json.dumps(got)
 
 
