@@ -9,10 +9,9 @@ whole-inversion kernel K1, untracked and tracked, and the op-by-op path's
 division kernels K2/K3 and windowed-multiply kernel K4.  Holds each against
 its plain PyTorch version on the card bit for bit: K1 on eight untracked
 configurations and five tracked ones on batches with overflowing matrices
-(flags included), each through both of its layouts, the callers'
-``(B, n*n)`` and cell-major, and at n = 3, 4, 5 on a ragged batch, one
-matrix, a view 8 bytes off 16-byte alignment and a view that is not
-contiguous; K2 and K3 at the High and Low divide and reciprocal
+(flags included), each through the callers' ``(B, n*n)`` layout, and at
+n = 3, 4, 5 on a ragged batch, one matrix, a view 8 bytes off 16-byte
+alignment and a view that is not contiguous; K2 and K3 at the High and Low divide and reciprocal
 widths on floor-boundary inputs, zero divisors, a one-word dividend, an
 unaligned view and odd lengths, and on the 16,777,216 timed elements; K4,
 the truncated multiply in the streaming frame K2 and K3 share, at every
@@ -39,12 +38,10 @@ version on the card and on the CPU.  One ``run_raw`` of each n=4 main path
 runs under the profiler and must show K1 and no other kernel or copy.
 Times each kernel, ``run_raw`` and plain version with CUDA events; K2,
 K3 and K4 at 16,777,216 elements and at a call's own 262,144; K1 and
-the n=4 ``run_raw`` in turns beside what they replaced (the transposes
-around the first kernel); the digit ``run_raw`` in turns with the packed one,
-K1 alone, the pack and the unpack; the steps of K2's, K3's and K4's designs in turns
-(``utils/division_steps.py``, K4's with registers, spills and static SASS)
-and those of K1's, with registers, spills and static SASS
-(``utils/fused_steps.py``).
+the n=4 ``run_raw`` in turns; the digit ``run_raw`` in turns with the
+packed one, K1 alone, the pack and the unpack; the steps of K2's, K3's and
+K4's designs in turns (``utils/division_steps.py``, K4's with registers,
+spills and static SASS).
 
 Then the roofline path: the issue-rate probes K5 (``utils/ubench.py``,
 built in the same parallel step) equal their plain version bit for bit on
@@ -206,7 +203,6 @@ from matrix_inversion_tpu_torch.runtime.stream import StreamingInverter
 from matrix_inversion_tpu_torch.utils import (
     debug,
     division_steps,
-    fused_steps,
     precision,
     profiling,
     roofline,
@@ -546,26 +542,26 @@ def timed_in_turns(fns, dev, rounds=REPS, launches=1, warm_up=True):
     return {label: statistics.median(v) for label, v in samples.items()}
 
 
-def k1_both_layouts(m, s, config, track):
-    """K1 on ``(B, n*n)`` tensors through its two layouts: as they lie, and
-    transposed to cell-major and back; two tuples of outputs."""
-    rows = fused_inverse.fused_matrix_inverse(m, s, *config, track=track)
-    cm = fused_inverse.fused_inverse_cell_major(
-        m.t().contiguous(), s.t().contiguous(), *config, track=track)
-    return rows, (cm[0].t(), cm[1].t(), *cm[2:])
+def random_cells(batch, device, n=4, seed=29):
+    """``(B, n*n)`` magnitudes and signs of random x100 matrices at HIGH,
+    quantized on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    M = torch.randn(batch, n * n, device=device, generator=g, dtype=torch.float64) * 100
+    mags = (M.abs() * (1 << (HIGH.qfloat_len - HIGH.qfloat_ints))).to(torch.int64)
+    return mags, torch.where(M < 0, -1, 1)
 
 
 def check_k1(dev, label, p, M, track):
-    """K1 == the plain version, tolerance 0, through both layouts (flags
-    included when tracked); returns the max error and the (B, n*n) outputs."""
+    """K1 == the plain version, tolerance 0 (flags included when tracked);
+    returns the max error and the outputs."""
     m, s = float_matrix_to_mags_and_signs(M, p.qfloat_len, p.qfloat_ints, p.qfloat_base)
     m, s = torch.from_numpy(m).to(dev), torch.from_numpy(s).to(dev)
     config = config_of(p)
     ref = fused_inverse.fused_matrix_inverse_reference(m, s, *config, track=track)
-    rows, cell_major = k1_both_layouts(m, s, config, track)
+    rows = fused_inverse.fused_matrix_inverse(m, s, *config, track=track)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    err = max(max_abs_diff(rows, ref), max_abs_diff(cell_major, ref))
+    err = max_abs_diff(rows, ref)
     assert err == 0, f"{label}: kernel differs from the plain version (max {err})"
     return err, rows
 
@@ -574,8 +570,7 @@ def check_k1_layouts(dev, batch=CHECK_BATCH + 37):
     """K1 == the plain version, tolerance 0, untracked and tracked, HIGH
     n = 3, 4, 5, on what a caller's ``(B, n*n)`` tensors may be: a ragged
     batch, one matrix, a view that starts 8 bytes off 16-byte alignment and
-    a view that is not contiguous; every case through both layouts.
-    Returns the max error of each variant."""
+    a view that is not contiguous.  Returns the max error of each variant."""
     worst = {False: 0, True: 0}
     for n in K1_LAYOUT_NS:
         p = HIGH.replace(n=n)
@@ -606,18 +601,17 @@ def check_k1_layouts(dev, batch=CHECK_BATCH + 37):
         for track in (False, True):
             ref = fused_inverse.fused_matrix_inverse_reference(m, s, *config, track=track)
             for what, (cm, cs, count) in cases.items():
-                for got in k1_both_layouts(cm, cs, config, track):
-                    if dev.type == "cuda":
-                        torch.cuda.synchronize()
-                    err = max_abs_diff(got, [r[:count] for r in ref])
-                    worst[track] = max(worst[track], err)
-                    assert err == 0, (f"K1 HIGH n={n} track={track}, {what}: differs from the "
-                                      f"plain version (max {err})")
+                got = fused_inverse.fused_matrix_inverse(cm, cs, *config, track=track)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                err = max_abs_diff(got, [r[:count] for r in ref])
+                worst[track] = max(worst[track], err)
+                assert err == 0, (f"K1 HIGH n={n} track={track}, {what}: differs from the "
+                                  f"plain version (max {err})")
             if track:
                 assert int(ref[2][0]) == 1 and int(ref[2][1]) == 1 and not bool(ref[2].all())
-        print(f"check K1 layouts HIGH n={n}: {', '.join(cases)}; untracked and tracked, through "
-              "(B, n*n) and cell-major: kernel == plain version bit for bit (tolerance 0 on "
-              "magnitudes, signs and flags)")
+        print(f"check K1 layouts HIGH n={n}: {', '.join(cases)}; untracked and tracked: kernel "
+              "== plain version bit for bit (tolerance 0 on magnitudes, signs and flags)")
     return worst
 
 
@@ -2138,19 +2132,6 @@ def division_design_steps(dev, card, elems=KERNEL_ELEMS):
         print(line + f"; {card}; right after the shape's timings: {row['card_after']})")
 
 
-def k1_design_steps(dev, card, batch=MAIN_BATCH):
-    """The steps of K1's design in turns, each held to the port's own build
-    first (``utils/fused_steps.py``); returns ``{step: ms}``."""
-    times = {}
-    for row in fused_steps.measure(dev, batch):
-        times[row["step"]] = row["ms"]
-        print(f"K1 design step, {row['step']}: {row['ms']:.4f} ms at HIGH n=4, B={batch}; "
-              f"{row['registers']} registers, spills: {'; '.join(row['spills']) or 'none'}; "
-              f"{row['sass_instructions']} static SASS instructions, {row['sass_calls']} calls; "
-              f"built with {' '.join(row['defines']) or 'no define'} ({card})")
-    return times
-
-
 def differing_bytes(a, b):
     """Bytes in which two tensors of one dtype and shape differ (0: the
     same bits, also for inf and NaN)."""
@@ -2338,17 +2319,13 @@ def roofline_path(dev, card, rates, op_times, op_issued, batch=MAIN_BATCH, elems
     K3 and K4, the issued one from ``op_issued`` (:func:`op_kernel_sass`).
     Returns {(n, track): roofline dict of the bound}."""
     default_rate = {"default": rates["u32_kernelmix"]}
-    g = torch.Generator(device=dev).manual_seed(23)
     out = {}
     for track in (False, True):
         for n in (2, 3, 4, 5):
             p = HIGH.replace(n=n)
-            # random x100 matrices quantized on the card, cell-major
-            M = torch.randn(n * n, batch, device=dev, generator=g, dtype=torch.float64) * 100
-            cm = (M.abs() * (1 << p.frac)).to(torch.int64)
-            cs = torch.where(M < 0, -1, 1)
-            ms = timed_ms(lambda: fused_inverse.fused_inverse_cell_major(
-                cm, cs, *config_of(p), track=track), dev)
+            m, s = random_cells(batch, dev, n, seed=23)
+            ms = timed_ms(lambda: fused_inverse.fused_matrix_inverse(
+                m, s, *config_of(p), track=track), dev)
             r = roofline.kernel_roofline(batch / ms * 1e3, n, "high", default_rate, track)
             ops_ms = batch / r["roofline_inversions_per_s_measured_rates"] * 1e3
             bytes_ms = k1_bytes(n, batch, track) / HBM_BYTES_PER_S * 1e3
@@ -2436,7 +2413,7 @@ def start_k1_size_builds():
     jobs += [("straight_line", config_of(p) + (track,))
              for _, p, track in sorted(K1_SIZES, key=lambda size: (-size[1].n, not size[2]))]
     return pool, {(design, config): pool.submit(timed_s, fused_inverse.build_dir, config,
-                                                (), design)
+                                                design)
                   for design, config in jobs}
 
 
@@ -2504,17 +2481,13 @@ def k1_lanes(dev, card, build_s, batch=CHECK_BATCH, cpu_rows=K1_CPU_ROWS):
             flags = got[2]
             assert int(flags[0]) == 1 and int(flags[1]) == 1 and not bool(flags.all()), \
                 f"K1 {label}: the overflowing matrices were not flagged alone"
-        cm = fused_inverse.fused_inverse_cell_major(m.t().contiguous(), s.t().contiguous(),
-                                                    *config, track=track)
-        assert all(torch.equal(a, b) for a, b in zip((cm[0].t(), cm[1].t(), *cm[2:]), got)), \
-            f"K1 {label}: the cell-major entry differs from the (B, n*n) one"
         info, text = k1_build_info(config + (track,), design, build_s)
         rows[label] = {"launches": 1, "max_abs_err": err, "design": design, **info}
         print(f"check K1 {label} ({design} design, lowering {lowering!r}): B={batch} (ragged; a "
               f"singular matrix{', a near-singular and an all-zero one, both flagged' if track else ''}"
               f"): one launch a run_raw and nothing else; == plain version on the card bit for bit "
               f"(tolerance 0 on magnitudes, signs{' and flags' if track else ''}), the first "
-              f"{cpu_rows} == the CPU run, the cell-major entry == the (B, n*n) one; {text} "
+              f"{cpu_rows} == the CPU run; {text} "
               f"({card})")
     return rows
 
@@ -2534,7 +2507,7 @@ def k1_design_turns(dev, card, build_s, batch=FUSED_BATCH, rounds=REPS):
     for n in TURN_SIZES:
         p = HIGH.replace(n=n)
         config = config_of(p)
-        m, s = fused_steps.random_cells(batch, dev, n)
+        m, s = random_cells(batch, dev, n)
         for track in (False, True):
             designs = ["lanes"] + (["straight_line"] if n < 6 or any(
                 q.n == n and t == track for _, q, t in K1_SIZES) else [])
@@ -2745,7 +2718,7 @@ def k1_size_rows(dev, card, checks, turns, batch=FUSED_BATCH):
     rows = []
     for n in ROW_SIZES:
         config = config_of(HIGH.replace(n=n))
-        m, s = fused_steps.random_cells(batch, dev, n)
+        m, s = random_cells(batch, dev, n)
         for track in (False, True):
             design = fused_inverse.design_of(n, track)
             label = f"HIGH n={n}{' tracked' if track else ''}"
@@ -3045,13 +3018,12 @@ def main():
         op_build = pool.submit(timed_s, long_division.build)
         ubench_build = pool.submit(timed_s, ubench.build)
         steps_build = pool.submit(timed_s, division_steps.build)
-        k1_steps_build = pool.submit(timed_s, fused_steps.build)
         native_build = pool.submit(timed_s, native.build)
         limb_build = pool.submit(timed_s, limb_kernels.build)
         digit_build = pool.submit(timed_s, digit_io.build_dir)
         float_build = pool.submit(timed_s, float_io.build_dir)
         fused_s, op_s, ubench_s = fused_build.result(), op_build.result(), ubench_build.result()
-        steps_s, k1_steps_s = steps_build.result(), k1_steps_build.result()
+        steps_s = steps_build.result()
         native_s, limb_s = native_build.result(), limb_build.result()
         digit_s, float_s = digit_build.result(), float_build.result()
     print(f"build: {len(CHECKS)} fused_inverse + {len(TRACKED_CHECKS)} tracked kernels + "
@@ -3059,9 +3031,8 @@ def main():
           f"from {fused_inverse.CSRC} with nvcc {' '.join(fused_inverse.NVCC_FLAGS)} "
           f"in {fused_s:.1f} s; long_division + mul_window libraries in {op_s:.1f} s; "
           f"the ubench library ({len(ubench.MIXES)} mixes x C in {ubench.CHAIN_COUNTS}) in "
-          f"{ubench_s:.1f} s; the division design-steps library in {steps_s:.1f} s; the "
-          f"{len({(t, d) for _, t, d, _ in fused_steps.STEPS})} builds of K1's design steps in "
-          f"{k1_steps_s:.1f} s; the native marshaller ({native.SOURCE}) with g++ "
+          f"{ubench_s:.1f} s; the division design-steps library in {steps_s:.1f} s; "
+          f"the native marshaller ({native.SOURCE}) with g++ "
           f"{' '.join(cuda_build.HOST_FLAGS)} in {native_s:.1f} s; limb_division + limb_tidy "
           f"libraries and K6's digit-window build in {limb_s:.1f} s; the digit-I/O library in "
           f"{digit_s:.1f} s; the float-I/O library in {float_s:.1f} s; all in "
@@ -3082,7 +3053,7 @@ def main():
           f"{ {name: ubench_regs[(name, UBENCH_C)] for name in ubench.MIXES} }; spills: "
           f"{ubench.ptxas_spill_lines() or 'none'}")
 
-    # -- kernel vs plain version on the card, bit for bit, through both layouts
+    # -- kernel vs plain version on the card, bit for bit
     max_err = 0
     for i, (label, p, singular) in enumerate(CHECKS):
         rng = np.random.RandomState(100 + i)
@@ -3091,8 +3062,8 @@ def main():
             M[:, 2, :] = M[:, 0, :] + M[:, 1, :]  # rank-deficient
         err, _ = check_k1(dev, label, p, M, track=False)
         max_err = max(max_err, err)
-        print(f"check {label}: B={CHECK_BATCH}, kernel == plain version bit for bit through "
-              "(B, n*n) and cell-major (tolerance 0 on magnitudes and signs)")
+        print(f"check {label}: B={CHECK_BATCH}, kernel == plain version bit for bit "
+              "(tolerance 0 on magnitudes and signs)")
 
     # -- tracked kernel vs tracked plain version on the card, bit for bit
     tracked_err = 0
@@ -3105,8 +3076,7 @@ def main():
             f"tracked {label}: {flagged} flagged of {CHECK_BATCH}"
         assert int(got[2][0]) == 1 and int(got[2][1]) == 1, f"tracked {label}: overflow not flagged"
         print(f"check tracked {label}: B={CHECK_BATCH}, {flagged} flagged; kernel == plain "
-              "version bit for bit through (B, n*n) and cell-major (tolerance 0 on magnitudes, "
-              "signs and flags)")
+              "version bit for bit (tolerance 0 on magnitudes, signs and flags)")
 
     # -- what a caller's (B, n*n) tensors may be: ragged, one matrix, off
     # 16-byte alignment, not contiguous
@@ -3243,40 +3213,16 @@ def main():
     division_design_steps(dev, card)
     print("host clock: the op-by-op kernels' checks and timings at "
           f"{KERNEL_ELEMS} elements and the design steps, {time.perf_counter() - t0:.1f} s")
-    # K1 as run_raw launches it, (B, n*n), and run_raw, in turns beside the
-    # cell-major layout and beside what they replaced: four transposed copies
-    # around the kernel as first ported (kept in the design-steps builds)
-    def as_before(m, s, track):
-        """run_raw as it was: (B, 16) -> (16, B) copies, the first kernel,
-        and the copies back."""
-        cm, cs = m.t().contiguous(), s.t().contiguous()
-        out = [torch.empty_like(cm), torch.empty_like(cs)]
-        if track:
-            out.append(torch.empty(m.shape[0], dtype=torch.int32, device=dev))
-        first = fused_steps.FIRST_TRACKED if track else fused_steps.FIRST
-        fused_steps.run_step(track, first, fused_steps.CELL_MAJOR, cm, cs, out)
-        return (out[0].t().contiguous(), out[1].t().contiguous(), *out[2:])
-
-    assert all(torch.equal(a, b) for a, b in zip(as_before(mags, signs, False), out))
-    assert all(torch.equal(a, b) for a, b in zip(as_before(tmags, tsigns, True), tout))
-    cm, cs = mags.t().contiguous(), signs.t().contiguous()
-    tcm, tcs = tmags.t().contiguous(), tsigns.t().contiguous()
+    # K1 as run_raw launches it and run_raw, in turns
     config = config_of(p)
     k1_turns = timed_in_turns({
         "K1 (B, n*n)": lambda: fused_inverse.fused_matrix_inverse(mags, signs, *config),
-        "K1 cell-major (n*n, B)": lambda: fused_inverse.fused_inverse_cell_major(cm, cs, *config),
         "tracked K1 (B, n*n)":
             lambda: fused_inverse.fused_matrix_inverse(tmags, tsigns, *config, track=True),
-        "tracked K1 cell-major (n*n, B)":
-            lambda: fused_inverse.fused_inverse_cell_major(tcm, tcs, *config, track=True),
     }, dev, launches=K1_LAUNCHES)
     run_raws = {
         "run_raw": lambda: inv.run_raw(mags, signs),
-        "run_raw as before (transposes around the first kernel)":
-            lambda: as_before(mags, signs, False),
         "tracked run_raw": lambda: tinv.run_raw(tmags, tsigns),
-        "tracked run_raw as before (transposes around the first kernel)":
-            lambda: as_before(tmags, tsigns, True),
     }
     # one call between two events reads the host's part of the call too (the
     # card idles until the launch arrives); K1_LAUNCHES calls a pass hide it
@@ -3297,9 +3243,6 @@ def main():
               f"(HIGH n=4, B={MAIN_BATCH}; {card})")
     print(f"tracked / untracked: kernel {tkernel_ms / kernel_ms:.3f}, run_raw "
           f"{trun_raw_ms / run_raw_ms:.3f}, plain version {tplain_ms / plain_ms:.3f} ({card})")
-    t0 = time.perf_counter()
-    k1_design_steps(dev, card)
-    print(f"host clock: K1's design steps, checks and timings, {time.perf_counter() - t0:.1f} s")
 
     # -- the roofline path: the probes K5 against their plain version, their
     # rates at full width, and kernel_roofline over K1's emitted body

@@ -6,33 +6,25 @@
 // cell held in registers as a uint64_t magnitude and an int sign, and hands
 // back the n*n result cells.
 //
-// Layout.  The kernel takes its cells in two forms and differs between them
-// only in how a thread fetches and stores its cells:
-//   - row-major (B, n*n), what the callers hold (rows_launch).  A thread's
-//     cells are n*n consecutive words, so its neighbours' words lie n*n
-//     apart.  A block of kThreads threads owns kThreads consecutive
-//     matrices, one flat run of kThreads * n*n words per array.  The block
-//     copies the run into shared memory with coalesced 64-bit accesses
-//     (a warp's request is 256 consecutive bytes; 128-bit accesses were
-//     measured and were slower, PERF.md, and 64-bit ones take any int64
-//     array as it lies), then each thread takes its own row; the outputs
-//     go back the same way through the same buffer, magnitudes and signs
-//     one after the other.
-//     A row of the buffer is padded to an odd count of 8-byte words
-//     (n*n | 1): a half-warp's 8-byte accesses to one cell of sixteen rows
-//     then fall into sixteen different bank pairs (at n = 4 the unpadded
-//     stride of 16 words would put them all into one).  A thread reads and
-//     writes only its own row of the buffer, so a barrier is needed only
-//     between a copy and a take.  The block size shrinks with n so that
-//     the buffer stays within the 48 KB a kernel gets without opting in.
-//     Nothing is transposed in device memory: a call moves its own bytes
-//     once.
-//   - cell-major (n*n, B), for a caller that holds its data so (launch):
-//     neighbouring threads read neighbouring words directly.
-// A ragged batch is handled by bounds checks; nothing is padded.  A view
-// that is not contiguous is the wrapper's business (ops/fused_inverse.py).
-// Each thread loading its own row straight from device memory (128 bits at
-// a time, no shared memory) is kept as mode 2, for timing only.
+// Layout.  The kernel takes the callers' row-major (B, n*n) arrays.  A
+// thread's cells are n*n consecutive words, so its neighbours' words lie
+// n*n apart.  A block of kThreads threads owns kThreads consecutive
+// matrices, one flat run of kThreads * n*n words per array.  The block
+// copies the run into shared memory with coalesced 64-bit accesses (a
+// warp's request is 256 consecutive bytes; 128-bit accesses were measured
+// and were slower, PERF.md, and 64-bit ones take any int64 array as it
+// lies), then each thread takes its own row; the outputs go back the same
+// way through the same buffer, magnitudes and signs one after the other.
+// A row of the buffer is padded to an odd count of 8-byte words (n*n | 1):
+// a half-warp's 8-byte accesses to one cell of sixteen rows then fall into
+// sixteen different bank pairs (at n = 4 the unpadded stride of 16 words
+// would put them all into one).  A thread reads and writes only its own
+// row of the buffer, so a barrier is needed only between a copy and a
+// take.  The block size shrinks with n so that the buffer stays within the
+// 48 KB a kernel gets without opting in.  Nothing is transposed in device
+// memory: a call moves its own bytes once.  A ragged batch is handled by
+// bounds checks; nothing is padded.  A view that is not contiguous is the
+// wrapper's business (ops/fused_inverse.py).
 //
 // What is written by hand: the primitives (qfloat_cell.cuh), this
 // skeleton (indexing, staging, loads and stores, bounds) and the launch.
@@ -61,8 +53,8 @@
 // time), and what each step away from it bought: mul_window_t compiled
 // once per format and called (all of it), the sum split over accumulators
 // and a row in two operations (nothing: the compiler makes one code of
-// them, qfloat_cell.cuh), more blocks an SM; utils/fused_steps.py builds
-// every step for timing.  The untracked body calls its mul too.
+// them, qfloat_cell.cuh), more blocks an SM.  The untracked body calls its
+// mul too.
 //
 // Built with nvcc for sm_90a into a library with a plain C interface
 // (ops/fused_inverse.py).  Without __CUDACC__ the same file compiles as
@@ -82,28 +74,6 @@
 #define FUSED_TRACK 0
 #endif
 
-// Build switches; utils/fused_steps.py builds other values for timing.
-//   FUSED_MIN_BLOCKS       blocks that must fit an SM at once (the second
-//                          argument of __launch_bounds__, which caps the
-//                          registers).  Up to n = 5 four blocks of 128
-//                          threads, 128 registers: measured faster than
-//                          one, two, three or five at n = 4 and 5 for both
-//                          variants, and no slower at n = 2 and 3.  This
-//                          design serves n below LANES_MIN_N
-//                          (ops/fused_inverse.py); from there
-//                          fused_inverse_lanes.cu does, and this one is
-//                          built past n = 5 only to be timed beside it
-//                          (one block of all 255 registers, PERF.md).
-//   FUSED_THREADS          threads of a block
-//   FUSED_CELL_MAJOR_ONLY  1: the kernel as first ported, which took the
-//                          cell-major layout and nothing else
-#ifndef FUSED_MIN_BLOCKS
-#define FUSED_MIN_BLOCKS (FUSED_N2 <= 25 ? 4 : 1)
-#endif
-#ifndef FUSED_CELL_MAJOR_ONLY
-#define FUSED_CELL_MAJOR_ONLY 0
-#endif
-
 namespace qcell {
 
 // 8-byte words of one row of the staging buffer: odd, see above.
@@ -111,13 +81,9 @@ constexpr int kStride = FUSED_N2 | 1;
 constexpr int kTileBytes = 48 * 1024;
 
 // Threads of a block, which is also the matrices of a tile: the most of
-// 128, 64, 32 whose buffer fits kTileBytes, unless the build names one.
-#ifdef FUSED_THREADS
-constexpr int kThreads = FUSED_THREADS;
-#else
+// 128, 64, 32 whose buffer fits kTileBytes.
 constexpr int kThreads = 128 * kStride * 8 <= kTileBytes ? 128
                          : 64 * kStride * 8 <= kTileBytes ? 64 : 32;
-#endif
 static_assert(kThreads * kStride * 8 <= kTileBytes, "the staging buffer is over 48 KB");
 
 // A block asks for its signs together with its magnitudes, so that it
@@ -127,30 +93,23 @@ static_assert(kThreads * kStride * 8 <= kTileBytes, "the staging buffer is over 
 // registers than the wait is worth, against a body that grows as n^3.
 constexpr bool kSignsWithMags = FUSED_N2 <= 36;
 
-// How a thread reaches its cells.
-enum Mode {
-  kCellMajor = 0,   // (n*n, B): direct, coalesced as it lies
-  kRowsStaged = 1,  // (B, n*n) through shared memory
-  kRowsDirect = 2,  // (B, n*n), each thread its own row from device memory
-};
-
-struct Pair {
-  uint64_t x, y;
-};
+// Blocks that must fit an SM at once (the second argument of
+// __launch_bounds__, which caps the registers).  Up to n = 5 four blocks of
+// 128 threads, 128 registers: measured faster than one, two, three or five
+// at n = 4 and 5 for both variants, and no slower at n = 2 and 3.  This
+// design serves n below LANES_MIN_N (ops/fused_inverse.py); from there
+// fused_inverse_lanes.cu does, and this one is built past n = 5 only to be
+// timed beside it (one block of all 255 registers, PERF.md).
+constexpr int kMinBlocks = FUSED_N2 <= 25 ? 4 : 1;
 
 #ifdef __CUDACC__
 #define QD_FN __device__ __forceinline__
 typedef unsigned long long ull;
 QD_FN uint64_t load_word(const int64_t* p) { return __ldcs(reinterpret_cast<const ull*>(p)); }
-QD_FN Pair load_pair(const int64_t* p) {
-  const ulonglong2 v = __ldcs(reinterpret_cast<const ulonglong2*>(p));
-  return Pair{v.x, v.y};
-}
 QD_FN void store_word(int64_t* p, uint64_t v) { __stcs(reinterpret_cast<ull*>(p), ull(v)); }
 #else
 #define QD_FN inline
 QD_FN uint64_t load_word(const int64_t* p) { return uint64_t(*p); }
-QD_FN Pair load_pair(const int64_t* p) { return Pair{uint64_t(p[0]), uint64_t(p[1])}; }
 QD_FN void store_word(int64_t* p, uint64_t v) { *p = int64_t(v); }
 #endif
 
@@ -182,40 +141,7 @@ inline Arrays arrays(const void* mags, const void* signs, void* omags, void* osi
                 static_cast<int32_t*>(oflags), batch};
 }
 
-// Matrix b's cells straight from the arrays: cell-major, or its own row
-// (in pairs of words where a row holds an even count of them).
-QD_FN void direct_fetch(const Arrays& a, int mode, int64_t b, uint64_t* m, int* s) {
-  if (mode == kRowsDirect && FUSED_N2 % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i + 1 < FUSED_N2; i += 2) {
-      const Pair pm = load_pair(a.mags + b * FUSED_N2 + i);
-      const Pair ps = load_pair(a.signs + b * FUSED_N2 + i);
-      m[i] = pm.x, m[i + 1] = pm.y;
-      s[i] = int(ps.x), s[i + 1] = int(ps.y);
-    }
-    return;
-  }
-  const int64_t step = mode == kCellMajor ? a.batch : 1;
-  const int64_t at = mode == kCellMajor ? b : b * FUSED_N2;
-#pragma unroll
-  for (int i = 0; i < FUSED_N2; ++i) {
-    m[i] = load_word(a.mags + at + i * step);
-    s[i] = int(load_word(a.signs + at + i * step));
-  }
-}
-
-QD_FN void direct_store(const Arrays& a, int mode, int64_t b, const uint64_t* om,
-                        const int* os) {
-  const int64_t step = mode == kCellMajor ? a.batch : 1;
-  const int64_t at = mode == kCellMajor ? b : b * FUSED_N2;
-#pragma unroll
-  for (int i = 0; i < FUSED_N2; ++i) {
-    store_word(a.omags + at + i * step, om[i]);
-    store_word(a.osigns + at + i * step, uint64_t(int64_t(os[i])));
-  }
-}
-
-// The staged form runs in phases, each over all threads of a block, with a
+// A call runs in phases, each over all threads of a block, with a
 // barrier between a copy and a take.  Thread t of the block whose first
 // matrix is `first` copies words t, t + kThreads, ... of the block's flat
 // run of words, n*n of them, between device memory and the buffer, where
@@ -272,17 +198,6 @@ struct Staged {
   }
 };
 
-// The mode of a row-major call: staged for -1, else `asked` if the arrays
-// allow it (the direct mode's 128-bit loads need 16-byte-aligned inputs),
-// else -1.
-inline int rows_mode(const Arrays& a, int asked) {
-  const bool aligned =
-      (reinterpret_cast<uintptr_t>(a.mags) | reinterpret_cast<uintptr_t>(a.signs)) % 16 == 0;
-  if (asked == -1 || asked == kRowsStaged) return kRowsStaged;
-  if (asked == kRowsDirect && (aligned || FUSED_N2 % 2 != 0)) return asked;
-  return -1;
-}
-
 }  // namespace qcell
 
 #ifdef __CUDACC__
@@ -317,38 +232,18 @@ __device__ __forceinline__ void staged_store(const Staged& st, int t, bool live,
   st.drain(st.a.osigns, t);
 }
 
-// One kernel for every mode, with the body in it once; the mode is the
-// same for all threads of a launch, so every barrier is reached by a whole
-// block or by none of it.
-__global__ void __launch_bounds__(kThreads, FUSED_MIN_BLOCKS)
-fused_inverse_kernel(Arrays a, int mode) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks) fused_inverse_kernel(Arrays a) {
   const int t = threadIdx.x;
   const int64_t first = int64_t(blockIdx.x) * kThreads;
   const bool live = first + t < a.batch;
   uint64_t m[FUSED_N2], om[FUSED_N2];
   int s[FUSED_N2], os[FUSED_N2];
-#if FUSED_CELL_MAJOR_ONLY
-  if (live) direct_fetch(a, kCellMajor, first + t, m, s);
-#else
   __shared__ uint64_t tile[kThreads * kStride];
   const Staged st{a, tile, first};
-  if (mode == kRowsStaged) {
-    staged_fetch(st, t, live, m, s);
-  } else if (live) {
-    direct_fetch(a, mode, first + t, m, s);
-  }
-#endif
+  staged_fetch(st, t, live, m, s);
   int ovf = 0;
   if (live) ovf = run_body(m, s, om, os);
-#if FUSED_CELL_MAJOR_ONLY
-  if (live) direct_store(a, kCellMajor, first + t, om, os);
-#else
-  if (mode == kRowsStaged) {
-    staged_store(st, t, live, om, os);
-  } else if (live) {
-    direct_store(a, mode, first + t, om, os);
-  }
-#endif
+  staged_store(st, t, live, om, os);
 #if FUSED_TRACK
   if (live) a.oflags[first + t] = ovf;
 #else
@@ -356,12 +251,10 @@ fused_inverse_kernel(Arrays a, int mode) {
 #endif
 }
 
-inline int launch(const Arrays& a, int mode, void* stream) {
-  if (mode < 0 || (FUSED_CELL_MAJOR_ONLY && mode != kCellMajor)) return -1;
+inline int launch(const Arrays& a, void* stream) {
   if (a.batch <= 0) return 0;
   const int64_t blocks = (a.batch + kThreads - 1) / kThreads;
-  fused_inverse_kernel<<<unsigned(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, mode);
+  fused_inverse_kernel<<<unsigned(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
 }
 
@@ -369,7 +262,7 @@ inline int launch(const Arrays& a, int mode, void* stream) {
 
 #define FUSED_ENTRY(name) name##_launch
 #define FUSED_STREAM_PARAM , void* stream
-#define FUSED_RUN(arrays, mode) qcell::launch(arrays, mode, stream)
+#define FUSED_RUN(arrays) qcell::launch(arrays, stream)
 
 #else
 
@@ -377,41 +270,28 @@ namespace qcell {
 
 // The kernel on the host: the blocks one after the other, each phase of a
 // block as a loop over its threads, the staging buffer on the heap.
-inline int run_host(const Arrays& a, int mode) {
-  if (mode < 0) return -1;
+inline int run_host(const Arrays& a) {
   std::vector<uint64_t> tile(kThreads * kStride), r(kThreads * FUSED_N2);
   std::vector<uint64_t> m(kThreads * FUSED_N2), om(kThreads * FUSED_N2);
   std::vector<int> s(kThreads * FUSED_N2), os(kThreads * FUSED_N2);
   for (int64_t first = 0; first < a.batch; first += kThreads) {
     const int live = int(a.batch - first < kThreads ? a.batch - first : kThreads);
     const Staged st{a, tile.data(), first};
-    if (mode == kRowsStaged) {
-      for (int t = 0; t < kThreads; ++t) st.load(a.mags, t, &r[t * FUSED_N2]);
-      for (int t = 0; t < kThreads; ++t) st.fill(&r[t * FUSED_N2], t);
-      for (int t = 0; t < live; ++t) st.take_mags(t, &m[t * FUSED_N2]);
-      for (int t = 0; t < kThreads; ++t) st.load(a.signs, t, &r[t * FUSED_N2]);
-      for (int t = 0; t < kThreads; ++t) st.fill(&r[t * FUSED_N2], t);
-      for (int t = 0; t < live; ++t) st.take_signs(t, &s[t * FUSED_N2]);
-    } else {
-      for (int t = 0; t < live; ++t) {
-        direct_fetch(a, mode, first + t, &m[t * FUSED_N2], &s[t * FUSED_N2]);
-      }
-    }
+    for (int t = 0; t < kThreads; ++t) st.load(a.mags, t, &r[t * FUSED_N2]);
+    for (int t = 0; t < kThreads; ++t) st.fill(&r[t * FUSED_N2], t);
+    for (int t = 0; t < live; ++t) st.take_mags(t, &m[t * FUSED_N2]);
+    for (int t = 0; t < kThreads; ++t) st.load(a.signs, t, &r[t * FUSED_N2]);
+    for (int t = 0; t < kThreads; ++t) st.fill(&r[t * FUSED_N2], t);
+    for (int t = 0; t < live; ++t) st.take_signs(t, &s[t * FUSED_N2]);
     for (int t = 0; t < live; ++t) {
       const int ovf = run_body(&m[t * FUSED_N2], &s[t * FUSED_N2], &om[t * FUSED_N2],
                                &os[t * FUSED_N2]);
       if (a.oflags) a.oflags[first + t] = ovf;
     }
-    if (mode == kRowsStaged) {
-      for (int t = 0; t < live; ++t) st.put_mags(t, &om[t * FUSED_N2]);
-      for (int t = 0; t < kThreads; ++t) st.drain(a.omags, t);
-      for (int t = 0; t < live; ++t) st.put_signs(t, &os[t * FUSED_N2]);
-      for (int t = 0; t < kThreads; ++t) st.drain(a.osigns, t);
-    } else {
-      for (int t = 0; t < live; ++t) {
-        direct_store(a, mode, first + t, &om[t * FUSED_N2], &os[t * FUSED_N2]);
-      }
-    }
+    for (int t = 0; t < live; ++t) st.put_mags(t, &om[t * FUSED_N2]);
+    for (int t = 0; t < kThreads; ++t) st.drain(a.omags, t);
+    for (int t = 0; t < live; ++t) st.put_signs(t, &os[t * FUSED_N2]);
+    for (int t = 0; t < kThreads; ++t) st.drain(a.osigns, t);
   }
   return 0;
 }
@@ -420,17 +300,15 @@ inline int run_host(const Arrays& a, int mode) {
 
 #define FUSED_ENTRY(name) name##_host
 #define FUSED_STREAM_PARAM
-#define FUSED_RUN(arrays, mode) qcell::run_host(arrays, mode)
+#define FUSED_RUN(arrays) qcell::run_host(arrays)
 
 #endif  // __CUDACC__
 
-// The entry points: int64 magnitudes and signs in, the same out, and
-// tracked the (batch,) int32 overflow flags; on `stream` of the card
-// (*_launch, returning the launch's cudaError_t) or on the host (*_host).
-// The first takes cell-major (n*n, batch) arrays.  The rows form takes
-// row-major (batch, n*n) arrays and `mode`: -1 for the staged form, which
-// is what the port runs, or one of qcell::Mode's row modes, for timing; it
-// returns -1 for a mode that the arrays do not allow.
+// The entry point: row-major (batch, n*n) int64 magnitudes and signs in,
+// the same out, and tracked the (batch,) int32 overflow flags; on `stream`
+// of the card (*_launch, returning the launch's cudaError_t) or on the host
+// (*_host).
+
 // The threads of a block, which the size of the staging buffer sets.
 extern "C" int fused_inverse_block_threads() { return qcell::kThreads; }
 
@@ -439,29 +317,14 @@ extern "C" int fused_inverse_block_threads() { return qcell::kThreads; }
 extern "C" int FUSED_ENTRY(fused_inverse_tracked)(const void* mags, const void* signs,
                                                   void* omags, void* osigns, void* oflags,
                                                   int64_t batch FUSED_STREAM_PARAM) {
-  return FUSED_RUN(qcell::arrays(mags, signs, omags, osigns, oflags, batch), qcell::kCellMajor);
-}
-
-extern "C" int FUSED_ENTRY(fused_inverse_tracked_rows)(const void* mags, const void* signs,
-                                                       void* omags, void* osigns, void* oflags,
-                                                       int64_t batch,
-                                                       int mode FUSED_STREAM_PARAM) {
-  const qcell::Arrays a = qcell::arrays(mags, signs, omags, osigns, oflags, batch);
-  return FUSED_RUN(a, qcell::rows_mode(a, mode));
+  return FUSED_RUN(qcell::arrays(mags, signs, omags, osigns, oflags, batch));
 }
 
 #else
 
 extern "C" int FUSED_ENTRY(fused_inverse)(const void* mags, const void* signs, void* omags,
                                           void* osigns, int64_t batch FUSED_STREAM_PARAM) {
-  return FUSED_RUN(qcell::arrays(mags, signs, omags, osigns, nullptr, batch), qcell::kCellMajor);
-}
-
-extern "C" int FUSED_ENTRY(fused_inverse_rows)(const void* mags, const void* signs, void* omags,
-                                               void* osigns, int64_t batch,
-                                               int mode FUSED_STREAM_PARAM) {
-  const qcell::Arrays a = qcell::arrays(mags, signs, omags, osigns, nullptr, batch);
-  return FUSED_RUN(a, qcell::rows_mode(a, mode));
+  return FUSED_RUN(qcell::arrays(mags, signs, omags, osigns, nullptr, batch));
 }
 
 #endif  // FUSED_TRACK

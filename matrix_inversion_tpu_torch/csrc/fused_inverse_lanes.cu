@@ -49,8 +49,8 @@
 // row only in a later step, so one barrier a step suffices.
 //
 // I/O.  A block of kThreads threads holds kMats = kThreads / G matrices.
-// It copies its matrices' (B, n*n) words (or cell-major (n*n, B) ones) into
-// the tiles with coalesced 64-bit loads, and the outputs back the same way.
+// It copies its matrices' (B, n*n) words into the tiles with coalesced
+// 64-bit loads, and the outputs back the same way.
 // A tile row is padded to an odd count of cells, so that the lanes'
 // accesses to one column of n rows fall into different banks.  The shared
 // memory is dynamic; past 48 KB the launch opts in.
@@ -113,8 +113,6 @@ constexpr int kWords = kMats * N2;  // input words of a block, per array
 constexpr int kWordsPerThread = (kWords + kThreads - 1) / kThreads;
 
 constexpr uint64_t kUnit = uint64_t(1) << (BITS * (LEN - INTS));
-
-enum Layout { kCellMajor = 0, kRows = 1 };
 
 #ifdef __CUDACC__
 #define QD_FN __device__ __forceinline__
@@ -243,7 +241,6 @@ struct Arrays {
 // One thread of a block: its block's matrices, its group's tile, its lane.
 struct Ctx {
   Arrays a;
-  int layout;
   int64_t first;  // the block's first matrix
   int live;       // matrices of the block below the batch
   uint64_t* smem;
@@ -261,17 +258,11 @@ struct Lane {
 };
 
 // Word w of a block's input or output: its matrix, its cell and where it
-// lies in the arrays (by layout); `ok` if the matrix is in the batch.
+// lies in the arrays; `ok` if the matrix is in the batch.
 QD_FN void word_place(const Ctx& c, int w, int& b, int& cell, int64_t& at, bool& ok) {
-  if (c.layout == kCellMajor) {
-    cell = w / kMats;
-    b = w % kMats;
-    at = int64_t(cell) * c.a.batch + c.first + b;
-  } else {
-    b = w / N2;
-    cell = w % N2;
-    at = c.first * N2 + w;
-  }
+  b = w / N2;
+  cell = w % N2;
+  at = c.first * N2 + w;
   ok = b < c.live;
 }
 
@@ -502,9 +493,9 @@ QD_FN void program(R& r) {
   r.last([](const Ctx& c, Lane&) { drain(c); });
 }
 
-QD_FN Ctx context(const Arrays& a, int layout, int64_t first, uint64_t* smem, int t) {
+QD_FN Ctx context(const Arrays& a, int64_t first, uint64_t* smem, int t) {
   const int64_t left = a.batch - first;
-  Ctx c{a, layout, first, int(left < kMats ? left : kMats), smem, t, t / G, t % G, Tile{}};
+  Ctx c{a, first, int(left < kMats ? left : kMats), smem, t, t / G, t % G, Tile{}};
   c.tile = tile_of(smem, c.g);
   return c;
 }
@@ -551,17 +542,16 @@ struct DeviceRunner {
   }
 };
 
-__global__ void __launch_bounds__(kThreads) lanes_kernel(Arrays a, int layout) {
+__global__ void __launch_bounds__(kThreads) lanes_kernel(Arrays a) {
   extern __shared__ uint64_t smem[];
-  const Ctx c = context(a, layout, int64_t(blockIdx.x) * kMats, smem, threadIdx.x);
+  const Ctx c = context(a, int64_t(blockIdx.x) * kMats, smem, threadIdx.x);
   Lane me;
   me.ovf = 0;
   DeviceRunner r{c, me};
   program(r);
 }
 
-inline int launch(const Arrays& a, int layout, void* stream) {
-  if (layout != kCellMajor && layout != kRows) return -1;
+inline int launch(const Arrays& a, void* stream) {
   if (a.batch <= 0) return 0;
   if (kSmemBytes > 48 * 1024) {
     // the opt-in is per device
@@ -577,8 +567,7 @@ inline int launch(const Arrays& a, int layout, void* stream) {
     }
   }
   const int64_t blocks = (a.batch + kMats - 1) / kMats;
-  lanes_kernel<<<unsigned(blocks), kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      a, layout);
+  lanes_kernel<<<unsigned(blocks), kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
 }
 
@@ -586,7 +575,7 @@ inline int launch(const Arrays& a, int layout, void* stream) {
 
 #define LANES_ENTRY(name) LANES_CAT(name, _launch)
 #define LANES_STREAM_PARAM , void* stream
-#define LANES_RUN(arrays, layout) qlanes::launch(arrays, layout, stream)
+#define LANES_RUN(arrays) qlanes::launch(arrays, stream)
 
 #else
 
@@ -610,14 +599,13 @@ struct HostRunner {
   }
 };
 
-inline int run_host(const Arrays& a, int layout) {
-  if (layout != kCellMajor && layout != kRows) return -1;
+inline int run_host(const Arrays& a) {
   std::vector<uint64_t> smem(kMats * kMatWords);
   std::vector<Ctx> cs(kThreads);
   std::vector<Lane> lanes(kThreads);
   for (int64_t first = 0; first < a.batch; first += kMats) {
     for (int t = 0; t < kThreads; ++t) {
-      cs[t] = context(a, layout, first, smem.data(), t);
+      cs[t] = context(a, first, smem.data(), t);
       lanes[t] = Lane{};
     }
     HostRunner r{cs, lanes};
@@ -630,7 +618,7 @@ inline int run_host(const Arrays& a, int layout) {
 
 #define LANES_ENTRY(name) LANES_CAT(name, _host)
 #define LANES_STREAM_PARAM
-#define LANES_RUN(arrays, layout) qlanes::run_host(arrays, layout)
+#define LANES_RUN(arrays) qlanes::run_host(arrays)
 
 // The host build's calls of each primitive since the last call (sadd, mul,
 // divide, invert, gt, blend; tracked: sadd_t, mul_window_t, divide_t,
@@ -644,12 +632,10 @@ extern "C" void fused_inverse_lanes_counts(int64_t* out) {
 
 #endif  // __CUDACC__
 
-// The entry points, as fused_inverse.cu's: int64 magnitudes and signs in,
-// the same out, and tracked the (batch,) int32 flags; on `stream` of the
-// card (*_launch, returning the launch's cudaError_t) or on the host
-// (*_host).  The first takes cell-major (n*n, batch) arrays, the rows form
-// row-major (batch, n*n) ones and `mode`, which must be -1 (staged, the
-// only form this kernel has).
+// The entry point, as fused_inverse.cu's: row-major (batch, n*n) int64
+// magnitudes and signs in, the same out, and tracked the (batch,) int32
+// flags; on `stream` of the card (*_launch, returning the launch's
+// cudaError_t) or on the host (*_host).
 extern "C" int fused_inverse_lanes_block_threads() { return qlanes::kThreads; }
 extern "C" int fused_inverse_lanes_smem_bytes() { return qlanes::kSmemBytes; }
 
@@ -665,19 +651,8 @@ extern "C" int fused_inverse_lanes_smem_bytes() { return qlanes::kSmemBytes; }
 #define LANES_FLAGS nullptr
 #endif
 
-extern "C" int LANES_ENTRY(LANES_CAT(LANES_STEM, ))(const void* mags, const void* signs,
-                                                   void* omags, void* osigns LANES_FLAGS_PARAM,
-                                                   int64_t batch LANES_STREAM_PARAM) {
-  return LANES_RUN(qlanes::arrays(mags, signs, omags, osigns, LANES_FLAGS, batch),
-                   qlanes::kCellMajor);
-}
-
-extern "C" int LANES_ENTRY(LANES_CAT(LANES_STEM, _rows))(const void* mags, const void* signs,
-                                                        void* omags,
-                                                        void* osigns LANES_FLAGS_PARAM,
-                                                        int64_t batch,
-                                                        int mode LANES_STREAM_PARAM) {
-  if (mode != -1) return -1;
-  return LANES_RUN(qlanes::arrays(mags, signs, omags, osigns, LANES_FLAGS, batch),
-                   qlanes::kRows);
+extern "C" int LANES_ENTRY(LANES_STEM)(const void* mags, const void* signs, void* omags,
+                                       void* osigns LANES_FLAGS_PARAM,
+                                       int64_t batch LANES_STREAM_PARAM) {
+  return LANES_RUN(qlanes::arrays(mags, signs, omags, osigns, LANES_FLAGS, batch));
 }

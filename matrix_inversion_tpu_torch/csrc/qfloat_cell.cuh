@@ -42,15 +42,14 @@
 #define QI_CALL_FN __attribute__((noinline))
 #endif
 
-// The build's choices for the two multiplies.  The defaults are what the
-// port runs; utils/fused_steps.py builds the other settings beside them,
-// for timing only.
+// The build's choices for the windowed multiply.  The defaults are what the
+// port runs; tests/test_torch_emit.py holds the other forms to the same
+// bits.
 //   QCELL_MUL_WINDOW_INLINE  1: mul_window_t is inlined at every call
 //   QCELL_MUL_WINDOW_ACCS    accumulators that share the windowed sum's rows
 //   QCELL_MUL_WINDOW_NET     1: a row is one net shift and one mask,
 //                            0: shift down, mask, shift up
-//   QCELL_MUL_INLINE         1: mul is inlined at every call
-// Both INLINE 1 is the body as first ported.  More accumulators and the
+// INLINE 1 is the tracked body as first ported.  More accumulators and the
 // net shift were measured in the called function and bought nothing (the
 // compiler makes the same count of instructions of every form, PERF.md),
 // so the sum keeps its plainest form.
@@ -62,9 +61,6 @@
 #endif
 #ifndef QCELL_MUL_WINDOW_NET
 #define QCELL_MUL_WINDOW_NET 0
-#endif
-#ifndef QCELL_MUL_INLINE
-#define QCELL_MUL_INLINE 0
 #endif
 
 namespace qcell {
@@ -165,15 +161,11 @@ QI_FN uint64_t mul_inl(uint64_t a, uint64_t b) {
   }
 }
 
-// mul as the emitted body calls it: inlined, or one function per format.
+// mul as the emitted body calls it: one function per format (inlined at
+// each use it was measured slower, PERF.md).
 template <int BITS, int A_LEN, int A_INTS, int B_LEN, int B_INTS, int NEWLEN,
           int NEWINTS>
-#if QCELL_MUL_INLINE
-QI_FN
-#else
-QI_CALL_FN
-#endif
-uint64_t mul(uint64_t a, uint64_t b) {
+QI_CALL_FN uint64_t mul(uint64_t a, uint64_t b) {
   return mul_inl<BITS, A_LEN, A_INTS, B_LEN, B_INTS, NEWLEN, NEWINTS>(a, b);
 }
 

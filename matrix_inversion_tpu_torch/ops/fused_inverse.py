@@ -19,8 +19,8 @@ configuration each:
 
 Both read and write the callers' ``(B, n*n)`` layout themselves, a
 block's matrices staged through shared memory, so a call is one launch
-and moves its bytes once; a caller that holds cell-major ``(n*n, B)`` data
-has :func:`fused_inverse_cell_major`.  Both give the circuit's bits.
+and moves its bytes once; each library has one entry, that layout's.  Both
+give the circuit's bits.
 
 :func:`fused_matrix_inverse` keeps the contract of the JAX wrapper:
 ``(..., n*n)`` int64 magnitudes and signs in, the same out, any n >= 2,
@@ -90,20 +90,19 @@ def _design(key, design):
     return design
 
 
-def build_dir(config, defines=(), design=None):
+def build_dir(config, design=None):
     """The build directory of one config (as for :func:`build`): the
     library, the straight-line design's emitted body, and ``nvcc.log`` with
     ptxas's registers and spills.  Builds first if needed."""
     key = _key(config)
-    return _build_one(key, tuple(defines), _design(key, design)).parent
+    return _build_one(key, _design(key, design)).parent
 
 
-def _hashed(key, defines, body):
+def _hashed(key, body):
     """The texts that key the straight-line library of one config: the
-    sources, the emitted body, the flags, ``track`` and the build
-    switches."""
+    sources, the emitted body, the flags and ``track``."""
     return ((CSRC / "qfloat_cell.cuh").read_text(), (CSRC / "fused_inverse.cu").read_text(),
-            body, " ".join(NVCC_FLAGS), f"track={key[5]}", *defines)
+            body, " ".join(NVCC_FLAGS), f"track={key[5]}")
 
 
 def lanes_defines(key):
@@ -118,10 +117,10 @@ def lanes_defines(key):
             f"LANES_TRACK={int(track)}")
 
 
-def _lanes_hashed(key, defines):
+def _lanes_hashed(key):
     return ((CSRC / "qfloat_cell.cuh").read_text(),
             (CSRC / "fused_inverse_lanes.cu").read_text(), " ".join(NVCC_FLAGS),
-            *lanes_defines(key), *defines)
+            *lanes_defines(key))
 
 
 _LIB_NAMES = {"straight_line": "libfused_inverse.so", "lanes": "libfused_inverse_lanes.so"}
@@ -130,38 +129,29 @@ _COUNTERS = {(d, t): f"launch.fused_inverse{'_lanes' * (d == 'lanes')}{'_tracked
              for d in DESIGNS for t in (False, True)}
 
 
-def built(config, defines=(), design=None):
+def built(config, design=None):
     """Whether the library of one config (as for :func:`build`) is in
     ``_build/`` already; builds nothing."""
     key = _key(config)
     design = _design(key, design)
-    hashed = (_lanes_hashed(key, defines) if design == "lanes"
-              else _hashed(key, defines, emit_body(*key)))
+    hashed = _lanes_hashed(key) if design == "lanes" else _hashed(key, emit_body(*key))
     return library_path(_LIB_NAMES[design], hashed).exists()
 
 
-def _build_one(key, defines=(), design="straight_line"):
+def _build_one(key, design="straight_line"):
     """Compile one design's kernel for one ``(n, len, ints, base,
     true_division, track)``; returns the library path.  Reuses a library
-    already built from the same sources, body, flags and ``track``.
-    ``defines`` are ``NAME=value`` macros for the compiler, the build
-    switches of ``csrc/qfloat_cell.cuh`` and the design's source: the port
-    builds with none, :mod:`..utils.fused_steps` with others, for timing.
-    The emitter and the hash count in ``library.ns``."""
+    already built from the same sources, body, flags and ``track``.  The
+    emitter and the hash count in ``library.ns``."""
     with profiling.library(_LIB_NAMES[design]):
         if design == "lanes":
             return build_library(
-                "fused_inverse_lanes.cu", _LIB_NAMES[design], _lanes_hashed(key, defines),
-                what=f"config {key} {' '.join(defines)}",
-                flags=tuple(f"-D{d}" for d in lanes_defines(key) + tuple(defines)),
+                "fused_inverse_lanes.cu", _LIB_NAMES[design], _lanes_hashed(key),
+                what=f"config {key}", flags=tuple(f"-D{d}" for d in lanes_defines(key)),
             )
         body = emit_body(*key)
-        return build_library(
-            "fused_inverse.cu", _LIB_NAMES[design], _hashed(key, defines, body),
-            files={"fused_body.inc": body},
-            what=f"config {key} {' '.join(defines)}",
-            flags=tuple(f"-D{d}" for d in defines),
-        )
+        return build_library("fused_inverse.cu", _LIB_NAMES[design], _hashed(key, body),
+                             files={"fused_body.inc": body}, what=f"config {key}")
 
 
 def build(configs, design=None):
@@ -170,33 +160,29 @@ def build(configs, design=None):
     with an optional trailing ``track``, in ``design`` (by default the one
     that serves each n), and load them."""
     jobs = [(k, _design(k, design)) for k in map(_key, configs)]
-    run_parallel([functools.partial(_build_one, k, (), d) for k, d in jobs])
+    run_parallel([functools.partial(_build_one, k, d) for k, d in jobs])
     for k, d in jobs:
-        _library(k, (), d)
+        _library(k, d)
 
 
 @functools.lru_cache(maxsize=None)
-def _library(key, defines=(), design="straight_line"):
-    """``(cell_major, rows)``: the two launch functions of one built
-    library.  Both take the four array pointers (five tracked: the flags),
-    the batch and the stream; ``rows`` takes the fetch mode before the
-    stream (-1: the arrays' own, the only mode of the lanes design)."""
+def _library(key, design="straight_line"):
+    """The launch function of one built library: it takes the ``(B, n*n)``
+    arrays' four pointers (five tracked: the flags), the batch and the
+    stream."""
     with profiling.library(_LIB_NAMES[design]):
-        lib = ctypes.CDLL(str(_build_one(key, defines, design)))
-    pointers = [ctypes.c_void_p] * (5 if key[5] else 4)
+        lib = ctypes.CDLL(str(_build_one(key, design)))
     stem = ("fused_inverse_lanes" if design == "lanes" else "fused_inverse") \
         + ("_tracked" if key[5] else "")
-    cell_major = getattr(lib, f"{stem}_launch")
-    cell_major.argtypes = pointers + [ctypes.c_int64, ctypes.c_void_p]
-    rows = getattr(lib, f"{stem}_rows_launch")
-    rows.argtypes = pointers + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    cell_major.restype = rows.restype = ctypes.c_int
-    return cell_major, rows
+    fn = getattr(lib, f"{stem}_launch")
+    fn.argtypes = [ctypes.c_void_p] * (5 if key[5] else 4) + [ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _library_int(config, design, name):
     key = _key(config)
-    fn = getattr(ctypes.CDLL(str(_build_one(key, (), _design(key, design)))), name)
+    fn = getattr(ctypes.CDLL(str(_build_one(key, _design(key, design)))), name)
     fn.restype = ctypes.c_int
     return fn()
 
@@ -218,18 +204,7 @@ def lanes_smem_bytes(config):
     return _library_int(config, "lanes", "fused_inverse_lanes_smem_bytes")
 
 
-def _check_pair(m, s, what):
-    if m.device.type != "cuda" or s.device != m.device:
-        raise ValueError(
-            f"mags and signs must both be on one CUDA device, got {m.device} and {s.device}"
-        )
-    if m.dtype != torch.int64 or s.dtype != torch.int64:
-        raise TypeError("mags and signs must be int64")
-    if m.shape != s.shape:
-        raise ValueError(f"mags and signs must both have shape {what}")
-
-
-def _launch(fn, m, s, batch, track, design, *mode):
+def _launch(fn, m, s, batch, track, design):
     """Allocate the outputs like ``m``, launch ``fn`` on the current stream
     and count the launch (``launch.fused_inverse[_lanes][_tracked]``); raises
     if the launch is refused."""
@@ -240,16 +215,11 @@ def _launch(fn, m, s, batch, track, design, *mode):
         flag = torch.empty(batch, dtype=torch.int32, device=m.device)
         ptrs.append(flag.data_ptr())
     with torch.cuda.device(m.device):
-        err = fn(*ptrs, batch, *mode, torch.cuda.current_stream().cuda_stream)
+        err = fn(*ptrs, batch, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_inverse ({design}) kernel launch failed: cudaError {err}")
     profiling.count(_COUNTERS[design, bool(track)])
     return (om, os_, flag) if track else (om, os_)
-
-
-def _check_n(n):
-    if n < 2:
-        raise ValueError(f"the fused kernel takes n >= 2, got {n}")
 
 
 def fused_matrix_inverse(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base,
@@ -266,42 +236,30 @@ def fused_matrix_inverse(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base,
     input that is not contiguous is copied first (``.contiguous()``).  A CPU
     tensor runs the plain version, whatever ``design`` says.
     """
-    _check_n(n)
+    if n < 2:
+        raise ValueError(f"the fused kernel takes n >= 2, got {n}")
     if mags.device.type == "cpu" and signs.device.type == "cpu":
         return fused_matrix_inverse_reference(
             mags, signs, n, qfloat_len, qfloat_ints, qfloat_base, true_division,
             track=track,
         )
     n2 = n * n
-    _check_pair(mags, signs, f"(..., {n2})")
-    if mags.shape[-1:] != (n2,):
+    if mags.device.type != "cuda" or signs.device != mags.device:
+        raise ValueError(f"mags and signs must both be on one CUDA device, got {mags.device} "
+                         f"and {signs.device}")
+    if mags.dtype != torch.int64 or signs.dtype != torch.int64:
+        raise TypeError("mags and signs must be int64")
+    if mags.shape != signs.shape or mags.shape[-1:] != (n2,):
         raise ValueError(f"mags and signs must both have shape (..., {n2})")
     bshape = mags.shape[:-1]
     key = _key((n, qfloat_len, qfloat_ints, qfloat_base, true_division, track))
     design = _design(key, design)
     with profiling.span("k1"):
-        out = _launch(_library(key, (), design)[1], mags.contiguous(), signs.contiguous(),
-                      bshape.numel(), track, design, -1)
+        out = _launch(_library(key, design), mags.contiguous(), signs.contiguous(),
+                      bshape.numel(), track, design)
     if track:
         return out[0], out[1], out[2].reshape(bshape)
     return out
-
-
-def fused_inverse_cell_major(cm, cs, n, qfloat_len, qfloat_ints, qfloat_base,
-                             true_division, track=False, design=None):
-    """One kernel launch (of ``design``, by default the one that serves n)
-    on cell-major ``(n*n, B)`` contiguous int64 CUDA tensors; returns the
-    ``(n*n, B)`` output magnitudes and signs, and with ``track=True`` also
-    the ``(B,)`` int32 overflow flags."""
-    _check_n(n)
-    _check_pair(cm, cs, f"({n * n}, B)")
-    if not (cm.is_contiguous() and cs.is_contiguous()):
-        raise ValueError("cell-major inputs must be contiguous")
-    if cm.dim() != 2 or cm.shape[0] != n * n:
-        raise ValueError(f"cell-major inputs must both have shape ({n * n}, B)")
-    key = _key((n, qfloat_len, qfloat_ints, qfloat_base, true_division, track))
-    design = _design(key, design)
-    return _launch(_library(key, (), design)[0], cm, cs, cm.shape[1], track, design)
 
 
 def fused_matrix_inverse_reference(mags, signs, n, qfloat_len, qfloat_ints,

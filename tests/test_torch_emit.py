@@ -10,11 +10,11 @@ same way, are held to ``PackedQFloat`` across formats the inversion
 circuits do not reach.  The tracked variant (a body emitted under
 tracking) is held the same way to the tracked plain version, flags
 included, and the tracked primitives to ``PackedQFloat`` inside
-``track_overflow()``.  The row-major ``(B, n*n)`` entry runs the kernel's
-staging (its index arithmetic, padding, pairs and bounds) as loops over a
-block's threads and is held to the cell-major entry and the plain version;
-the windowed multiply is held to ``PackedQFloat`` in every form the build
-switches of ``csrc/qfloat_cell.cuh`` give it.
+``track_overflow()``.  The kernel's one entry takes row-major ``(B, n*n)``
+arrays and runs the kernel's staging (its index arithmetic, padding and
+bounds) as loops over a block's threads; the windowed multiply is held to
+``PackedQFloat`` in every form the build switches of
+``csrc/qfloat_cell.cuh`` give it.
 """
 
 import ctypes
@@ -85,33 +85,11 @@ def host_kernels(tmp_path_factory):
         assert proc.returncode == 0, f"g++ failed for {key}:\n{err}"
         lib = ctypes.CDLL(str(root / key / "lib.so"))
         track = builds[key][1]
-        pointers = [ctypes.c_void_p] * (5 if track else 4)
         fn = lib.fused_inverse_tracked_host if track else lib.fused_inverse_host
-        fn.argtypes = pointers + [ctypes.c_int64]
-        rows = lib.fused_inverse_tracked_rows_host if track else lib.fused_inverse_rows_host
-        rows.argtypes = pointers + [ctypes.c_int64, ctypes.c_int]
-        fn.restype = rows.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * (5 if track else 4) + [ctypes.c_int64]
+        fn.restype = ctypes.c_int
         libs[key] = fn
-        libs[f"rows_{key}"] = rows
     return libs
-
-
-def run_host(fn, mags, signs, track=False):
-    """(B, n*n) int64 arrays through the host kernel (cell-major inside);
-    the tracked kernel also returns the (B,) int32 flags."""
-    cm = np.ascontiguousarray(mags.T)
-    cs = np.ascontiguousarray(signs.T)
-    om, os_ = np.empty_like(cm), np.empty_like(cs)
-    ptrs = [cm.ctypes.data, cs.ctypes.data, om.ctypes.data, os_.ctypes.data]
-    flags = np.empty(cm.shape[1], np.int32)
-    if track:
-        ptrs.append(flags.ctypes.data)
-    assert fn(*ptrs, cm.shape[1]) == 0
-    return (om.T, os_.T, flags) if track else (om.T, os_.T)
-
-
-# the fetch modes of the row-major entry (csrc/fused_inverse.cu, qcell::Mode)
-ROWS_AUTO, ROWS_STAGED, ROWS_DIRECT = -1, 1, 2
 
 
 CANARY = 0x5A5A5A5A5A5A5A5A
@@ -128,22 +106,23 @@ def _placed(a, misaligned):
     return out, buf
 
 
-def run_host_rows(fn, mags, signs, track=False, mode=ROWS_AUTO, misaligned=False):
-    """(B, n*n) int64 arrays through the row-major host entry as they lie;
-    returns its return code and the outputs (tracked: the flags too).
-    Fails if the entry wrote a word outside its output arrays."""
+def run_host(fn, mags, signs, track=False, misaligned=False):
+    """(B, n*n) int64 arrays through the host entry as they lie, on
+    16-byte-aligned storage or 8 bytes off it; the tracked kernel also
+    returns the (B,) int32 flags.  Fails if the entry wrote a word outside
+    its output arrays."""
     (m, _), (s, _) = _placed(mags, misaligned), _placed(signs, misaligned)
     (om, om_buf), (os_, os_buf) = (_placed(np.zeros_like(x), misaligned) for x in (m, s))
     ptrs = [m.ctypes.data, s.ctypes.data, om.ctypes.data, os_.ctypes.data]
     flags = np.zeros(m.shape[0], np.int32)
     if track:
         ptrs.append(flags.ctypes.data)
-    rc = fn(*ptrs, m.shape[0], mode)
+    assert fn(*ptrs, m.shape[0]) == 0
     for out, buf in ((om, om_buf), (os_, os_buf)):
         off = (out.ctypes.data - buf.ctypes.data) // 8
         assert (buf[:off] == CANARY).all() and (buf[off + out.size:] == CANARY).all(), \
             "the entry wrote outside its output array"
-    return rc, ((om, os_, flags) if track else (om, os_))
+    return (om, os_, flags) if track else (om, os_)
 
 
 def inputs(config, B, seed, singular=False):
@@ -165,18 +144,6 @@ def overflowy_inputs(config, B, seed):
     return float_matrix_to_mags_and_signs(M, length, ints, base)
 
 
-@pytest.mark.parametrize("key", list(CONFIGS))
-def test_host_kernel_matches_plain_version(host_kernels, key):
-    config = CONFIGS[key]
-    mags, signs = inputs(config, 37, seed=len(key))  # ragged, odd batch
-    got_m, got_s = run_host(host_kernels[key], mags, signs)
-    ref_m, ref_s = fused_matrix_inverse_reference(
-        torch.from_numpy(mags), torch.from_numpy(signs), *config
-    )
-    np.testing.assert_array_equal(got_m, ref_m.numpy())
-    np.testing.assert_array_equal(got_s, ref_s.numpy())
-
-
 def test_host_kernel_singular(host_kernels):
     config = CONFIGS["low3"]
     mags, signs = inputs(config, 48, seed=3, singular=True)
@@ -186,20 +153,6 @@ def test_host_kernel_singular(host_kernels):
     )
     np.testing.assert_array_equal(got_m, ref_m.numpy())
     np.testing.assert_array_equal(got_s, ref_s.numpy())
-
-
-@pytest.mark.parametrize("key", TRACKED)
-def test_tracked_host_kernel_matches_plain_version(host_kernels, key):
-    config = CONFIGS[key]
-    mags, signs = overflowy_inputs(config, 37, seed=len(key))
-    got_m, got_s, got_f = run_host(host_kernels[f"t_{key}"], mags, signs, track=True)
-    ref_m, ref_s, ref_f = fused_matrix_inverse_reference(
-        torch.from_numpy(mags), torch.from_numpy(signs), *config, track=True
-    )
-    np.testing.assert_array_equal(got_m, ref_m.numpy())
-    np.testing.assert_array_equal(got_s, ref_s.numpy())
-    np.testing.assert_array_equal(got_f, ref_f.numpy())
-    assert got_f[0] == 1 and got_f[1] == 1 and not got_f.all()
 
 
 @pytest.mark.parametrize("key", TRACKED)
@@ -213,52 +166,44 @@ def test_tracked_and_untracked_bodies_agree(host_kernels, key):
     np.testing.assert_array_equal(tracked[1], untracked[1])
 
 
-# one matrix; a ragged, odd batch inside one block; three blocks, the last
-# with an odd count of matrices
-ROWS_BATCHES = [1, 37, 261]
+# one matrix; a ragged, odd batch inside one block; exactly one block;
+# three blocks, the last with an odd count of matrices
+ROWS_BATCHES = [1, 37, 128, 261]
 
 
-def _check_rows_entry(rows, cell_major, mags, signs, ref, track):
-    """Every fetch mode of the row-major entry == the cell-major entry ==
-    the plain version ``ref``, on aligned arrays and on arrays 8 bytes off."""
-    expected = [np.asarray(r) for r in run_host(cell_major, mags, signs, track)]
-    for e, r in zip(expected, ref):
-        np.testing.assert_array_equal(e, r.numpy())
-    n2 = mags.shape[1]
+def _check_rows_entry(fn, mags, signs, ref, track):
+    """The entry == the plain version ``ref``, on aligned arrays and on
+    arrays 8 bytes off."""
     for misaligned in (False, True):
-        for mode in (ROWS_AUTO, ROWS_STAGED, ROWS_DIRECT):
-            rc, got = run_host_rows(rows, mags, signs, track, mode, misaligned)
-            # the direct mode's 128-bit loads need aligned arrays: refused, not run
-            refused = misaligned and mode == ROWS_DIRECT and n2 % 2 == 0
-            assert rc == (-1 if refused else 0), (mode, misaligned)
-            assert run_host_rows(rows, mags, signs, track, 7, misaligned)[0] == -1
-            if refused:
-                assert not any(g.any() for g in got)
-                continue
-            for g, e in zip(got, expected):
-                np.testing.assert_array_equal(g, e, err_msg=f"mode {mode} misaligned {misaligned}")
+        got = run_host(fn, mags, signs, track, misaligned)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g, r.numpy(), err_msg=f"misaligned {misaligned}")
 
 
 @pytest.mark.parametrize("B", ROWS_BATCHES)
 @pytest.mark.parametrize("key", list(CONFIGS))
 def test_host_rows_entry_matches_cell_major_and_plain(host_kernels, key, B):
+    """The entry == the plain version (the name dates from when a
+    cell-major entry stood beside it)."""
     config = CONFIGS[key]
     mags, signs = inputs(config, B, seed=B + len(key))
     ref = fused_matrix_inverse_reference(torch.from_numpy(mags), torch.from_numpy(signs), *config)
-    _check_rows_entry(host_kernels[f"rows_{key}"], host_kernels[key], mags, signs, ref, False)
+    _check_rows_entry(host_kernels[key], mags, signs, ref, False)
 
 
 @pytest.mark.parametrize("B", ROWS_BATCHES)
 @pytest.mark.parametrize("key", TRACKED)
 def test_tracked_host_rows_entry_matches_cell_major_and_plain(host_kernels, key, B):
+    """The tracked entry == the tracked plain version, flags included (the
+    name dates from when a cell-major entry stood beside it)."""
     config = CONFIGS[key]
     mags, signs = overflowy_inputs(config, max(B, 2), seed=B + len(key))
     mags, signs = mags[-B:], signs[-B:]  # B = 1: the all-zero matrix, flagged
     ref = fused_matrix_inverse_reference(
         torch.from_numpy(mags), torch.from_numpy(signs), *config, track=True)
-    assert int(ref[2][0]) == 1 or B > 2
-    _check_rows_entry(host_kernels[f"rows_t_{key}"], host_kernels[f"t_{key}"], mags, signs, ref,
-                      True)
+    flags = ref[2].numpy()
+    assert flags[0] == 1 and (B == 1 or (flags[1] == 1 and not flags.all()))
+    _check_rows_entry(host_kernels[f"t_{key}"], mags, signs, ref, True)
 
 
 def test_tracked_body_records_what_the_plain_version_records():

@@ -107,9 +107,9 @@ def test_tracked_wrapper_on_cpu_runs_plain_version():
     assert got[0].shape == (3, 2, 9) and got[2].shape == (3, 2)
     assert torch.equal(got[0].reshape(6, 9), ref_m[:6]) and torch.equal(got[2].reshape(6), ref[2][:6])
     assert profiling.counters("launch.") == before
-    meta = torch.zeros(9, 4, dtype=torch.int64, device="meta")
+    meta = torch.zeros(4, 9, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        fused_inverse.fused_inverse_cell_major(meta, meta, *args, track=True)
+        fused_inverse.fused_matrix_inverse(meta, meta, *args, track=True)
 
 
 @pytest.mark.parametrize("lowering", ["vec", "scan"])

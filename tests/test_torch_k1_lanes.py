@@ -4,13 +4,15 @@
 The kernel compiles as host C++ when ``__CUDACC__`` is not defined: every
 step of the card's kernel runs as a loop over a block's threads, the
 tiles in a heap buffer.  Built here with g++ (several at once) at HIGH n =
-3..16, untracked and tracked, and LOW n = 10 (the reciprocal path) and 13,
+3..16, untracked and tracked, LOW n = 10 (the reciprocal path) and 13, and
+the Medium formats (31 digits, 16 before the dot; MEDIUM with reciprocals,
+MEDIUM_PLUS with true division) at n = 7 and 12, untracked and tracked,
 from the same ``-D`` macros as the port's builds, it takes a ragged batch
 of 37 seeded matrices: a singular one, a near-singular one, an all-zero
 one, a pivot column with ties, magnitudes above the mask, cells of sign 0
-and, for the tracked variant, overflowing ones.  Both its entries
-(``(B, n*n)`` and cell-major) must equal, with tolerance 0 on magnitudes,
-signs and flags, the port's plain version and the JAX package's
+and, for the tracked variant, overflowing ones.  Its ``(B, n*n)`` entry
+must equal, with tolerance 0 on magnitudes, signs and flags, the port's
+plain version and the JAX package's
 ``lowering="scan"`` (jitted; its CPU compile takes 3-12 s a size up to n =
 16).  LOW n = 33, past a warp (one block a matrix), is held to the plain
 version on 3 matrices.
@@ -61,7 +63,11 @@ BUILDS_AT_ONCE = 6
 SIZES = ([(f"high{n}", "high", n, False) for n in range(3, 17)]
          + [(f"high{n}_tracked", "high", n, True) for n in range(3, 17)]
          + [(f"low{n}{suffix}", "low", n, track) for n in (10, 13)
-            for suffix, track in (("", False), ("_tracked", True))])
+            for suffix, track in (("", False), ("_tracked", True))]
+         + [(f"{label}{n}", preset, n, False) for n in (7, 12)
+            for label, preset in (("medium", "medium"), ("medium_plus", "medium+"))]
+         + [(f"{label}{n}_tracked", preset, n, True) for n in (7, 12)
+            for label, preset in (("medium", "medium"), ("medium_plus", "medium+"))])
 WIDE = ("low33", "low", 33, False)  # past a warp: one block a matrix
 WIDE_BATCH = 3
 # the host build's counters, in the order of fused_inverse_lanes_counts
@@ -85,19 +91,16 @@ def _build(root, label, config, track):
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, f"g++ failed for {label}:\n{proc.stderr}"
     lib = ctypes.CDLL(str(d / "lib.so"))
-    stem = "fused_inverse_lanes_tracked" if track else "fused_inverse_lanes"
-    pointers = [ctypes.c_void_p] * (5 if track else 4)
-    cell_major, rows = getattr(lib, f"{stem}_host"), getattr(lib, f"{stem}_rows_host")
-    cell_major.argtypes = pointers + [ctypes.c_int64]
-    rows.argtypes = pointers + [ctypes.c_int64, ctypes.c_int]
-    cell_major.restype = rows.restype = ctypes.c_int
+    fn = getattr(lib, "fused_inverse_lanes_tracked_host" if track else "fused_inverse_lanes_host")
+    fn.argtypes = [ctypes.c_void_p] * (5 if track else 4) + [ctypes.c_int64]
+    fn.restype = ctypes.c_int
     lib.fused_inverse_lanes_counts.argtypes = [ctypes.c_void_p]
-    return lib, cell_major, rows
+    return lib, fn
 
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """``{label: (library, cell-major entry, row-major entry)}``, one g++
+    """``{label: (library, host entry)}``, one g++
     build each, ``BUILDS_AT_ONCE`` at a time, the largest first."""
     root = tmp_path_factory.mktemp("k1_lanes")
     order = sorted(SIZES + [WIDE], key=lambda s: -s[2])
@@ -138,26 +141,16 @@ def _inputs(config, track, seed, batch=B):
 
 
 def _run_host(entries, mags, signs, track):
-    """Both host entries on (B, n*n) arrays: the outputs of each."""
-    _, cell_major, rows = entries
+    """The host entry on (B, n*n) arrays: its outputs."""
+    _, fn = entries
     batch = mags.shape[0]
-    outs = []
-    for layout in ("cell-major", "rows"):
-        m, s = (np.ascontiguousarray(mags.T), np.ascontiguousarray(signs.T)) \
-            if layout == "cell-major" else (mags.copy(), signs.copy())
-        om, os_ = np.empty_like(m), np.empty_like(s)
-        flags = np.full(batch, -1, np.int32)
-        ptrs = [m.ctypes.data, s.ctypes.data, om.ctypes.data, os_.ctypes.data]
-        if track:
-            ptrs.append(flags.ctypes.data)
-        if layout == "cell-major":
-            assert cell_major(*ptrs, batch) == 0
-            om, os_ = om.T, os_.T
-        else:
-            assert rows(*ptrs, batch, -1) == 0
-            assert rows(*ptrs, batch, 1) == -1  # the staged form is the only one
-        outs.append((om, os_, flags) if track else (om, os_))
-    return outs
+    om, os_ = np.empty_like(mags), np.empty_like(signs)
+    flags = np.full(batch, -1, np.int32)
+    ptrs = [mags.ctypes.data, signs.ctypes.data, om.ctypes.data, os_.ctypes.data]
+    if track:
+        ptrs.append(flags.ctypes.data)
+    assert fn(*ptrs, batch) == 0
+    return (om, os_, flags) if track else (om, os_)
 
 
 @functools.lru_cache(maxsize=None)
@@ -189,9 +182,8 @@ def test_lanes_host_build_matches_jax_scan_and_the_plain_version(host_kernels, l
     want = [np.asarray(x) for x in _jax_scan(config, track)(jnp.asarray(mags), jnp.asarray(signs))]
     for w, p in zip(want, plain):
         np.testing.assert_array_equal(p.numpy(), w)
-    for got in _run_host(host_kernels[label], mags, signs, track):
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g, w)
+    for g, w in zip(_run_host(host_kernels[label], mags, signs, track), want):
+        np.testing.assert_array_equal(g, w)
     if track:
         flags = want[2]
         assert flags.dtype == np.int32 and flags[0] == 1 and flags[1] == 1
@@ -206,9 +198,8 @@ def test_lanes_past_a_warp_matches_the_plain_version(host_kernels):
     mags, signs = _inputs(config, track, seed=33, batch=WIDE_BATCH)
     plain = fused_matrix_inverse_reference(torch.from_numpy(mags), torch.from_numpy(signs),
                                            *config)
-    for got in _run_host(host_kernels[label], mags, signs, track):
-        for g, p in zip(got, plain):
-            np.testing.assert_array_equal(g, p.numpy())
+    for g, p in zip(_run_host(host_kernels[label], mags, signs, track), plain):
+        np.testing.assert_array_equal(g, p.numpy())
 
 
 COUNTED = ["high3", "high6_tracked", "high16", "low10", "low10_tracked", "low13"]
@@ -224,14 +215,14 @@ def test_primitive_counts_are_the_circuits_less_what_the_design_removes(host_ker
     are not calls of primitives; the kernel's own are plain C++."""
     _, preset, n, track = next(s for s in SIZES if s[0] == label)
     config = _config(preset, n)
-    lib, _, rows = host_kernels[label]
+    lib, fn = host_kernels[label]
     counts = (ctypes.c_int64 * len(PRIMS))()
     lib.fused_inverse_lanes_counts(counts)  # from 0
     mags, signs = _inputs(config, track, seed=5)
     om, os_ = np.empty_like(mags), np.empty_like(signs)
     flags = np.zeros(B, np.int32)
     ptrs = [mags.ctypes.data, signs.ctypes.data, om.ctypes.data, os_.ctypes.data]
-    assert rows(*ptrs + ([flags.ctypes.data] if track else []), B, -1) == 0
+    assert fn(*ptrs + ([flags.ctypes.data] if track else []), B) == 0
     lib.fused_inverse_lanes_counts(counts)
     # a block's kMats groups all run, those past the batch on zeros
     group = max(4, 1 << (n - 1).bit_length())

@@ -4,12 +4,12 @@ n = 6..12, untracked and tracked, and LOW n = 10 (the CLI's default size).
 ``csrc/fused_inverse.cu`` with each size's emitted body compiles as host C++
 (as in tests/test_torch_emit.py), all builds at once.  A ragged batch of 37
 seeded x100 matrices, one of them singular and, for the tracked variant,
-one near-singular and one all-zero, goes through its row-major ``(B, n*n)``
-entry (the staging of the card's kernel, run as loops) and its cell-major
-entry.  Both must equal, with tolerance 0 on magnitudes, signs and flags,
-the JAX package's ``qfloat_matrix_inverse_packed_io`` /
-``qfloat_matrix_inverse_with_overflow`` at ``lowering="scan"`` and the
-port's op-by-op plain version on the same inputs.
+one near-singular and one all-zero, goes through its ``(B, n*n)`` entry
+(the staging of the card's kernel, run as loops).  It must equal, with
+tolerance 0 on magnitudes, signs and flags, the JAX package's
+``qfloat_matrix_inverse_packed_io`` / ``qfloat_matrix_inverse_with_overflow``
+at ``lowering="scan"`` and the port's op-by-op plain version on the same
+inputs.
 """
 
 import concurrent.futures
@@ -55,18 +55,15 @@ def _build(root, label, config, track):
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, f"g++ failed for {label}:\n{proc.stderr}"
     lib = ctypes.CDLL(str(d / "lib.so"))
-    stem = "fused_inverse_tracked" if track else "fused_inverse"
-    pointers = [ctypes.c_void_p] * (5 if track else 4)
-    cell_major, rows = getattr(lib, f"{stem}_host"), getattr(lib, f"{stem}_rows_host")
-    cell_major.argtypes = pointers + [ctypes.c_int64]
-    rows.argtypes = pointers + [ctypes.c_int64, ctypes.c_int]
-    cell_major.restype = rows.restype = ctypes.c_int
-    return cell_major, rows
+    fn = getattr(lib, "fused_inverse_tracked_host" if track else "fused_inverse_host")
+    fn.argtypes = [ctypes.c_void_p] * (5 if track else 4) + [ctypes.c_int64]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """``{label: (cell-major entry, row-major entry)}``, one g++ build each,
+    """``{label: host entry}``, one g++ build each,
     ``BUILDS_AT_ONCE`` at a time, the largest first."""
     root = tmp_path_factory.mktemp("k1_sizes")
     order = sorted(SIZES, key=lambda s: (-s[2], not s[3]))
@@ -89,25 +86,15 @@ def _inputs(config, track, seed):
     return float_matrix_to_mags_and_signs(M, length, ints, base)
 
 
-def _run_host(entries, mags, signs, track):
-    """Both host entries on (B, n*n) arrays: the outputs of each."""
-    cell_major, rows = entries
-    outs = []
-    for layout in ("cell-major", "rows"):
-        m, s = (np.ascontiguousarray(mags.T), np.ascontiguousarray(signs.T)) \
-            if layout == "cell-major" else (mags.copy(), signs.copy())
-        om, os_ = np.empty_like(m), np.empty_like(s)
-        flags = np.full(B, -1, np.int32)
-        ptrs = [m.ctypes.data, s.ctypes.data, om.ctypes.data, os_.ctypes.data]
-        if track:
-            ptrs.append(flags.ctypes.data)
-        if layout == "cell-major":
-            assert cell_major(*ptrs, B) == 0
-            om, os_ = om.T, os_.T
-        else:
-            assert rows(*ptrs, B, -1) == 0
-        outs.append((om, os_, flags) if track else (om, os_))
-    return outs
+def _run_host(fn, mags, signs, track):
+    """The host entry on (B, n*n) arrays: its outputs."""
+    om, os_ = np.empty_like(mags), np.empty_like(signs)
+    flags = np.full(B, -1, np.int32)
+    ptrs = [mags.ctypes.data, signs.ctypes.data, om.ctypes.data, os_.ctypes.data]
+    if track:
+        ptrs.append(flags.ctypes.data)
+    assert fn(*ptrs, B) == 0
+    return (om, os_, flags) if track else (om, os_)
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,9 +118,8 @@ def test_k1_host_build_matches_jax_scan_and_the_plain_version(host_kernels, labe
                                            *config, track=track)
     for w, p in zip(want, plain):
         np.testing.assert_array_equal(p.numpy(), w)
-    for got in _run_host(host_kernels[label], mags, signs, track):
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g, w)
+    for g, w in zip(_run_host(host_kernels[label], mags, signs, track), want):
+        np.testing.assert_array_equal(g, w)
     if track:
         flags = want[2]
         assert flags.dtype == np.int32 and flags[0] == 1 and flags[1] == 1 and not flags.all()
