@@ -4,13 +4,17 @@
 // Pallas TPU kernel) for the sizes where one thread a matrix cannot hold
 // the work: the straight-line body of fused_inverse.cu grows as n^3 (5,974
 // primitives at n = 12), keeps several n x n matrices of cells live and
-// spills tens of KB a thread.  Here a group of G lanes, G the next power of
-// two >= n (8 at n = 6-8, 16 at n = 9-16, 32 up to 32), inverts one matrix:
-// lane i owns row i.  The matrix, then L and U, lie in a tile of shared
-// memory; each lane keeps its working row in registers (the LU's
-// accumulators, then its rows of Y and of X), and the circuit runs as
-// loops over compile-time bounds, so the code grows as n^2 and its live set
-// as n.  Past n = 32 a block is one group (a matrix a block, block
+// spills tens of KB a thread.  Here a group of n lanes inverts one matrix:
+// lane i owns row i.  A warp holds floor(32 / n) groups (3 at n = 10, 2 at
+// n = 11-16), none straddling two warps, so that a group's barrier is the
+// warp's; its last 32 - floor(32 / n) n lanes belong to no group.  Every
+// step is warp-synchronous and its instruction stream the same whatever
+// the lanes a group, so a warp's throughput is its matrices.  The matrix,
+// then L and U, lie in a tile of shared memory; each lane keeps its
+// working row in registers (the LU's accumulators, then its rows of Y and
+// of X), and the circuit runs as loops over compile-time bounds, so the
+// code grows as n^2 and its live set as n.  Past n = 32 a block is one
+// group of the next power of two >= n lanes (a matrix a block, block
 // barriers, loops not unrolled): right, not fast.
 //
 // What it computes is the circuit of models/qfloat_lu.py bit for bit,
@@ -48,9 +52,11 @@
 // A lane writes only its own row of the tile in a step, and reads another
 // row only in a later step, so one barrier a step suffices.
 //
-// I/O.  A block of kThreads threads holds kMats = kThreads / G matrices.
-// It copies its matrices' (B, n*n) words into the tiles with coalesced
-// 64-bit loads, and the outputs back the same way.
+// I/O.  A block of kThreads = 128 threads holds kMats = 4 floor(32 / n)
+// matrices.  Every thread, in a group or not, copies its share of the
+// block's (B, n*n) words into the tiles with coalesced 64-bit loads, and
+// the outputs back the same way; a thread in no group computes nothing
+// and touches no tile in between, and takes part in every barrier.
 // A tile row is padded to an odd count of cells, so that the lanes'
 // accesses to one column of n rows fall into different banks.  The shared
 // memory is dynamic; past 48 KB the launch opts in.
@@ -90,12 +96,14 @@ static_assert(N >= 3 && N <= 1024, "the lanes kernel takes n in [3, 1024]");
 
 constexpr int next_pow2(int x) { return x <= 1 ? 1 : 2 * next_pow2((x + 1) / 2); }
 
-// Lanes a matrix; past 32 a group is a whole block.
-constexpr int G = next_pow2(N) < 4 ? 4 : next_pow2(N);
-constexpr bool kBlockGroup = G > 32;
-constexpr int kThreads = kBlockGroup ? G : 128;
-static_assert(kThreads % G == 0 && kThreads % 32 == 0, "a block holds whole groups and warps");
-constexpr int kMats = kThreads / G;
+// A group is n lanes, kWarpMats of them a warp; past 32 a group is a whole
+// block of the next power of two of lanes.
+constexpr bool kBlockGroup = N > 32;
+constexpr int kThreads = kBlockGroup ? next_pow2(N) : 128;
+constexpr int kWarpMats = kBlockGroup ? 1 : 32 / N;
+constexpr int kMats = kBlockGroup ? 1 : kThreads / 32 * kWarpMats;
+// The group of a thread in none: past the block's matrices, and no tile.
+constexpr int kNoGroup = kMats;
 
 // A matrix's tile, in 8-byte words: magnitudes n rows of S cells, signs
 // (int) the same, the reciprocals of U's diagonal, then ints: the pivot
@@ -106,7 +114,7 @@ constexpr int S = N | 1;
 constexpr int kMagWords = N * S;
 constexpr int kSgnWords = (N * S + 1) / 2;
 constexpr int kInvWords = N;
-constexpr int kIntWords = (2 * N + G + 1) / 2;
+constexpr int kIntWords = (3 * N + 1) / 2;
 constexpr int kMatWords = (kMagWords + kSgnWords + kInvWords + kIntWords) | 1;
 constexpr int kSmemBytes = kMats * kMatWords * 8;
 constexpr int kWords = kMats * N2;  // input words of a block, per array
@@ -245,9 +253,9 @@ struct Ctx {
   int live;       // matrices of the block below the batch
   uint64_t* smem;
   int t;          // thread in the block
-  int g;          // its group: the block's matrix g
-  int lane;
-  Tile tile;
+  int g;          // its group: the block's matrix g, or kNoGroup
+  int lane;       // its row; N in no group, and past n in a block's group
+  Tile tile;      // its group's; none in no group
 };
 
 // A lane's row in registers: the LU's accumulators, then Y's row, then X's.
@@ -493,10 +501,16 @@ QD_FN void program(R& r) {
   r.last([](const Ctx& c, Lane&) { drain(c); });
 }
 
+// Thread t's group and lane: in a warp, groups of n lanes from its first
+// lane on; the lanes after the last whole group are in none.
 QD_FN Ctx context(const Arrays& a, int64_t first, uint64_t* smem, int t) {
   const int64_t left = a.batch - first;
-  Ctx c{a, first, int(left < kMats ? left : kMats), smem, t, t / G, t % G, Tile{}};
-  c.tile = tile_of(smem, c.g);
+  const int w = t % 32;
+  const bool grouped = kBlockGroup || w < kWarpMats * N;
+  Ctx c{a, first, int(left < kMats ? left : kMats), smem, t,
+        kBlockGroup ? 0 : grouped ? t / 32 * kWarpMats + w / N : kNoGroup,
+        kBlockGroup ? t : grouped ? w % N : N, Tile{}};
+  if (grouped) c.tile = tile_of(smem, c.g);
   return c;
 }
 
@@ -637,6 +651,7 @@ extern "C" void fused_inverse_lanes_counts(int64_t* out) {
 // flags; on `stream` of the card (*_launch, returning the launch's
 // cudaError_t) or on the host (*_host).
 extern "C" int fused_inverse_lanes_block_threads() { return qlanes::kThreads; }
+extern "C" int fused_inverse_lanes_mats_per_block() { return qlanes::kMats; }
 extern "C" int fused_inverse_lanes_smem_bytes() { return qlanes::kSmemBytes; }
 
 #define LANES_CAT_(a, b) a##b

@@ -13,9 +13,12 @@ configuration each:
   grows as n^3 and spills past n = 5, so from there on it is built only to
   be timed beside the other (up to ``STRAIGHT_LINE_MAX_N``);
 - the lanes design (``csrc/fused_inverse_lanes.cu``), from
-  :data:`LANES_MIN_N`, any n as JAX's kernel: a group of lanes a matrix,
-  one row a lane, the matrix and L/U in shared memory, the circuit in
-  loops over compile-time bounds, the configuration in ``-D`` macros.
+  :data:`LANES_MIN_N`, any n as JAX's kernel: a group of n lanes a matrix,
+  floor(32/n) groups a warp, one row a lane, the matrix and L/U in shared
+  memory, the circuit in loops over compile-time bounds, the configuration
+  in ``-D`` macros.  Each launch adds the lanes its matrices fill (B*n) to
+  ``lanes.matrix_lanes`` and the lanes it launches to
+  ``lanes.launched_lanes`` (``utils/profiling.py``).
 
 Both read and write the callers' ``(B, n*n)`` layout themselves, a
 block's matrices staged through shared memory, so a call is one launch
@@ -167,9 +170,10 @@ def build(configs, design=None):
 
 @functools.lru_cache(maxsize=None)
 def _library(key, design="straight_line"):
-    """The launch function of one built library: it takes the ``(B, n*n)``
-    arrays' four pointers (five tracked: the flags), the batch and the
-    stream."""
+    """The launch function of one built library, which takes the ``(B,
+    n*n)`` arrays' four pointers (five tracked: the flags), the batch and
+    the stream; and for the lanes design ``(threads, matrices)`` of a block,
+    as the library gives them, else None."""
     with profiling.library(_LIB_NAMES[design]):
         lib = ctypes.CDLL(str(_build_one(key, design)))
     stem = ("fused_inverse_lanes" if design == "lanes" else "fused_inverse") \
@@ -177,7 +181,9 @@ def _library(key, design="straight_line"):
     fn = getattr(lib, f"{stem}_launch")
     fn.argtypes = [ctypes.c_void_p] * (5 if key[5] else 4) + [ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    if design != "lanes":
+        return fn, None
+    return fn, (lib.fused_inverse_lanes_block_threads(), lib.fused_inverse_lanes_mats_per_block())
 
 
 def _library_int(config, design, name):
@@ -198,16 +204,25 @@ def block_threads(config, design=None):
     return _library_int(config, design, f"{stem}_block_threads")
 
 
+def mats_per_block(config):
+    """The matrices a block of one config's lanes kernel holds, read from
+    its library: 4 floor(32/n) up to n = 32, then 1; builds first if
+    needed."""
+    return _library_int(config, "lanes", "fused_inverse_lanes_mats_per_block")
+
+
 def lanes_smem_bytes(config):
     """The dynamic shared memory a block of one config's lanes kernel
     takes; builds first if needed."""
     return _library_int(config, "lanes", "fused_inverse_lanes_smem_bytes")
 
 
-def _launch(fn, m, s, batch, track, design):
+def _launch(fn, per_block, m, s, n, batch, track, design):
     """Allocate the outputs like ``m``, launch ``fn`` on the current stream
-    and count the launch (``launch.fused_inverse[_lanes][_tracked]``); raises
-    if the launch is refused."""
+    and count the launch (``launch.fused_inverse[_lanes][_tracked]``), and
+    for the lanes design (``per_block``: a block's threads and matrices)
+    its matrices' lanes and the lanes it launched; raises if the launch is
+    refused."""
     om = torch.empty_like(m)
     os_ = torch.empty_like(s)
     ptrs = [m.data_ptr(), s.data_ptr(), om.data_ptr(), os_.data_ptr()]
@@ -219,6 +234,10 @@ def _launch(fn, m, s, batch, track, design):
     if err != 0:
         raise RuntimeError(f"fused_inverse ({design}) kernel launch failed: cudaError {err}")
     profiling.count(_COUNTERS[design, bool(track)])
+    if per_block is not None:
+        threads, mats = per_block
+        profiling.count("lanes.matrix_lanes", batch * n)
+        profiling.count("lanes.launched_lanes", -(-batch // mats) * threads)
     return (om, os_, flag) if track else (om, os_)
 
 
@@ -255,7 +274,7 @@ def fused_matrix_inverse(mags, signs, n, qfloat_len, qfloat_ints, qfloat_base,
     key = _key((n, qfloat_len, qfloat_ints, qfloat_base, true_division, track))
     design = _design(key, design)
     with profiling.span("k1"):
-        out = _launch(_library(key, design), mags.contiguous(), signs.contiguous(),
+        out = _launch(*_library(key, design), mags.contiguous(), signs.contiguous(), n,
                       bshape.numel(), track, design)
     if track:
         return out[0], out[1], out[2].reshape(bshape)

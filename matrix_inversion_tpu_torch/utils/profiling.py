@@ -23,7 +23,10 @@ not the user scope of ``record_function``: a user range also stands on the
 device's timeline as an annotation over the work launched inside it.
 
 **Counters** are always on: ``launch.<kernel>`` for each launch of a
-hand-written kernel, ``library.built`` and ``library.loaded`` (the misses
+hand-written kernel, ``lanes.matrix_lanes`` and ``lanes.launched_lanes`` (the
+lanes that K1's lanes design fills with a matrix's rows, B*n a launch, and
+the lanes it launches, its blocks' threads: their ratio is the share of the
+launched warps the design fills), ``library.built`` and ``library.loaded`` (the misses
 and hits of ``ops/cuda_build.py``'s cache) and ``library.ns`` (ns spent in
 building or loading a library, the emitter and the hash included,
 :func:`library`), and ``stream.device_marshal`` and ``stream.host_marshal``

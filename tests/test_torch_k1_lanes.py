@@ -15,7 +15,10 @@ must equal, with tolerance 0 on magnitudes, signs and flags, the port's
 plain version and the JAX package's
 ``lowering="scan"`` (jitted; its CPU compile takes 3-12 s a size up to n =
 16).  LOW n = 33, past a warp (one block a matrix), is held to the plain
-version on 3 matrices.
+version on 3 matrices.  A group is n lanes and a warp floor(32/n) groups,
+so batches that end part-way through a warp's groups (HIGH n = 9 and 10 at
+40 matrices, 12 a block; tracked HIGH n = 6 at 23, 20 a block) are held to
+the plain version and JAX too.
 
 The host build counts its calls of each primitive: equal to the emitted
 straight-line body's tally (``Emitter.ops``) less what the design provably
@@ -70,6 +73,9 @@ SIZES = ([(f"high{n}", "high", n, False) for n in range(3, 17)]
             for label, preset in (("medium", "medium"), ("medium_plus", "medium+"))])
 WIDE = ("low33", "low", 33, False)  # past a warp: one block a matrix
 WIDE_BATCH = 3
+# (label, batch): batches whose last block's last warp holds only some of
+# its groups, built as the SIZES of the same label
+PART_WARP = [("high9", 40), ("high10", 40), ("high6_tracked", 23)]
 # the host build's counters, in the order of fused_inverse_lanes_counts
 PRIMS = ("sadd", "mul", "divide", "invert", "gt", "blend")
 TRACKED_PRIMS = {"sadd": "sadd_t", "mul": "mul_window_t", "divide": "divide_t",
@@ -191,6 +197,28 @@ def test_lanes_host_build_matches_jax_scan_and_the_plain_version(host_kernels, l
         assert flags.all() if preset == "low" and n == 13 else not flags.all()
 
 
+@pytest.mark.parametrize("label,batch", PART_WARP, ids=[f"{s[0]}_b{s[1]}" for s in PART_WARP])
+def test_lanes_batch_ending_inside_a_warp_matches_jax_and_the_plain_version(host_kernels, label,
+                                                                            batch):
+    """The last block's last warp holds only some of its floor(32/n)
+    groups: those past the batch run on zeros, and the lanes after the
+    warp's last group belong to none."""
+    _, preset, n, track = next(s for s in SIZES if s[0] == label)
+    lib, _ = host_kernels[label]
+    per_warp = 32 // n
+    assert lib.fused_inverse_lanes_mats_per_block() == 4 * per_warp
+    assert batch % (4 * per_warp) % per_warp != 0
+    config = _config(preset, n)
+    mags, signs, plain = _case(preset, n, track, batch)
+    want = [np.asarray(x) for x in _jax_scan(config, track)(jnp.asarray(mags), jnp.asarray(signs))]
+    got = _run_host(host_kernels[label], mags, signs, track)
+    for g, p, w in zip(got, plain, want):
+        np.testing.assert_array_equal(p.numpy(), w)
+        np.testing.assert_array_equal(g, w)
+    if track:
+        assert want[2][0] == 1 and want[2][1] == 1 and not want[2].all()
+
+
 def test_lanes_past_a_warp_matches_the_plain_version(host_kernels):
     """LOW n = 33: one block of 64 threads a matrix, block barriers."""
     label, preset, n, track = WIDE
@@ -224,9 +252,11 @@ def test_primitive_counts_are_the_circuits_less_what_the_design_removes(host_ker
     ptrs = [mags.ctypes.data, signs.ctypes.data, om.ctypes.data, os_.ctypes.data]
     assert fn(*ptrs + ([flags.ctypes.data] if track else []), B) == 0
     lib.fused_inverse_lanes_counts(counts)
-    # a block's kMats groups all run, those past the batch on zeros
-    group = max(4, 1 << (n - 1).bit_length())
-    per_block = lib.fused_inverse_lanes_block_threads() // group
+    # a block's kMats groups all run, those past the batch on zeros: n
+    # lanes a group, as many whole groups a warp as fit
+    per_block = lib.fused_inverse_lanes_mats_per_block()
+    per_warp = per_block // (lib.fused_inverse_lanes_block_threads() // 32)
+    assert per_warp * n <= 32 < (per_warp + 1) * n
     matrices = -(-B // per_block) * per_block
     got = {}
     for prim, count in zip(PRIMS, counts):
