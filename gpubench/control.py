@@ -9,7 +9,8 @@ reference's own answers for as many pool batches as a run samples
 (``keep_outputs``, at the cell's batch) to the run's comparison, then does
 the same with the control's answers, written exactly in the configuration's
 format, and prints one JSON line a seed with the ``mismatched_cells`` of
-both, on the machine's first card.  The benchmark's own runs never run it.
+both (and in a tracked configuration their ``mismatched_flags``), on the
+machine's first card.  The benchmark's own runs never run it.
 """
 
 import os
@@ -27,7 +28,9 @@ from gpubench.harness import device as cards, inputs, manifest, runner  # noqa: 
 
 def readings(name, seed, device, root=manifest.ROOT, traffic=None):
     """``{"sound": n, "control": n, "cells": n}``: the mismatched cells of
-    the reference's answers and of the control's for one seed."""
+    the reference's answers and of the control's for one seed; in a tracked
+    configuration also ``sound_flags``, ``control_flags`` and ``matrices``,
+    their mismatched flags and the flags compared."""
     cell = manifest.cell(name, root)
     cell.traffic.update(traffic or {})
     cfg, tr = cell.config, cell.traffic
@@ -36,14 +39,20 @@ def readings(name, seed, device, root=manifest.ROOT, traffic=None):
     fmt = runner.fmt_of(cfg)
     low = runner.fmt_of(cfg, **{k: cfg["control"][k]
                                for k in ("qfloat_len", "qfloat_ints", "true_division")})
+    track = runner.tracked(cfg)
     out = {}
     for label, answer_fmt in (("sound", fmt), ("control", low)):
         samples = []
         for k in range(min(tr["keep_outputs"], tr["pool"])):
-            got = reference.expected(pool[k].to(device), answer_fmt, io, cells_fmt=fmt)
+            got = reference.expected(pool[k].to(device), answer_fmt, io, cells_fmt=fmt,
+                                     track=track)
             samples.append((k, tuple(g.cpu() for g in got) if isinstance(got, tuple)
                             else got.cpu().numpy() if io == "floats" else got.cpu()))
-        out[label], out["cells"], _ = runner.compare(cell, pool, samples, io, device)
+        mismatched, compared, *_ = runner.compare(cell, pool, samples, io, device)
+        out[label], out["cells"] = mismatched["mismatched_cells"], compared["mismatched_cells"]
+        if track:
+            out[f"{label}_flags"] = mismatched["mismatched_flags"]
+            out["matrices"] = compared["mismatched_flags"]
     return out
 
 

@@ -9,7 +9,9 @@ import matrix_inversion_tpu_torch  # noqa: F401  (a checkout without the program
 
 
 def inverter(config, batch, io, device):
-    """``BatchedMatrixInversion`` of the configuration at ``batch``."""
+    """``BatchedMatrixInversion`` of the configuration at ``batch``; a
+    configuration with ``"track_overflow": true`` gets the per-matrix
+    overflow flags as a third output of ``run_raw``."""
     from matrix_inversion_tpu_torch.config import QFloatParams
     from matrix_inversion_tpu_torch.runtime.api import BatchedMatrixInversion
 
@@ -18,7 +20,8 @@ def inverter(config, batch, io, device):
         qfloat_base=config["qfloat_base"], true_division=config["true_division"],
         backend=config["backend"], lowering=config["lowering"],
     )
-    return BatchedMatrixInversion(params, batch, backend=config["backend"], io=io, device=device)
+    return BatchedMatrixInversion(params, batch, backend=config["backend"], io=io, device=device,
+                                  track_overflow=config.get("track_overflow", False))
 
 
 def streaming(inv, depth, finish_workers):

@@ -78,24 +78,44 @@ def fmt_of(config, **changes):
     return {**{k: config[k] for k in keys}, **changes}
 
 
+def tracked(config):
+    """Whether the configuration asks for the overflow flags."""
+    return bool(config.get("track_overflow", False))
+
+
 def compare(cell, pool, samples, io, device, answer_fmt=None):
-    """``(mismatched cells, cells compared, answers wrong)`` of ``samples``
-    against the reference; ``answer_fmt`` replaces the configuration's
-    format for the reference's own answers (the control)."""
+    """``(mismatched, compared, wrong, flagged)`` of ``samples`` against the
+    reference: ``mismatched`` and ``compared`` map each number of
+    :data:`~.checks.LIMITS` that the cell compares (``mismatched_cells``, and
+    in a tracked configuration ``mismatched_flags``) to what differs and
+    what was compared; ``wrong`` counts the answers with anything that
+    differs; ``flagged`` is ``(matrices the samples flag, matrices the
+    reference flags)``, None untracked.  ``answer_fmt`` replaces the
+    configuration's format for the reference's own answers (the control)."""
     fmt = fmt_of(cell.config)
-    mismatched = compared = wrong = 0
+    track = tracked(cell.config)
+    names = ["mismatched_cells"] + (["mismatched_flags"] if track else [])
+    mismatched, compared = dict.fromkeys(names, 0), dict.fromkeys(names, 0)
+    wrong, flagged = 0, [0, 0]
     for k in sorted({k for k, _ in samples}):
         floats = pool[k].to(device)
-        want = reference.expected(floats, answer_fmt or fmt, io, cells_fmt=fmt)
+        want = reference.expected(floats, answer_fmt or fmt, io, cells_fmt=fmt, track=track)
         want = tuple(w.cpu() for w in want) if isinstance(want, tuple) else want.cpu()
         del floats
         for kk, got in samples:
-            if kk == k:
-                bad, cells = checks.mismatched_cells(got, want, io)
-                mismatched += bad
-                compared += cells
-                wrong += bad > 0
-    return mismatched, compared, wrong
+            if kk != k:
+                continue
+            counts = {"mismatched_cells": checks.mismatched_cells(got, want, io)}
+            if track:
+                counts["mismatched_flags"] = checks.mismatched_flags(got, want)
+                mine = checks.answer_flags(got, want)
+                flagged[0] += 0 if mine is None else int(mine.count_nonzero())
+                flagged[1] += int(want[2].count_nonzero())
+            for name, (bad, total) in counts.items():
+                mismatched[name] += bad
+                compared[name] += total
+            wrong += any(bad for bad, _ in counts.values())
+    return mismatched, compared, wrong, tuple(flagged) if track else None
 
 
 def run(name, seed, seconds, trace, t0, device=None, root=manifest.ROOT, traffic=None):
@@ -123,12 +143,15 @@ def run(name, seed, seconds, trace, t0, device=None, root=manifest.ROOT, traffic
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    mismatched, compared, wrong = compare(cell, pool, win.samples, win.io, device)
+    mismatched, compared, wrong, flagged = compare(cell, pool, win.samples, win.io, device)
     lines = ([f"card {cards.name_and_limit()}"] if device.type == "cuda" else []) + win.notes
     lines.append("set-up phases, s from process start: "
                  + ", ".join(f"{phase} {at:.3f}" for phase, at in ctx.marks))
     lines.append(f"compared {len(win.samples)} answers of {win.attempted} in the window, "
-                 f"{compared} cells, in {time.perf_counter() - t_check:.3f} s")
+                 f"{compared['mismatched_cells']} cells, in {time.perf_counter() - t_check:.3f} s")
+    if flagged is not None:
+        lines.append(f"overflow flags set in the sampled answers: {flagged[0]} by the program, "
+                     f"{flagged[1]} by the reference, of {compared['mismatched_flags']} matrices")
 
     if trace:
         metrics = {}
@@ -144,16 +167,16 @@ def run(name, seed, seconds, trace, t0, device=None, root=manifest.ROOT, traffic
                    for m in cell.end_to_end}
     _forbid("after the check and the metric readers")
     dev = cards.describe(device, cell.chips, win.memory_peak)
-    result = {"correct": mismatched == 0 and compared > 0 and win.attempted > 0,
+    result = {"correct": not any(mismatched.values()) and compared["mismatched_cells"] > 0
+              and win.attempted > 0,
               "attempted": win.attempted, "failed": wrong, "metrics": metrics, "device": dev}
     if trace and win.summary is not None:
         dev["busy_s"] = win.summary.busy_s()
         dev["window_s"] = win.summary.window_s
         result["breakdown"] = {"device_ops": win.summary.device_ops(),
                                "idle_gaps": win.summary.idle_gaps()}
-    values = {"mismatched_cells": mismatched}
-    result["checks"] = {k: {"value": v, "limit": checks.LIMITS[k]} for k, v in values.items()}
-    lines += [f"check {k} {v} limit {checks.LIMITS[k]}" for k, v in values.items()]
+    result["checks"] = {k: {"value": v, "limit": checks.LIMITS[k]} for k, v in mismatched.items()}
+    lines += [f"check {k} {v} limit {checks.LIMITS[k]}" for k, v in mismatched.items()]
     return result, lines
 
 

@@ -19,6 +19,13 @@ or on a card as it is, and gives the bits of the reference's digit loops:
   build-time types: a zero that prunes its operations, a value in {-1, 0, 1}
   (the pivot permutation, the diagonal of L) that only moves signs.
 
+Tracked (``inverse(..., track=True)``), every operation that drops digits
+past the top of its window records a per-matrix flag, and a matrix's flag is
+the OR of them all: a sum's carry past the top digit on tidy, a quotient or
+an inverse with digits past its top, and a product whose windowed sum
+carries out of the window (:func:`mul_window`, with its quirks).  The
+magnitudes and signs are those of the untracked circuit.
+
 The argmax of the pivot blends the magnitude of its running maximum and not
 its sign, as the reference's ``qfloat_argmax`` does.
 """
@@ -42,14 +49,17 @@ class Bin:
 class Cell:
     """A QFloat of base ``2**bits``: ``length`` digits, ``ints`` of them
     before the dot, magnitude ``mag`` (int64 tensor), sign ``sign`` (an int
-    or an int64 tensor in {-1, 0, 1}; 0 makes the value act as zero)."""
+    or an int64 tensor in {-1, 0, 1}; 0 makes the value act as zero).
+    ``flags`` is the list of overflow flags of the inversion the cell is part
+    of, shared by all its cells, or None where it is not tracked."""
 
-    def __init__(self, mag, sign, length, ints, bits):
+    def __init__(self, mag, sign, length, ints, bits, flags=None):
         self.mag, self.sign = mag, sign
         self.length, self.ints, self.bits = length, ints, bits
+        self.flags = flags
 
     def like(self, mag, sign):
-        return Cell(mag, sign, self.length, self.ints, self.bits)
+        return Cell(mag, sign, self.length, self.ints, self.bits, self.flags)
 
     def mask(self, digits=None):
         return (1 << (self.bits * (self.length if digits is None else digits))) - 1
@@ -64,8 +74,11 @@ def _as_tensor(sign, like):
 
 
 def _tidy(cell, v):
-    """A cell of ``cell``'s format holding the signed integer ``v``."""
+    """A cell of ``cell``'s format holding the signed integer ``v``; a carry
+    past the top digit is dropped, and recorded."""
     mag = v.abs() & cell.mask()
+    if cell.flags is not None:
+        cell.flags.append(v.abs() > cell.mask())
     return cell.like(mag, torch.where((v < 0) & (mag != 0), -1, 1))
 
 
@@ -123,6 +136,37 @@ def mul_trunc(a_mag, a_len, a_ints, b_mag, b_len, b_ints, newlength, newints, bi
     return acc & out_mask
 
 
+def mul_window(a_mag, a_len, a_ints, b_mag, b_len, b_ints, newlength, newints, bits):
+    """The product as the tracked circuit forms it, to see its overflow:
+    ``(magnitude, carry)``.  For each digit of ``a`` (from the top, index
+    ``i``, place ``bits * (a_len - 1 - i)``), digit ``k`` of ``b`` lands on
+    digit ``i + k + newints - a_ints - b_ints + 1`` of the output (from its
+    top); the digits of ``b`` that land on ``0 .. newlength - 1`` are
+    multiplied by the digit of ``a``, put in their place and summed.  The
+    magnitude is the sum's low ``newlength`` digits, the same as
+    :func:`mul_trunc`'s; ``carry`` is whether the sum has a bit above them.
+
+    Two quirks of that flag, kept as the circuit has them:
+
+    * the sum wraps mod 2**64 (int64 here, as uint64 there), so a carry
+      that reaches 2**64 and leaves no bit below it goes unseen;
+    * digits of ``b`` that land above the output's top digit are left out
+      before the sum, so what they would add is dropped and never flagged.
+    """
+    out_mask = (1 << (bits * newlength)) - 1
+    digit = (1 << bits) - 1
+    acc = torch.zeros_like(a_mag + b_mag)
+    for i in range(a_len):
+        top = newints - a_ints - b_ints + 1 + i  # the output digit of b's digit 0
+        first, end = max(0, -top), min(b_len, newlength - top)
+        if end <= first:
+            continue
+        window = (b_mag >> (bits * (b_len - end))) & ((1 << (bits * (end - first))) - 1)
+        a_i = (a_mag >> (bits * (a_len - 1 - i))) & digit
+        acc = acc + (window << (bits * (newlength - top - end))) * a_i
+    return acc & out_mask, (acc & ~out_mask) != 0
+
+
 def mul(a, b, newlength=None, newints=None):
     """``a * b``; two QFloats give the windowed product in ``a``'s format,
     or in ``(newlength, newints)``."""
@@ -137,8 +181,13 @@ def mul(a, b, newlength=None, newints=None):
         return cell.like(cell.mag, cell.sign * factor.value)
     length = a.length if newlength is None else newlength
     ints = a.ints if newints is None else newints
-    mag = mul_trunc(a.mag, a.length, a.ints, b.mag, b.length, b.ints, length, ints, a.bits)
-    return Cell(mag, a.sign * b.sign, length, ints, a.bits)
+    operands = (a.mag, a.length, a.ints, b.mag, b.length, b.ints, length, ints, a.bits)
+    if a.flags is None:
+        mag = mul_trunc(*operands)
+    else:
+        mag, carry = mul_window(*operands)
+        a.flags.append(carry)
+    return Cell(mag, a.sign * b.sign, length, ints, a.bits, a.flags)
 
 
 def floor_div(dividend, divisor, n_bits):
@@ -149,22 +198,30 @@ def floor_div(dividend, divisor, n_bits):
 
 
 def div(a, b):
-    """True division of two QFloats of one format."""
+    """True division of two QFloats of one format; quotient digits past the
+    top are dropped, and recorded (a zero divisor's saturated quotient has
+    them)."""
     frac = a.length - a.ints
     n_bits = a.bits * (a.length + frac)
     q = floor_div(a.mag << (a.bits * frac), b.mag, n_bits)
+    if a.flags is not None:
+        a.flags.append((q >> (a.bits * a.length)) != 0)
     return a.like(q & a.mask(), a.sign * b.sign)
 
 
 def invert(a, sign, newlength, newints):
-    """``sign / a`` in the format ``(newlength, newints)``."""
+    """``sign / a`` in the format ``(newlength, newints)``; digits past its
+    top are dropped, and recorded, where the format is narrower than the
+    quotient."""
     frac, frac_self = newlength - newints, a.length - a.ints
     n_digits = 1 + frac_self + frac
     dividend = torch.full_like(a.mag, 1 << (a.bits * (frac_self + frac)))
     q = floor_div(dividend, a.mag, a.bits * n_digits)
     if newlength < n_digits:
+        if a.flags is not None:
+            a.flags.append((q >> (a.bits * newlength)) != 0)
         q = q & ((1 << (a.bits * newlength)) - 1)
-    return Cell(q, sign * a.sign, newlength, newints, a.bits)
+    return Cell(q, sign * a.sign, newlength, newints, a.bits, a.flags)
 
 
 def greater(a, b):
@@ -272,9 +329,10 @@ def inverse_2x2(M, length, ints):
     return [[m(d), neg(m(b))], [neg(m(c)), m(a)]]
 
 
-def inverse_cells(mags, signs, n, length, ints, bits, true_division):
-    """``(..., n*n)`` int64 magnitudes and signs -> the inverse's cells."""
-    M = [[Cell(mags[..., i * n + j], signs[..., i * n + j], length, ints, bits)
+def inverse_cells(mags, signs, n, length, ints, bits, true_division, flags=None):
+    """``(..., n*n)`` int64 magnitudes and signs -> the inverse's cells;
+    ``flags``, a list, takes the overflow flags of every operation."""
+    M = [[Cell(mags[..., i * n + j], signs[..., i * n + j], length, ints, bits, flags)
           for j in range(n)] for i in range(n)]
     if n == 2:
         return inverse_2x2(M, length, ints)
@@ -283,14 +341,22 @@ def inverse_cells(mags, signs, n, length, ints, bits, true_division):
     return lu_inverse(P, L, U, length, ints, true_division)
 
 
-def inverse(mags, signs, n, length, ints, bits, true_division):
+def inverse(mags, signs, n, length, ints, bits, true_division, track=False):
     """The QFloat inverse of a batch: ``(..., n*n)`` int64 magnitudes and
-    signs in, the same out."""
-    cells = [c for row in inverse_cells(mags, signs, n, length, ints, bits, true_division)
+    signs in, the same out; ``track`` adds a third output, the int32 flag of
+    each matrix (the batch's shape): 1 where some operation overflowed."""
+    flags = [] if track else None
+    cells = [c for row in inverse_cells(mags, signs, n, length, ints, bits, true_division, flags)
              for c in row]
     if not all(isinstance(c, Cell) for c in cells):
         raise TypeError("every cell of an inverse is a QFloat")
     out_mags = torch.stack([torch.broadcast_to(c.mag, mags.shape[:-1]) for c in cells], -1)
     out_signs = torch.stack(
         [torch.broadcast_to(_as_tensor(c.sign, c.mag), mags.shape[:-1]) for c in cells], -1)
-    return out_mags.to(torch.int64), out_signs.to(torch.int64)
+    out = out_mags.to(torch.int64), out_signs.to(torch.int64)
+    if not track:
+        return out
+    overflowed = torch.zeros(mags.shape[:-1], dtype=torch.bool, device=mags.device)
+    for flag in flags:
+        overflowed |= flag
+    return out + (overflowed.to(torch.int32),)

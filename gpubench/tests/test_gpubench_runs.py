@@ -1,7 +1,8 @@
 """Whole runs of each cell on the CPU at tiny sizes: sound runs are correct;
 runs with the timed path broken underneath are not (the state returned
 unchanged, half the batch left out, one answer altered where it is
-produced); the control, the reference in a lower precision, is not; and
+produced; in a cell that tracks overflow, every flag flipped or no flags
+returned); the control, the reference in a lower precision, is not; and
 configurations, traffic mixes, cells and metric readers added as files pass
 the same checks, through the same functions, as the cells of the manifest."""
 
@@ -21,6 +22,9 @@ from matrix_inversion_tpu_torch.runtime.api import BatchedMatrixInversion
 
 CPU = torch.device("cpu")
 CELLS = [w["name"] for w in manifest.load()["workloads"]]
+TRACKED = [name for name in CELLS if runner.tracked(manifest.cell(name).config)]
+#: the keys of a result line, without the traced run's ``breakdown``
+RESULT_KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 SEED = 2**31 + 101
 #: a CPU run's window holds this many warm calls of the cell's inversion at
 #: its tiny size, after the profiled stretch where there is one, and lasts no
@@ -66,9 +70,11 @@ def check_sound(name, trace, small, root=manifest.ROOT):
     the result."""
     result, lines = _run(name, small, trace, root)
     assert result["correct"] and result["failed"] == 0 and result["attempted"] > 0
-    assert lines[-1] == "check mismatched_cells 0 limit 0"
-    assert list(result)[-1] == "checks"
     cell = manifest.cell(name, root)
+    checked = ["mismatched_cells"] + (["mismatched_flags"] if runner.tracked(cell.config) else [])
+    assert lines[-len(checked):] == [f"check {k} 0 limit 0" for k in checked]
+    assert list(result["checks"]) == checked
+    assert [k for k in result if k != "breakdown"] == RESULT_KEYS
     expected = cell.per_layer if trace else cell.end_to_end
     assert set(result["metrics"]) <= {m["name"] for m in expected}
     if not trace:
@@ -122,8 +128,8 @@ def check_fault(name, fault, small, monkeypatch, root=manifest.ROOT):
         result, lines = _run(name, small, root=root)
     assert not result["correct"] and result["failed"] > 0
     assert result["checks"]["mismatched_cells"]["value"] > 0
-    assert lines[-1].startswith("check mismatched_cells ")
-    assert not lines[-1].endswith(" 0 limit 0")
+    (line,) = [line for line in lines if line.startswith("check mismatched_cells ")]
+    assert not line.endswith(" 0 limit 0")
 
 
 def check_control(name, small, root=manifest.ROOT):
@@ -149,6 +155,39 @@ def test_a_broken_timed_path_is_not_correct(name, fault, small, monkeypatch):
 @pytest.mark.parametrize("name", CELLS)
 def test_the_control_is_not_correct(name, small):
     check_control(name, small)
+
+
+def _flipped(run_raw):
+    def broken(self, a, signs):
+        mags, signs_out, flags = run_raw(self, a, signs)
+        return mags, signs_out, 1 - flags
+    return broken
+
+
+def _no_flags(run_raw):
+    return lambda self, a, signs: run_raw(self, a, signs)[:2]
+
+
+@pytest.mark.parametrize("fault", [_flipped, _no_flags], ids=lambda f: f.__name__[1:])
+@pytest.mark.parametrize("name", TRACKED)
+def test_broken_flags_are_not_correct(name, fault, small, monkeypatch):
+    """The inverse right and every flag wrong, or missing: every sampled
+    matrix counts, and the answers' cells still match."""
+    window_s(name, manifest.ROOT, small, False)
+    with monkeypatch.context() as patch:
+        patch.setattr(BatchedMatrixInversion, "run_raw", fault(BatchedMatrixInversion.run_raw))
+        result, lines = _run(name, small)
+    matrices = small(name, manifest.ROOT)["batch"] * min(
+        small(name, manifest.ROOT)["keep_outputs"], result["attempted"])
+    assert not result["correct"] and result["failed"] > 0
+    assert result["checks"]["mismatched_cells"]["value"] == 0
+    assert result["checks"]["mismatched_flags"]["value"] == matrices
+    assert lines[-1] == f"check mismatched_flags {matrices} limit 0"
+
+
+def test_the_tracked_cell_is_there():
+    assert TRACKED == ["high_n4_tracked.device"]
+    assert manifest.cell(TRACKED[0]).traffic["io"] == "packed"
 
 
 def _add_files(root):
