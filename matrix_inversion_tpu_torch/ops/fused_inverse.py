@@ -9,9 +9,11 @@ configuration each:
 - the straight-line design (``csrc/fused_inverse.cu``), for n below
   :data:`LANES_MIN_N` (tracked: :data:`LANES_MIN_N_TRACKED`): one thread a
   matrix, every cell in registers, the body emitted per configuration from
-  the circuit by :mod:`.emit` (n = 2's closed form included).  Its body
-  grows as n^3 and spills past n = 5, so from there on it is built only to
-  be timed beside the other (up to ``STRAIGHT_LINE_MAX_N``);
+  the circuit by :mod:`.emit`.  At n = 2 that body is the closed form
+  adj(M)/det(M), and each launch there adds its B matrices to
+  ``k1.closed_form_matrices``.  The body grows as n^3 and spills past
+  n = 5, so from there on it is built only to be timed beside the other
+  (up to ``STRAIGHT_LINE_MAX_N``);
 - the lanes design (``csrc/fused_inverse_lanes.cu``), from
   :data:`LANES_MIN_N`, any n as JAX's kernel: a group of n lanes a matrix,
   floor(32/n) groups a warp, one row a lane, the matrix and L/U in shared
@@ -219,10 +221,10 @@ def lanes_smem_bytes(config):
 
 def _launch(fn, per_block, m, s, n, batch, track, design):
     """Allocate the outputs like ``m``, launch ``fn`` on the current stream
-    and count the launch (``launch.fused_inverse[_lanes][_tracked]``), and
-    for the lanes design (``per_block``: a block's threads and matrices)
-    its matrices' lanes and the lanes it launched; raises if the launch is
-    refused."""
+    and count the launch (``launch.fused_inverse[_lanes][_tracked]``), at
+    n = 2 (the closed form) its matrices, and for the lanes design
+    (``per_block``: a block's threads and matrices) its matrices' lanes and
+    the lanes it launched; raises if the launch is refused."""
     om = torch.empty_like(m)
     os_ = torch.empty_like(s)
     ptrs = [m.data_ptr(), s.data_ptr(), om.data_ptr(), os_.data_ptr()]
@@ -234,6 +236,8 @@ def _launch(fn, per_block, m, s, n, batch, track, design):
     if err != 0:
         raise RuntimeError(f"fused_inverse ({design}) kernel launch failed: cudaError {err}")
     profiling.count(_COUNTERS[design, bool(track)])
+    if n == 2:
+        profiling.count("k1.closed_form_matrices", batch)
     if per_block is not None:
         threads, mats = per_block
         profiling.count("lanes.matrix_lanes", batch * n)

@@ -26,7 +26,9 @@ device's timeline as an annotation over the work launched inside it.
 hand-written kernel, ``lanes.matrix_lanes`` and ``lanes.launched_lanes`` (the
 lanes that K1's lanes design fills with a matrix's rows, B*n a launch, and
 the lanes it launches, its blocks' threads: their ratio is the share of the
-launched warps the design fills), ``library.built`` and ``library.loaded`` (the misses
+launched warps the design fills), ``k1.closed_form_matrices`` (the matrices
+of each K1 launch at n = 2, whose straight-line body is the closed form
+adj(M)/det(M)), ``library.built`` and ``library.loaded`` (the misses
 and hits of ``ops/cuda_build.py``'s cache) and ``library.ns`` (ns spent in
 building or loading a library, the emitter and the hash included,
 :func:`library`), and ``stream.device_marshal`` and ``stream.host_marshal``
